@@ -32,7 +32,29 @@ it fails:
    main path, its error there (and over the sweeps of phases 4-5), its
    time, the plain version's, and the bound (the larger of bytes over
    3.35 TB/s and operations over the peak rate of their type, H100 SXM
-   data sheet).
+   data sheet), printed after phase 10 with all four kernels;
+8. the CUDA ``decoder_fwd_train_mega`` (the teacher-forced decoder forward)
+   against its plain version at full width on seeded weights: B in {2, 16},
+   T_enc=128 with a ragged mask, T_dec=64, fp32 and bf16, dropout 0.1/0.1
+   with seeded masks and once with dropout off; all nine outputs, each
+   with its own limit (``FWD_TOL``);
+9. the CUDA ``decoder_bwd_chain_mega`` (the split-BPTT reverse chain)
+   against its plain version on the series phase 8 stored and seeded
+   cotangents: all nine outputs, each with its own limit (``BWD_TOL``),
+   and two runs bit for bit; then the whole ``decoder_scan_bptt``
+   gradient (parameters, prenet frames, memory, pm) at B=2, T_dec=32 in
+   fp32: kernel pair against plain pair, and against ``torch.autograd``
+   through the plain step loop;
+10. the training main path: ``create_train_state`` at the full
+    ``ModelConfig()`` width with ``precision="bfloat16"``, a batch collated
+    from seeded token ids and log-mels (B=16, T_enc=128, T_dec=512, ragged
+    lengths), ``init_projection_bias``, three ``train_step``s (the first
+    with the postnet bypassed), one ``train_step_accum`` of two
+    micro-batches of 8 and one ``eval_step``, with the launch counters
+    zeroed before and read after; before it, on the same batch and masks,
+    the first step's gradients by the kernel route against the plain
+    route, and both kernels against their plain versions on that step's
+    own inputs.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of ``tacotron2_tpu``.
@@ -63,6 +85,36 @@ DEC_OUTPUTS = ("mels", "gates", "aligns")
 DEC_TOL = {torch.float32: {"mels": 1e-4, "gates": 1e-4, "aligns": 1e-5},
            torch.bfloat16: {"mels": 5e-3, "gates": 5e-3, "aligns": 1e-3}}
 MAIN_TOL = 5e-2         # bf16 postnet mels, kernel vs step loop / CPU
+# training kernels vs their plain versions, one limit per output.  An
+# element may differ by BF16_ULPS roundings of the plain value where the
+# output is stored in bf16 (both sides round at the same places, and a sum
+# taken in another order flips a rounding now and then), and beyond that by
+# the output's limit times the plain output's mean size (frames: about
+# their per-channel mean, which is the projection bias and no product).
+# The limits come from readings on an H100 (PERF.md has them) and stand
+# about 4 times above the largest: fp32 read at most 2.6e-5 over the sweep
+# of phases 8-9; bf16 has a table for that sweep (T_dec=64) and one for the
+# training main path's own step (T_dec=512, where a flipped rounding has 8
+# times as many steps to carry through and the cotangents are the loss's).
+FWD_OUT = ("frames", "attn", "ha_s", "ca_s", "hd_s", "cd_s", "qsum_s",
+           "aa_s", "ad_s")
+BWD_OUT = ("g_att_s", "g_dec_s", "d_ctx_s", "d_pre_s", "d_qsum_s", "d_pq_s",
+           "dv", "dpm", "scal")
+BF16_ULPS = 2
+PAIR_TOL = {
+    torch.float32: {n: 1e-4 for n in FWD_OUT + BWD_OUT},
+    torch.bfloat16: dict(
+        frames=3e-2, attn=1.2e-2, ha_s=4e-3, ca_s=5e-3, hd_s=1e-2,
+        cd_s=1.1e-2, qsum_s=1.6e-2, aa_s=6e-3, ad_s=1.8e-2, g_att_s=4.5e-2,
+        g_dec_s=1e-2, d_ctx_s=4e-3, d_pre_s=4e-2, d_qsum_s=4.4e-2,
+        d_pq_s=4e-2, dv=1e-2, dpm=4e-2, scal=1.7e-3)}
+MAIN_PAIR_TOL = dict(
+    frames=5.4e-2, attn=2.1e-2, ha_s=4e-3, ca_s=4e-3, hd_s=1e-2, cd_s=1.3e-2,
+    qsum_s=5.2e-2, aa_s=4e-3, ad_s=2e-2, g_att_s=1e-1, g_dec_s=2.8e-2,
+    d_ctx_s=1.5e-2, d_pre_s=1e-1, d_qsum_s=6e-4, d_pq_s=1.2e-3, dv=1e-4,
+    dpm=1.6e-3, scal=1e-4)
+BPTT_TOL = 1e-3         # fp32 gradients, kernel pair vs plain pair/autograd
+GRAD_TOL = 5e-2         # bf16 train-step gradients, kernel vs plain route
 MAX_STEPS = 400
 FORCED_STOP = 300
 SEED = 0
@@ -145,6 +197,485 @@ def bound(n_bytes: float, n_ops: float, dtype: torch.dtype):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_outputs(names, got, ref, tol, where: str):
+    """Hold a training kernel's outputs against its plain version's.  Per
+    element the error may reach BF16_ULPS bf16 roundings of the plain value
+    (outputs stored in bf16 only; a rounding is at most 2^-7 of the value) plus ``tol[name]`` times the plain
+    output's mean size.  Returns {name: max abs error}."""
+    errs, parts = {}, []
+    for name, g, r in zip(names, got, ref):
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f"{where}: {name} is {tuple(g.shape)} {g.dtype}, plain "
+              f"{tuple(r.shape)} {r.dtype}")
+        check(bool(torch.isfinite(g).all()), f"{where}: non-finite {name}")
+        stored_bf16 = r.dtype == torch.bfloat16
+        g, r = g.detach().float(), r.detach().float()
+        err = (g - r).abs()
+        if stored_bf16:     # one bf16 step is at most 2^-7 of the value
+            err_over = (err - BF16_ULPS * 2.0 ** -7 * r.abs()).clamp_(min=0)
+        else:
+            err_over = err
+        if name == "frames":
+            r = r - r.mean(dim=(0, 1), keepdim=True)
+        scale = float(r.abs().mean())
+        errs[name] = float(err.max())
+        share = float(err_over.max()) / scale
+        parts.append(f"{name} {errs[name]:.2e}: "
+                     + (f"past {BF16_ULPS} roundings " if stored_bf16 else "")
+                     + f"{share:.2e} of mean {scale:.2e} (limit "
+                     f"{tol[name]:g})")
+        check(share <= tol[name],
+              f"{where}: {name} error {errs[name]}, {share} of its mean "
+              f"size {scale}, limit {tol[name]}")
+    print(f"[{where}] max err " + ", ".join(parts), flush=True)
+    return errs
+
+
+def grad_errors(got, ref, floor: float):
+    """Per tensor, max |got - ref| over (max |ref| + floor x the largest
+    gradient of all): the rule of the JAX package's kernel tests."""
+    gscale = max(float(r.float().abs().max()) for r in ref.values())
+    return {n: float((got[n].float() - r.float()).abs().max())
+            / (float(r.float().abs().max()) + floor * gscale)
+            for n, r in ref.items()}
+
+
+def profile_step(fn):
+    """Run ``fn`` once under torch.profiler.  Returns (fn's result, wall ms,
+    {kernel name: device ms}, device busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    by_kernel = {e.key: e.self_device_time_total / 1e3
+                 for e in prof.key_averages() if e.self_device_time_total > 0}
+    return out, wall_ms, by_kernel, sum(by_kernel.values())
+
+
+def kernel_ms(by_kernel, name: str):
+    ms = sum(v for k, v in by_kernel.items() if name in k)
+    return ms if ms > 0 else None
+
+
+def train_kernel_phases(dev, base, cfg):
+    """Phases 8 and 9.  Returns each kernel's largest absolute error over
+    the sweep."""
+    from tacotron2_torch.models.decoder import decode_step, init_carry
+    from tacotron2_torch.models.tacotron2 import (cast_params_bf16,
+                                                  make_pad_mask)
+    from tacotron2_torch.ops.decoder_bptt import (core_params,
+                                                  decoder_scan_bptt)
+    from tacotron2_torch.ops.decoder_bwd_kernel import (
+        decoder_bwd_chain_mega, decoder_bwd_chain_reference)
+    from tacotron2_torch.ops.decoder_train_kernel import (
+        decoder_fwd_train_mega, decoder_fwd_train_reference, kernel_operands)
+
+    h, t_enc = cfg.decoder_rnn_dim, 128
+    sweep_err = {"fwd": 0.0, "bwd": 0.0}
+
+    def inputs(dec, b, t_dec, dropout, seed):
+        g = torch.Generator().manual_seed(seed)
+        r = lambda *shape: torch.randn(*shape, generator=g)
+        pre = torch.relu(r(t_dec, b, cfg.prenet_dim) * 0.5).to(dev)
+        memory = (r(b, t_enc, cfg.encoder_embedding_dim) * 0.5).to(dev)
+        with torch.no_grad():
+            pm = dec.attention.memory_layer(memory)
+        lens = torch.tensor([t_enc - 37 * (i % 3) for i in range(b)])
+        mask = make_pad_mask(lens, t_enc).to(dev)
+        keep = lambda: ((torch.rand(t_dec, b, h, generator=g) < 0.9).to(dev)
+                        if dropout else None)
+        cots = ((r(t_dec, b, cfg.n_mels + 1) * 0.1).to(dev),
+                (r(t_dec, b, t_enc) * 0.1).to(dev))
+        return (pre, memory, pm, mask, keep(), keep()), cots
+
+    for dtype in (torch.float32, torch.bfloat16):
+        m = base if dtype == torch.float32 else cast_params_bf16(base)
+        dec = copy.deepcopy(m.decoder).to(dev)
+        ops = kernel_operands(core_params(dec))
+        for b, dropout in ((2, True), (16, True), (16, False)):
+            c = cfg if dropout else dataclasses.replace(
+                cfg, p_attention_dropout=0.0, p_decoder_dropout=0.0)
+            ins, cots = inputs(dec, b, 64, dropout, seed=200 + b)
+            tag = (f"{str(dtype)[6:]} B={b} T_dec=64 dropout "
+                   f"{'0.1/0.1' if dropout else 'off'}")
+            # 8. forward kernel vs plain
+            got = decoder_fwd_train_mega(c, ops, *ins)
+            torch.cuda.synchronize()
+            ref = decoder_fwd_train_reference(c, ops, *ins)
+            errs = compare_outputs(FWD_OUT, got, ref, PAIR_TOL[dtype],
+                                   f"decoder_fwd_train_mega {tag}")
+            sweep_err["fwd"] = max(sweep_err["fwd"], *errs.values())
+            ms = time_ms(lambda: decoder_fwd_train_mega(c, ops, *ins), 2,
+                         warm=0)
+            print(f"[decoder_fwd_train_mega {tag}] {ms:.3f} ms, "
+                  f"{ms * 1e3 / 64:.1f} us/step, grid "
+                  f"{decoder_fwd_train_mega.last_grid_blocks} blocks",
+                  flush=True)
+            # 9. reverse-chain kernel vs plain, on the series the forward
+            # kernel stored
+            _, attns, _, ca_s, _, cd_s, qsum_s, aa_s, ad_s = got
+            bargs = (c, ops, ins[1], ins[4], ins[5], aa_s, ad_s, ca_s, cd_s,
+                     attns, qsum_s, *cots)
+            gotb = decoder_bwd_chain_mega(*bargs)
+            again = decoder_bwd_chain_mega(*bargs)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(gotb, again)),
+                  f"decoder_bwd_chain_mega {tag}: two runs differ")
+            errs = compare_outputs(BWD_OUT, gotb,
+                                   decoder_bwd_chain_reference(*bargs),
+                                   PAIR_TOL[dtype],
+                                   f"decoder_bwd_chain_mega {tag}")
+            sweep_err["bwd"] = max(sweep_err["bwd"], *errs.values())
+            ms = time_ms(lambda: decoder_bwd_chain_mega(*bargs), 2, warm=0)
+            print(f"[decoder_bwd_chain_mega {tag}] two runs bit for bit; "
+                  f"{ms:.3f} ms, {ms * 1e3 / 64:.1f} us/step, grid "
+                  f"{decoder_bwd_chain_mega.last_grid_blocks} blocks",
+                  flush=True)
+        del dec
+
+    # 9. the whole decoder_scan_bptt gradient, fp32, B=2, T_dec=32
+    dec = copy.deepcopy(base.decoder).to(dev)
+    ins, _ = inputs(dec, 2, 32, True, seed=300)
+    weights = (torch.randn(32, 2, t_enc,
+                           generator=torch.Generator().manual_seed(301)) * 0.1
+               ).to(dev)
+
+    def grads_of(route):
+        p = {n: x.detach().clone().requires_grad_(True)
+             for n, x in core_params(dec).items()}
+        pre, memory, pm = (x.detach().clone().requires_grad_(True)
+                           for x in ins[:3])
+        mask, mka, mkd = ins[3:]
+        if route == "autograd":
+            # the plain step loop (the real location conv, the attention
+            # tail's own backward), differentiated by torch.autograd
+            d2 = copy.deepcopy(dec)
+            carry = init_carry(2, t_enc, cfg, dev)
+            outs = []
+            for t in range(32):
+                carry, o = decode_step(d2, pre[t], carry, memory, pm, mask,
+                                       train=True,
+                                       step_masks=(mka[t], mkd[t]))
+                outs.append(o)
+            out = tuple(torch.stack(x) for x in zip(*outs))
+            p = core_params(d2)
+        else:
+            c = dataclasses.replace(cfg, decoder_megakernel=route == "kernel")
+            out = decoder_scan_bptt(c, p, pre, memory, pm, mask, mka, mkd)
+        loss = ((out[0] ** 2).sum() + (out[1] ** 2).sum()
+                + (out[2] * weights).sum())
+        loss.backward()
+        g = {n: x.grad for n, x in p.items()}
+        g.update(prenet=pre.grad, memory=memory.grad, pm=pm.grad)
+        return float(loss.detach()), g
+
+    counts = (decoder_fwd_train_mega.launches, decoder_bwd_chain_mega.launches)
+    lk, gk = grads_of("kernel")
+    check((decoder_fwd_train_mega.launches - counts[0],
+           decoder_bwd_chain_mega.launches - counts[1]) == (1, 1),
+          "decoder_scan_bptt did not launch the kernel pair once each")
+    for other in ("plain", "autograd"):
+        lo, go = grads_of(other)
+        errs = grad_errors(gk, go, 1e-3)
+        worst = max(errs, key=errs.get)
+        print(f"[decoder_scan_bptt fp32 B=2 T_dec=32] kernel pair vs "
+              f"{other}: loss {lk:.6f} vs {lo:.6f}; {len(errs)} gradients, "
+              f"worst {worst} {errs[worst]:.2e} (limit {BPTT_TOL})",
+              flush=True)
+        check(abs(lk - lo) <= BPTT_TOL * abs(lo), f"bptt loss vs {other}")
+        check(errs[worst] <= BPTT_TOL,
+              f"decoder_scan_bptt vs {other}: {worst} off by {errs[worst]}")
+    return sweep_err
+
+
+def train_main_path(dev):
+    """Phase 10.  Returns the kernels-line entries of the two training
+    kernels and attention_tail's launches on this path."""
+    from tacotron2_torch.config import Config
+    from tacotron2_torch.data.dataset import Example, collate
+    from tacotron2_torch.models.encoder import encoder_apply
+    from tacotron2_torch.models.layers import BatchNorm
+    from tacotron2_torch.models.postnet import postnet_apply
+    from tacotron2_torch.models.tacotron2 import (cast_params_bf16,
+                                                  init_projection_bias)
+    from tacotron2_torch.ops import decoder_bptt
+    from tacotron2_torch.ops.attention_kernel import attention_tail
+    from tacotron2_torch.ops.decoder_bwd_kernel import (
+        decoder_bwd_chain_mega, decoder_bwd_chain_reference)
+    from tacotron2_torch.ops.decoder_train_kernel import (
+        decoder_fwd_train_mega, decoder_fwd_train_reference, operand_bytes)
+    from tacotron2_torch.train import step as train
+    from tacotron2_torch.train.optim import make_optimizer
+    from tacotron2_torch.train.state import create_train_state
+
+    cfg = Config()
+    mc = cfg.model
+    check(cfg.train.precision == "bfloat16", "default precision is not bf16")
+    tx = make_optimizer(cfg.train)
+    state = create_train_state(cfg, seed=SEED, tx=tx)
+    model = state.model
+    rng = np.random.default_rng(SEED)
+    text_lens = rng.integers(60, 129, 16)
+    mel_lens = rng.integers(300, 513, 16)
+    text_lens[3], mel_lens[5] = 128, 512
+    batch = collate([
+        Example(text=rng.integers(0, mc.n_symbols, n).astype(np.int32),
+                mel=(rng.standard_normal((mc.n_mels, m)) * 1.5 - 5.0
+                     ).astype(np.float32))
+        for n, m in zip(text_lens, mel_lens)])
+    b, t_enc = batch["text"].shape
+    t_dec = batch["mel"].shape[2]
+    check((b, t_enc, t_dec) == (16, 128, 512), f"batch {b} {t_enc} {t_dec}")
+    init_projection_bias(model, batch["mel"])
+    print(f"[train] full-width model, {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"parameters, fp32 masters, bf16 compute; batch B={b} T_enc={t_enc} "
+          f"T_dec={t_dec}, text lengths {sorted(batch['text_lengths'].tolist())}, "
+          f"mel lengths {sorted(batch['mel_lengths'].tolist())}", flush=True)
+
+    def set_route(on: bool) -> None:
+        c = dataclasses.replace(mc, decoder_megakernel=on)
+        model.cfg = c
+        model.decoder.cfg = c
+
+    # before the counted run: the first step's gradients by both routes on
+    # the same batch and the same dropout masks, and both kernels against
+    # their plain versions on that step's own inputs
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    keep = lambda shape, rate: torch.rand(
+        shape, generator=g, device=dev) < 1.0 - rate
+    h = mc.decoder_rnn_dim
+    masks = {"prenet": [keep((b, t_dec, mc.prenet_dim), mc.p_prenet_dropout)
+                        for _ in range(2)],
+             "attention": keep((t_dec, b, h), mc.p_attention_dropout),
+             "decoder": keep((t_dec, b, h), mc.p_decoder_dropout)}
+    tbatch = train._to_device(batch, dev)
+    buffers = {n: x.clone() for n, x in model.named_buffers()}
+    calls = {}
+
+    def record(name, fn):
+        def wrapper(*args):
+            calls[name] = (args, fn(*args))
+            return calls[name][1]
+        return wrapper
+
+    grads = {}
+    for on in (True, False):
+        set_route(on)
+        if on:
+            decoder_bptt.decoder_fwd_train_mega = record(
+                "fwd", decoder_fwd_train_mega)
+            decoder_bptt.decoder_bwd_chain_mega = record(
+                "bwd", decoder_bwd_chain_mega)
+        try:
+            total, _ = train._forward_loss(
+                model, cfg, tbatch, None, 0, False,
+                cfg.guided_attention.sigma_warmup_steps, masks)
+            grads[on] = train._grads(model, total)
+        finally:
+            decoder_bptt.decoder_fwd_train_mega = decoder_fwd_train_mega
+            decoder_bptt.decoder_bwd_chain_mega = decoder_bwd_chain_mega
+        with torch.no_grad():         # the forward moved the BatchNorm state
+            for n, x in model.named_buffers():
+                x.copy_(buffers[n])
+    set_route(True)
+    errs = grad_errors(grads[True], grads[False], 1e-2)
+    worst = max(errs, key=errs.get)
+    print(f"[train] first step's gradients, kernel route vs plain route "
+          f"(bf16, same batch and masks): {len(errs)} tensors, worst {worst} "
+          f"{errs[worst]:.2e} (limit {GRAD_TOL})", flush=True)
+    check(set(grads[True]) == set(grads[False]), "routes differ in which "
+          "parameters get a gradient")
+    check(errs[worst] <= GRAD_TOL, f"train gradients: {worst} off by "
+          f"{errs[worst]}")
+    fwd_args, fwd_out = calls["fwd"]
+    bwd_args, bwd_out = calls["bwd"]
+    where = f"main B={b} T_enc={t_enc} T_dec={t_dec} bf16"
+    detach = lambda xs: tuple(x.detach() if torch.is_tensor(x) else x
+                              for x in xs)
+    fwd_args, bwd_args = detach(fwd_args), detach(bwd_args)
+    t1 = time.perf_counter()
+    fwd_ref = decoder_fwd_train_reference(*fwd_args)
+    torch.cuda.synchronize()
+    fwd_plain_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    bwd_ref = decoder_bwd_chain_reference(*bwd_args)
+    torch.cuda.synchronize()
+    bwd_plain_ms = (time.perf_counter() - t1) * 1e3
+    fwd_errs = compare_outputs(FWD_OUT, fwd_out, fwd_ref, MAIN_PAIR_TOL,
+                               f"{where} decoder_fwd_train_mega")
+    bwd_errs = compare_outputs(BWD_OUT, bwd_out, bwd_ref, MAIN_PAIR_TOL,
+                               f"{where} decoder_bwd_chain_mega")
+    del fwd_ref, bwd_ref
+    fwd_ms = time_ms(lambda: decoder_fwd_train_mega(*fwd_args), 2, warm=1)
+    bwd_ms = time_ms(lambda: decoder_bwd_chain_mega(*bwd_args), 2, warm=1)
+
+    # bounds: each input read once, each output written once, over the
+    # memory rate; against the products' operations at the bf16 rate
+    nbytes = lambda xs: sum(x.numel() * x.element_size() for x in xs
+                            if torch.is_tensor(x))
+    ops = fwd_args[1]
+    wbytes = operand_bytes(ops)
+    e, a, m_ = mc.encoder_embedding_dim, mc.attention_dim, mc.n_mels
+    p_, k = mc.prenet_dim, mc.location_kernel_size
+    lstm_macs = 4 * h * (p_ + e + h) + 4 * h * (h + e + h)
+    macs_step = b * (lstm_macs + a * h + (m_ + 1) * (h + e)
+                     + t_enc * (2 * k * a + 2 * a + e))
+    fwd_stream = nbytes(fwd_args[2:]) + nbytes(fwd_out)
+    bwd_stream = nbytes(bwd_args[2:]) + nbytes(bwd_out)
+    fwd_bound = bound(wbytes + fwd_stream, 2 * macs_step * t_dec,
+                      torch.bfloat16)
+    bwd_bound = bound(wbytes + bwd_stream, 2 * macs_step * t_dec,
+                      torch.bfloat16)
+    step_stream = lambda stream: (t_dec * wbytes + stream) / HBM_BYTES_PER_S \
+        * 1e3
+
+    # where one step's time goes: each part alone at the step's own shapes,
+    # on a bf16 copy of the model, under the profiler (second of two runs):
+    # wall on the host clock, busy = device time of all its kernels
+    def timed(fn):
+        fn()
+        _, wall_ms, by_kernel, busy_ms = profile_step(fn)
+        return wall_ms, busy_ms, by_kernel
+
+    half_model = cast_params_bf16(model)
+
+    def encoder_part():
+        encoder_apply(half_model.encoder, tbatch["text"].long(),
+                      True).sum().backward()
+
+    def postnet_part():
+        x = torch.randn(b, mc.n_mels, t_dec, device=dev, requires_grad=True)
+        postnet_apply(half_model.postnet, x, True, g).sum().backward()
+
+    def decoder_part():
+        p = {n: x.detach().requires_grad_(True)
+             for n, x in decoder_bptt.core_params(half_model.decoder).items()}
+        pre, memory, pm = (x.detach().requires_grad_(True)
+                           for x in fwd_args[2:5])
+        out = decoder_bptt.decoder_scan_bptt(model.cfg, p, pre, memory, pm,
+                                             *fwd_args[5:])
+        (out[0].sum() + out[1].sum() + out[2].sum()).backward()
+
+    opt_model = copy.deepcopy(model)
+    opt_state = tx.init(opt_model)
+    enc, post, dec = (timed(f) for f in (encoder_part, postnet_part,
+                                         decoder_part))
+    opt = timed(lambda: tx.update(opt_model, opt_state, grads[True]))
+    pair_ms = sum(kernel_ms(dec[2], k_) or 0.0 for k_ in (
+        "decoder_train_fwd_kernel", "decoder_train_bwd_kernel"))
+    print("[train] one step by part, each alone (wall / device busy, ms): "
+          f"encoder fwd+bwd {enc[0]:.1f} / {enc[1]:.1f}; decoder_scan_bptt "
+          f"fwd+bwd {dec[0]:.1f} / {dec[1]:.1f}, of which the two kernels "
+          f"{pair_ms:.1f} and the hoisted products and the rest "
+          f"{dec[1] - pair_ms:.1f}; postnet fwd+bwd {post[0]:.1f} / "
+          f"{post[1]:.1f}; optimizer {opt[0]:.1f} / {opt[1]:.1f}", flush=True)
+    del calls, fwd_out, bwd_out, grads, half_model, opt_model, opt_state
+
+    # the counted run
+    decoder_fwd_train_mega.launches = 0
+    decoder_bwd_chain_mega.launches = 0
+    attention_tail.launches = 0
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    warm = cfg.guided_attention.sigma_warmup_steps
+    half = {k_: v.reshape(2, 8, *v.shape[1:]) for k_, v in batch.items()}
+    plan = [("train_step, postnet bypassed", lambda: train.train_step(
+                state, batch, cfg=cfg, tx=tx, use_postnet=False,
+                sigma_warmup_steps=warm)),
+            ("train_step", lambda: train.train_step(
+                state, batch, cfg=cfg, tx=tx, use_postnet=True,
+                sigma_warmup_steps=warm)),
+            ("train_step", lambda: train.train_step(
+                state, batch, cfg=cfg, tx=tx, use_postnet=True,
+                sigma_warmup_steps=warm)),
+            ("train_step_accum, 2 x 8", lambda: train.train_step_accum(
+                state, half, cfg=cfg, tx=tx, use_postnet=True,
+                sigma_warmup_steps=warm, accum_steps=2))]
+    counters = [(1, 1), (2, 2), (3, 3), (4, 5)]
+    step_dev = {"fwd": [], "bwd": []}
+    for (name, fn), want in zip(plan, counters):
+        (_, losses, aligns), wall_ms, by_kernel, busy_ms = profile_step(fn)
+        f_ms = kernel_ms(by_kernel, "decoder_train_fwd_kernel")
+        b_ms = kernel_ms(by_kernel, "decoder_train_bwd_kernel")
+        step_dev["fwd"].append(f_ms)
+        step_dev["bwd"].append(b_ms)
+        print(f"[train] {name}: wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+              f"device_ms decoder_train_fwd_kernel {fmt_ms(f_ms)}, "
+              f"decoder_train_bwd_kernel {fmt_ms(b_ms)}; loss "
+              + ", ".join(f"{k_} {float(v):.4f}"
+                          for k_, v in losses._asdict().items()), flush=True)
+        check(all(np.isfinite(float(v)) for v in losses),
+              f"{name}: non-finite loss term")
+        check((state.step, state.loss_step) == want,
+              f"{name}: counters {(state.step, state.loss_step)} != {want}")
+        check(aligns.shape[1:] == (t_dec, t_enc)
+              and bool(torch.isfinite(aligns).all()), f"{name}: alignments")
+        check(attention_tail.launches == 0, f"{name}: the kernel route "
+              f"launched attention_tail {attention_tail.launches} times")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[train] last step by device time: "
+          + "; ".join(f"{k_[:48]} {v:.2f} ms" for k_, v in top), flush=True)
+    (losses, aligns, entropy), wall_ms, by_kernel, busy_ms = profile_step(
+        lambda: train.eval_step(state, batch, cfg=cfg,
+                                sigma_warmup_steps=warm))
+    print(f"[train] eval_step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}); total "
+          f"{float(losses.total):.4f}, unmasked entropy {float(entropy):.4f}",
+          flush=True)
+    check(all(np.isfinite(float(v)) for v in losses)
+          and np.isfinite(float(entropy)), "eval_step: non-finite")
+    check((state.step, state.loss_step) == (4, 5), "eval_step moved counters")
+    launches = (decoder_fwd_train_mega.launches,
+                decoder_bwd_chain_mega.launches, attention_tail.launches)
+    print(f"[train] launches decoder_fwd_train_mega={launches[0]} "
+          f"decoder_bwd_chain_mega={launches[1]} attention_tail="
+          f"{launches[2]} (all in eval_step, one per decoder step)",
+          flush=True)
+    check(launches == (5, 5, t_dec), f"training main path launched "
+          f"{launches}, expected 5, 5 and {t_dec}")
+    for n, p in model.named_parameters():
+        check(bool(torch.isfinite(p).all()), f"parameter {n} not finite")
+        check(p.dtype == torch.float32, f"master {n} is {p.dtype}")
+        check(not torch.equal(p, before[n]), f"parameter {n} did not change")
+    for mod_name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            check(not torch.equal(mod.running_mean,
+                                  buffers[f"{mod_name}.running_mean"])
+                  and bool(torch.isfinite(mod.running_var).all()),
+                  f"BatchNorm {mod_name}: running statistics did not move")
+    print(f"[train] {len(before)} parameters changed and are finite; "
+          "BatchNorm running statistics moved", flush=True)
+
+    shape = f"B={b} T_enc={t_enc} T_dec={t_dec} weights bf16"
+    mean = lambda xs: (None if any(x is None for x in xs)
+                       else sum(xs) / len(xs))
+    return launches[2], [
+        dict(name="decoder_fwd_train_mega", route="cuda",
+             source="tacotron2_torch/csrc/decoder_train_fwd.cu",
+             replaces="tacotron2_tpu/ops/decoder_train_kernel.py:281",
+             launches=launches[0], max_abs_err=max(fwd_errs.values()),
+             max_abs_err_by_output=fwd_errs, ms=fwd_ms,
+             plain_ms=fwd_plain_ms, bound_ms=fwd_bound[0],
+             bound_by=fwd_bound[1], library_ms=None,
+             device_ms=mean(step_dev["fwd"][:3]),
+             us_per_step=fwd_ms * 1e3 / t_dec,
+             step_stream_bound_ms=step_stream(fwd_stream), shape=shape),
+        dict(name="decoder_bwd_chain_mega", route="cuda",
+             source="tacotron2_torch/csrc/decoder_train_bwd.cu",
+             replaces="tacotron2_tpu/ops/decoder_bwd_kernel.py:220",
+             launches=launches[1], max_abs_err=max(bwd_errs.values()),
+             max_abs_err_by_output=bwd_errs, ms=bwd_ms,
+             plain_ms=bwd_plain_ms, bound_ms=bwd_bound[0],
+             bound_by=bwd_bound[1], library_ms=None,
+             device_ms=mean(step_dev["bwd"][:3]),
+             us_per_step=bwd_ms * 1e3 / t_dec,
+             step_stream_bound_ms=step_stream(bwd_stream), shape=shape),
+    ]
 
 
 def main() -> int:
@@ -475,6 +1006,15 @@ def main() -> int:
              shape=f"B={b} T_enc={t_enc} steps={n_steps} "
                    f"weights {str(cdt)[6:]}"),
     ]
+    del model, dec, cpu_model, results
+
+    # 8, 9. the training kernels against their plain versions
+    sweep = train_kernel_phases(dev, base, cfg)
+    # 10. the training main path
+    kernels[0]["train_path_launches"], train_kernels = train_main_path(dev)
+    train_kernels[0]["sweep_max_abs_err"] = sweep["fwd"]
+    train_kernels[1]["sweep_max_abs_err"] = sweep["bwd"]
+    kernels += train_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,10 +1,10 @@
 """Configuration of the PyTorch port: the model and audio constants.
 
 An own copy of the JAX package's configuration (``tacotron2_tpu/config.py``)
-holding the fields the port's serving path reads, with the same values so
-that both packages build the same model.  The TPU-only training knobs of the
-JAX config (scan unrolling, rematerialisation, split BPTT) are not carried
-over; the training slice adds what it needs.
+holding the fields the port reads, with the same values so that both
+packages build the same model and train it on the same schedule.  The
+XLA-only knobs of the JAX config (scan unrolling, the rematerialisation
+policies) have no counterpart in eager PyTorch and are not carried over.
 """
 
 from __future__ import annotations
@@ -59,6 +59,10 @@ class ModelConfig:
     prenet_dim: int = 256
     max_decoder_steps: int = 1000
     gate_threshold: float = 0.5
+    p_attention_dropout: float = 0.1
+    p_decoder_dropout: float = 0.1
+    p_prenet_dropout: float = 0.5
+    p_postnet_dropout: float = 0.5
 
     # Attention
     attention_rnn_dim: int = 1024
@@ -77,18 +81,73 @@ class ModelConfig:
     n_speakers: int = 1
     speaker_embedding_dim: int = 64
 
+    # BatchNorm running-statistics momentum (torch nn.BatchNorm1d default)
+    batchnorm_momentum: float = 0.1
     batchnorm_eps: float = 1e-5
 
-    # Decode CUDA tensors with the persistent decode kernel
-    # (ops/decoder_megakernel.py); False runs the step loop, whose
-    # attention tail is the Triton kernel (ops/attention_kernel.py).
+    # Split-BPTT backward for the teacher-forced decoder
+    # (ops/decoder_bptt.py): the reverse pass emits per-step gate gradients
+    # and the weight gradients are time-batched products after the loop.
+    # False differentiates the plain step loop with torch.autograd.
+    decoder_split_bptt: bool = True
+
+    # Run CUDA tensors through the persistent kernels: the decode kernel
+    # (ops/decoder_megakernel.py) when serving, the teacher-forced forward
+    # and reverse-chain kernels (ops/decoder_train_kernel.py,
+    # ops/decoder_bwd_kernel.py) when training.  False runs the step loops,
+    # whose attention tail is the Triton kernel (ops/attention_kernel.py).
     decoder_megakernel: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class GuidedAttentionConfig:
+    """Diagonal-Gaussian attention guidance schedule."""
+    initial_sigma_factor: float = 0.05   # initial sigma = max(3, factor*text_len)
+    sigma_warmup_steps: int = 4000       # steps over which sigma anneals to 1.0
+    min_sigma: float = 1.0
+    max_sigma_cap: float = 20.0
+    weight_start: float = 1.0
+    min_weight: float = 0.2
+    entropy_target: float = 3.5
+    kl_clamp: float = 150.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training schedule."""
+    seed: int = 1234
+    learning_rate: float = 1e-3
+    batch_size: int = 16
+    epochs: int = 100
+    lr_decay_milestones: Tuple[int, ...] = (50000, 100000, 150000)
+    lr_decay_gamma: float = 0.8
+    attention_lr_multiplier: float = 1.5
+    debug_attention_lr_multiplier: float = 2.0
+    postnet_freeze_steps: int = 3000
+    max_grad_norm: float = 1.0
+    save_every_steps: int = 5000
+    keep_epoch_ckpts: int = 5
+    accumulation_steps: int = 1
+    # "bfloat16" keeps fp32 master weights and Adam moments and runs the
+    # forward and backward on a bf16 cast of the parameters (products sum
+    # in fp32; loss and BatchNorm statistics stay fp32; no loss scaling).
+    # "float32" disables the cast.
+    precision: str = "bfloat16"
+    debug_batch_size: int = 8
+    debug_sigma_warmup_steps: int = 800
+    debug_success_mel_l1: float = 1.0
+    # Padded batch dims are rounded up to these multiples (data/dataset.py)
+    text_pad_multiple: int = 32
+    mel_pad_multiple: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
     audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    guided_attention: GuidedAttentionConfig = dataclasses.field(
+        default_factory=GuidedAttentionConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 DEFAULT_CONFIG = Config()

@@ -29,18 +29,12 @@
 // rounded to the weight dtype before the fp32 tanh; the context sums
 // weight-dtype memory in fp32.
 //
+// Device code shared with the training kernels is in decoder_common.cuh.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (tacotron2_torch/ops/_build.py).
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <algorithm>
-
-namespace cg = cooperative_groups;
+#include "decoder_common.cuh"
 
 struct DecoderArgs {
   // weights, weight dtype W, PyTorch layout (one row per output)
@@ -89,148 +83,23 @@ struct DecoderArgs {
   int grid_blocks;      // set by the launcher
 };
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNB = 8;  // batch rows per accumulator chunk
-constexpr int kCtxCols = 32;
-constexpr int kMaxBlocksPerSM = 2;
-
-template <typename W> struct Vec;
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Round an fp32 value to the weight dtype (the JAX `.astype(cdt)`).
-template <typename W> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// acc[r][b] += sum_k rnd(x[b*xs + k]) * w[r][k] per lane (partial sums),
-// lanes strided over k in 16-byte vectors.  K is a multiple of Vec<W>::N and every row and x
-// offset is 16-byte aligned (checked by the Python wrapper).  x is state
-// written during the kernel: read through L2 (__ldcg), never the
-// non-coherent read-only path.
-template <typename W, int R>
-__device__ __forceinline__ void warp_dot(float (&acc)[R][kNB],
-                                         const W* const* w,
-                                         const float* x, int xs, int K,
-                                         int nb, int lane) {
-  constexpr int V = Vec<W>::N;
-  for (int k0 = lane * V; k0 < K; k0 += 32 * V) {
-    float wv[R][V];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      uint4 raw = __ldg(reinterpret_cast<const uint4*>(w[r] + k0));
-      const W* e = reinterpret_cast<const W*>(&raw);
-#pragma unroll
-      for (int i = 0; i < V; ++i) wv[r][i] = to_f(e[i]);
-    }
-#pragma unroll
-    for (int b = 0; b < kNB; ++b) {
-      if (b < nb) {
-        float xv[V];
-#pragma unroll
-        for (int i = 0; i < V; i += 4) {
-          float4 q = __ldcg(reinterpret_cast<const float4*>(
-              x + (size_t)b * xs + k0 + i));
-          xv[i] = rnd<W>(q.x); xv[i + 1] = rnd<W>(q.y);
-          xv[i + 2] = rnd<W>(q.z); xv[i + 3] = rnd<W>(q.w);
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int i = 0; i < V; ++i)
-            acc[r][b] = fmaf(xv[i], wv[r][i], acc[r][b]);
-      }
-    }
-  }
-}
-
-// Sum each lane's partial dot products over the warp (after the last
-// warp_dot into acc); every lane gets the totals.
-template <int R>
-__device__ __forceinline__ void warp_reduce(float (&acc)[R][kNB]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int b = 0; b < kNB; ++b) acc[r][b] = warp_sum(acc[r][b]);
-}
-
-// out[b][j] = relu(dot(rnd(x[b]), w[j])) for j < n_out: one warp per j.
-template <typename W>
-__device__ void matvec_relu(const W* w, const float* x, float* out, int K,
-                            int n_out, int B, int gw, int nw, int lane) {
-  for (int j = gw; j < n_out; j += nw) {
-    for (int b0 = 0; b0 < B; b0 += kNB) {
-      const int nb = min(kNB, B - b0);
-      float acc[1][kNB] = {};
-      const W* rows[1] = {w + (size_t)j * K};
-      warp_dot<W, 1>(acc, rows, x + (size_t)b0 * K, K, K, nb, lane);
-      warp_reduce<1>(acc);
-      if (lane == 0)
-        for (int b = 0; b < nb; ++b)
-          out[(size_t)(b0 + b) * n_out + j] = fmaxf(acc[0][b], 0.f);
-    }
-  }
-}
-
 // LSTM phase: warp per hidden unit j; gates from [x1 | x2] @ wi + h @ wh.
 template <typename W>
 __device__ void lstm_phase(const W* wi, const W* wh, const float* bias,
                            const float* x1, int k1, const float* x2, int k2,
                            const float* h_old, float* h_new, float* c,
                            int H, int B, int gw, int nw, int lane) {
-  const int kin = k1 + k2;
   for (int j = gw; j < H; j += nw) {
     for (int b0 = 0; b0 < B; b0 += kNB) {
       const int nb = min(kNB, B - b0);
       float acc[4][kNB] = {};
-      const W* r1[4];
-      const W* r2[4];
-      const W* rh[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        r1[g] = wi + (size_t)(g * H + j) * kin;
-        r2[g] = r1[g] + k1;
-        rh[g] = wh + (size_t)(g * H + j) * H;
-      }
-      warp_dot<W, 4>(acc, r1, x1 + (size_t)b0 * k1, k1, k1, nb, lane);
-      warp_dot<W, 4>(acc, r2, x2 + (size_t)b0 * k2, k2, k2, nb, lane);
-      warp_dot<W, 4>(acc, rh, h_old + (size_t)b0 * H, H, H, nb, lane);
-      warp_reduce<4>(acc);
+      lstm_gates<W>(acc, wi, wh, x1, k1, x2, k2, h_old, H, j, b0, nb, lane);
       if (lane < nb) {
         // lane b finishes batch row b0 + b
-        float gi = 0.f, gf = 0.f, gg = 0.f, go = 0.f;
-#pragma unroll
-        for (int b = 0; b < kNB; ++b)
-          if (b == lane) {
-            gi = acc[0][b]; gf = acc[1][b]; gg = acc[2][b]; go = acc[3][b];
-          }
-        gi += bias[j]; gf += bias[H + j]; gg += bias[2 * H + j];
-        go += bias[3 * H + j];
+        float g[4];
+        pick_row<4>(acc, lane, g);
+        const float gi = g[0] + bias[j], gf = g[1] + bias[H + j],
+                    gg = g[2] + bias[2 * H + j], go = g[3] + bias[3 * H + j];
         const size_t idx = (size_t)(b0 + lane) * H + j;
         const float cn = sigmoidf(gf) * __ldcg(c + idx) +
                          sigmoidf(gi) * tanhf(gg);
@@ -239,23 +108,6 @@ __device__ void lstm_phase(const W* wi, const W* wh, const float* bias,
       }
     }
   }
-}
-
-// Block-wide reduction; every thread gets the result.
-__device__ float block_reduce(float v, float* red, bool is_max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? red[lane] : (is_max ? -INFINITY : 0.f);
-    v = is_max ? warp_max(v) : warp_sum(v);
-    if (lane == 0) red[kWarps] = v;
-  }
-  __syncthreads();
-  v = red[kWarps];
-  __syncthreads();
-  return v;
 }
 
 template <typename W>
@@ -280,9 +132,7 @@ decoder_infer_kernel(const DecoderArgs a) {
   const W* wloc = static_cast<const W*>(a.wloc);
   const W* w_heads = static_cast<const W*>(a.w_heads);
   const W* mem = static_cast<const W*>(a.mem);
-  const int pad = (K - 1) / 2;
   const int n_iter = a.drop_first ? S + 1 : S;
-  const int n_chunks = (E + kCtxCols - 1) / kCtxCols;
   const float v_b = a.scal[0], escale = a.scal[1];
 
   for (int t = 0; t < n_iter; ++t) {
@@ -295,9 +145,9 @@ decoder_infer_kernel(const DecoderArgs a) {
     float* h_dec_new = a.h_dec + (size_t)((t + 1) & 1) * B * H;
 
     // 1, 2: prenet (eval mode: no dropout)
-    matvec_relu<W>(pw1, a.mel, a.p1, M, P, B, gw, nw, lane);
+    matvec<W, true>(pw1, a.mel, a.p1, M, P, B, gw, nw, lane);
     grid.sync();
-    matvec_relu<W>(pw2, a.p1, a.p2, P, P, B, gw, nw, lane);
+    matvec<W, true>(pw2, a.p1, a.p2, P, P, B, gw, nw, lane);
     grid.sync();
 
     // 3: attention LSTM on [prenet | context]
@@ -307,89 +157,20 @@ decoder_infer_kernel(const DecoderArgs a) {
     grid.sync();
 
     // 4a: processed query
-    for (int j = gw; j < A; j += nw) {
-      for (int b0 = 0; b0 < B; b0 += kNB) {
-        const int nb = min(kNB, B - b0);
-        float acc[1][kNB] = {};
-        const W* rows[1] = {wq + (size_t)j * H};
-        warp_dot<W, 1>(acc, rows, h_att_new + (size_t)b0 * H, H, H, nb, lane);
-        warp_reduce<1>(acc);
-        if (lane == 0)
-          for (int b = 0; b < nb; ++b) a.pq[(size_t)(b0 + b) * A + j] = acc[0][b];
-      }
-    }
+    matvec<W, false>(wq, h_att_new, a.pq, H, A, B, gw, nw, lane);
     grid.sync();
 
     // 4b: energies, one warp per (b, t_enc)
-    {
-      float* win = win_all + warp * 2 * K;
-      for (int idx = gw; idx < B * T; idx += nw) {
-        const int b = idx / T, tt = idx % T;
-        for (int i = lane; i < 2 * K; i += 32) {
-          const int c = i / K, k = i % K, src = tt + k - pad;
-          const float* in = c == 0 ? a.prev : a.cum;
-          win[i] = (src >= 0 && src < T)
-                       ? rnd<W>(__ldcg(in + (size_t)b * T + src)) : 0.f;
-        }
-        __syncwarp();
-        float e = 0.f;
-        for (int j = lane; j < A; j += 32) {
-          float loc = 0.f;
-          for (int i = 0; i < 2 * K; ++i)
-            loc = fmaf(win[i], to_f(wloc[(size_t)i * A + j]), loc);
-          const float q = rnd<W>(__ldcg(a.pq + (size_t)b * A + j) +
-                                 a.pm[((size_t)b * T + tt) * A + j] + loc);
-          e = fmaf(tanhf(q), a.v[j], e);
-        }
-        e = warp_sum(e);
-        if (lane == 0) {
-          e = (e + v_b) * escale;
-          a.energy[(size_t)b * T + tt] = a.mask[(size_t)b * T + tt] ? -1e9f : e;
-        }
-        __syncwarp();
-      }
-    }
+    energy_phase<W>(wloc, a.prev, a.cum, a.pq, a.pm, a.v, a.mask, v_b, escale,
+                    a.energy, static_cast<W*>(nullptr), win_all, B, T, A, K,
+                    gw, nw, lane, warp);
     grid.sync();
 
     // 4c: softmax and context, one block per (b, 32-column chunk of E)
-    for (int task = blockIdx.x; task < B * n_chunks; task += gridDim.x) {
-      const int b = task / n_chunks, ch = task % n_chunks;
-      const float* eb = a.energy + (size_t)b * T;
-      float m = -INFINITY;
-      for (int i = threadIdx.x; i < T; i += kThreads) m = fmaxf(m, __ldcg(eb + i));
-      m = block_reduce(m, red, true);
-      float s = 0.f;
-      for (int i = threadIdx.x; i < T; i += kThreads) {
-        const float w = expf(__ldcg(eb + i) - m);
-        attn_s[i] = w;
-        s += w;
-      }
-      s = block_reduce(s, red, false);
-      for (int i = threadIdx.x; i < T; i += kThreads) {
-        const float w = attn_s[i] / s;
-        attn_s[i] = w;
-        if (ch == 0) {
-          const size_t o = (size_t)b * T + i;
-          a.prev[o] = w;
-          a.cum[o] = __ldcg(a.cum + o) + w;
-          if (r >= 0) a.aligns[((size_t)b * S + r) * T + i] = w;
-        }
-      }
-      __syncthreads();
-      const int d = ch * kCtxCols + lane;
-      float acc = 0.f;
-      if (d < E)
-        for (int i = warp; i < T; i += kWarps)
-          acc = fmaf(attn_s[i], to_f(mem[((size_t)b * T + i) * E + d]), acc);
-      ctx_red[warp * kCtxCols + lane] = acc;
-      __syncthreads();
-      if (warp == 0 && d < E) {
-        float sum = 0.f;
-        for (int w = 0; w < kWarps; ++w) sum += ctx_red[w * kCtxCols + lane];
-        a.ctx[(size_t)b * E + d] = sum;
-      }
-      __syncthreads();
-    }
+    softmax_context_phase<W>(
+        a.energy, mem, a.prev, a.cum, a.ctx,
+        r >= 0 ? a.aligns + (size_t)r * T : nullptr, (size_t)S * T, red,
+        ctx_red, attn_s, B, T, E);
     grid.sync();
 
     // 5: decoder LSTM on [h_att | context]
@@ -459,42 +240,14 @@ static size_t smem_bytes(const DecoderArgs& a) {
          (32 + kWarps * kCtxCols + a.T + a.B + kWarps * 2 * a.K);
 }
 
-template <typename W>
-static int launch(DecoderArgs* a, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  int coop = 0, sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  const size_t smem = smem_bytes(*a);
-  auto kern = decoder_infer_kernel<W>;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  a->grid_blocks = std::min(per_sm, kMaxBlocksPerSM) * sms;
-  void* args[] = {a};
-  err = cudaLaunchCooperativeKernel((void*)kern, dim3(a->grid_blocks),
-                                    dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 // Returns a cudaError_t (0 = launched).  bf16 != 0: weights and memory
 // are __nv_bfloat16, else float.
 extern "C" int t2_decoder_infer(DecoderArgs* a, int bf16, int device,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(a, device, s)
-              : launch<float>(a, device, s);
+  void (*kern)(const DecoderArgs) =
+      bf16 ? decoder_infer_kernel<__nv_bfloat16> : decoder_infer_kernel<float>;
+  return coop_launch(kern, a, smem_bytes(*a), device, s, &a->grid_blocks);
 }
 
 extern "C" int t2_decoder_args_size() { return (int)sizeof(DecoderArgs); }

@@ -1,7 +1,7 @@
 """Tacotron 2 encoder: embedding -> 3 x (conv, BN, ReLU) -> BiLSTM.
 
-Counterpart of ``tacotron2_tpu/models/encoder.py`` in eval mode.  Outputs
-the attention memory (B, T_enc, 512).
+Counterpart of ``tacotron2_tpu/models/encoder.py`` (no dropout here).
+Outputs the attention memory (B, T_enc, 512).
 """
 
 from __future__ import annotations
@@ -22,14 +22,16 @@ class Encoder(nn.Module):
             Conv1d(e, e, cfg.encoder_kernel_size)
             for _ in range(cfg.encoder_n_convolutions))
         self.bns = nn.ModuleList(
-            BatchNorm(e, cfg.batchnorm_eps)
+            BatchNorm(e, cfg.batchnorm_eps, cfg.batchnorm_momentum)
             for _ in range(cfg.encoder_n_convolutions))
         self.lstm = BiLSTM(e, e // 2)
 
 
-def encoder_apply(encoder: Encoder, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, T_enc) int -> memory (B, T_enc, 512) fp32."""
+def encoder_apply(encoder: Encoder, tokens: torch.Tensor,
+                  train: bool = False) -> torch.Tensor:
+    """tokens (B, T_enc) int -> memory (B, T_enc, 512) fp32.  ``train``
+    normalises with batch statistics and updates the running ones."""
     x = encoder.embedding(tokens).transpose(1, 2)         # (B, D, T)
     for conv, bn in zip(encoder.convs, encoder.bns):
-        x = torch.relu(bn(conv(x)))
+        x = torch.relu(bn(conv(x), train))
     return encoder.lstm(x.transpose(1, 2))

@@ -1,4 +1,4 @@
-"""Eval-mode layers of the port, with the JAX package's dtype policy.
+"""Layers of the port, with the JAX package's dtype policy.
 
 Counterpart of ``tacotron2_tpu/models/layers.py``.  Every matrix product
 casts its input to the weight dtype and accumulates and returns fp32; with
@@ -72,24 +72,57 @@ class Embedding(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over (B, C, T) with running statistics (eval mode only:
-    training, and with it batch statistics, comes with the training
-    slice)."""
+    """BatchNorm over (B, C, T).
 
-    def __init__(self, ch: int, eps: float = 1e-5):
+    Eval mode normalises with the running statistics.  Train mode
+    (``train=True``) normalises with the batch's statistics over batch and
+    time (one-pass fp32 moments, biased variance clamped at 0) and updates
+    the running statistics in place with the unbiased variance."""
+
+    def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var.float() + self.eps)
-        y = ((x - self.running_mean[None, :, None])
-             * (inv * self.weight)[None, :, None]
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2))
+            var = (xf.square().mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+            n = x.shape[0] * x.shape[2]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * (n / max(n - 1, 1)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var.float() + self.eps)
+        y = ((x - mean[None, :, None]) * (inv * self.weight)[None, :, None]
              + self.bias[None, :, None])
         return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout; identity when not training or ``rate == 0``.
+    ``mask`` (0/1 or bool, x's shape, True = keep) is used where given,
+    else one is drawn from ``generator``, which lies on x's device."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        if generator is None:
+            raise ValueError("dropout in train mode needs a generator or a "
+                             "mask")
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 
 class LSTMCell(nn.Module):

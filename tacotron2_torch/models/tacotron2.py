@@ -1,13 +1,15 @@
 """Full Tacotron 2 model: encoder + decoder + postnet (+ optional speaker).
 
-Counterpart of ``tacotron2_tpu/models/tacotron2.py`` for serving:
-:func:`tacotron2_infer` is the eval-mode token -> mel path.
+Counterpart of ``tacotron2_tpu/models/tacotron2.py``:
+:func:`tacotron2_infer` is the eval-mode token -> mel path,
+:func:`tacotron2_forward` the teacher-forced forward that training and
+validation run.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -15,10 +17,13 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..utils.device import check_module_device, resolve_device
-from .decoder import Decoder, decoder_infer
+from .decoder import Decoder, decoder_infer, decoder_teacher_forced
 from .encoder import Encoder, encoder_apply
 from .layers import BatchNorm, Conv1d, Embedding, Linear, LSTMCell
 from .postnet import Postnet, postnet_apply
+
+
+ArrayLike = Union[torch.Tensor, np.ndarray, Sequence]
 
 
 class Tacotron2Output(NamedTuple):
@@ -40,6 +45,12 @@ class Tacotron2(nn.Module):
                                                cfg.speaker_embedding_dim)
             self.speaker_proj = Linear(cfg.speaker_embedding_dim,
                                        cfg.encoder_embedding_dim, bias=False)
+
+    def forward(self, *args, **kwargs) -> Tacotron2Output:
+        """The teacher-forced forward (:func:`tacotron2_forward`'s body),
+        so that ``torch.func.functional_call`` can run it on a cast copy of
+        the parameters."""
+        return _teacher_forced(self, *args, **kwargs)
 
 
 @torch.no_grad()
@@ -95,6 +106,16 @@ def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return ids >= lengths[:, None]
 
 
+@torch.no_grad()
+def init_projection_bias(model: Tacotron2, mel_targets: ArrayLike) -> None:
+    """Set the decoder projection bias, in place, to the per-channel means
+    of a batch of mel targets (B, n_mels, T)."""
+    bias = model.decoder.linear_projection.bias
+    if not torch.is_tensor(mel_targets):
+        mel_targets = torch.from_numpy(np.asarray(mel_targets))
+    bias.copy_(mel_targets.to(bias.device).float().mean(dim=(0, 2)))
+
+
 _warned_default_speaker = False
 
 
@@ -140,9 +161,6 @@ def _condition_memory(model: Tacotron2, memory: torch.Tensor,
         emb = model.speaker_embedding(speaker_ids)
         memory = memory + model.speaker_proj(emb)[:, None, :]
     return memory
-
-
-ArrayLike = Union[torch.Tensor, np.ndarray, Sequence]
 
 
 def _as_long(x: ArrayLike, device: torch.device) -> torch.Tensor:
@@ -192,3 +210,72 @@ def tacotron2_infer(model: Tacotron2, text: ArrayLike,
     out = Tacotron2Output(mel_postnet=mel_postnet, mel_coarse=mel_coarse,
                           gate_logits=gate_logits, alignments=alignments)
     return out, n_frames, frame_ends
+
+
+def _teacher_forced(model: Tacotron2, text: torch.Tensor,
+                    mel_targets: torch.Tensor,
+                    text_lengths: Optional[torch.Tensor], train: bool,
+                    use_postnet: bool,
+                    speaker_ids: Optional[torch.Tensor],
+                    generator: Optional[torch.Generator],
+                    masks: Optional[Dict[str, object]]) -> Tacotron2Output:
+    b, t_enc = text.shape
+    memory = encoder_apply(model.encoder, text, train)
+    memory = _condition_memory(model, memory, speaker_ids)
+    if text_lengths is None:
+        text_lengths = torch.full((b,), t_enc, device=text.device)
+    enc_mask = make_pad_mask(text_lengths, t_enc)
+    mel_coarse, gate_logits, alignments = decoder_teacher_forced(
+        model.decoder, memory, mel_targets, enc_mask, train, generator, masks)
+    if use_postnet:
+        residual = postnet_apply(
+            model.postnet, mel_coarse.transpose(1, 2), train, generator,
+            None if masks is None else masks.get("postnet"))
+        mel_postnet = mel_coarse + residual.transpose(1, 2)
+    else:
+        mel_postnet = mel_coarse  # postnet-freeze bypass
+    return Tacotron2Output(mel_postnet=mel_postnet, mel_coarse=mel_coarse,
+                           gate_logits=gate_logits, alignments=alignments)
+
+
+def tacotron2_forward(model: Tacotron2, text: ArrayLike,
+                      mel_targets: ArrayLike,
+                      text_lengths: Optional[ArrayLike], train: bool,
+                      use_postnet: bool = True,
+                      speaker_ids: Optional[ArrayLike] = None,
+                      generator: Optional[torch.Generator] = None,
+                      masks: Optional[Dict[str, object]] = None,
+                      params: Optional[Dict[str, torch.Tensor]] = None,
+                      device: Union[str, torch.device] = "cuda"
+                      ) -> Tacotron2Output:
+    """Teacher-forced forward pass on ``device``, where the model must
+    already lie.
+
+    Args:
+        text: (B, T_enc) token ids (zero-padded).
+        mel_targets: (B, n_mels, T_dec) float32.
+        text_lengths: (B,) true lengths; None = unpadded.
+        train: batch statistics in BatchNorm (the running ones are updated
+            in place) and dropout; masks are drawn from ``generator`` or
+            taken from ``masks`` (keys ``"prenet"``, ``"attention"``,
+            ``"decoder"``, ``"postnet"``; see ``decoder_teacher_forced`` and
+            ``postnet_apply``).
+        use_postnet: False bypasses the postnet (the freeze phase).
+        params: tensors that stand in for the model's parameters by name
+            (a compute-dtype cast of the masters, ``train/step.py``).
+    """
+    device = resolve_device(device)
+    check_module_device(model, device)
+    text = _as_long(text, device)
+    if not torch.is_tensor(mel_targets):
+        mel_targets = torch.from_numpy(np.asarray(mel_targets))
+    mel_targets = mel_targets.to(device=device, dtype=torch.float32)
+    if text_lengths is not None:
+        text_lengths = _as_long(text_lengths, device)
+    if speaker_ids is not None:
+        speaker_ids = _as_long(speaker_ids, device)
+    args = (text, mel_targets, text_lengths, train, use_postnet, speaker_ids,
+            generator, masks)
+    if params is None:
+        return model(*args)
+    return torch.func.functional_call(model, params, args)

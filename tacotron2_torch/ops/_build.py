@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use by ``nvcc`` into ``tacotron2_torch/_build/lib<name>-<hash>.so`` (the
-hash covers the source and the flags, so an edited source rebuilds), then
-loaded with ``ctypes``.  A missing ``nvcc`` or a failed build raises.
+hash covers the source, the shared headers and the flags, so an edited
+source rebuilds), then loaded with ``ctypes``.  :func:`build` starts one
+``nvcc`` per source, all together.  A missing ``nvcc`` or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CUDA_SOURCES = ("decoder_infer",)
+CUDA_SOURCES = ("decoder_infer", "decoder_train_fwd", "decoder_train_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -36,6 +38,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -45,19 +49,24 @@ def build(names: Iterable[str] = CUDA_SOURCES) -> Dict[str, str]:
     each new build's compiler log (register and shared-memory use from
     ``-Xptxas -v``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    logs = {}
+    procs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() or name in procs:
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        logs[name] = proc.stdout + proc.stderr
+        procs[name] = (out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (out, tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
-                               f"{proc.returncode}\n{logs[name]}")
-        os.replace(tmp, out)
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return logs
 
 

@@ -1,7 +1,9 @@
 """Attention tail: energies -> masked softmax -> context, one decode step.
 
 Replaces the Pallas kernel ``tacotron2_tpu/ops/attention_kernel.py::
-attention_tail`` (forward; its backward comes with the training slice):
+attention_tail``.  The forward is the kernel; the backward, which the JAX
+package writes in plain ``jnp`` (``_attention_tail_bwd``), is plain PyTorch
+here (:class:`_AttentionTail`):
 
     e    = energy_scale * (tanh(qsum) . v_w + v_b)      # (B, T_enc)
     e    = where(mask, -1e9, e)
@@ -44,23 +46,19 @@ def attention_tail_reference(qsum: torch.Tensor, v_w: torch.Tensor,
     mask (B, T) bool, True = pad; memory (B, T, D).
     Returns (attn (B, T) fp32, ctx (B, D) fp32).
     """
-    th = torch.tanh(qsum.float())
-    e = (th @ v_w.float() + v_b.float()) * energy_scale.float()
+    f = torch.promote_types(qsum.dtype, torch.float32)
+    th = torch.tanh(qsum.to(f))
+    e = (th @ v_w.to(f) + v_b.to(f)) * energy_scale.to(f)
     e = e.masked_fill(mask, -1e9)
     attn = torch.softmax(e, dim=1)
-    mem = memory.to(qsum.dtype).float()
+    mem = memory.to(qsum.dtype).to(f)
     ctx = torch.einsum("bt,btd->bd", attn, mem)
     return attn, ctx
 
 
-def attention_tail(qsum: torch.Tensor, v_w: torch.Tensor, v_b: torch.Tensor,
-                   energy_scale: torch.Tensor, mask: torch.Tensor,
-                   memory: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Same signature and returns as :func:`attention_tail_reference`.
-
-    CPU tensors take the plain version; CUDA tensors launch the Triton
-    kernel (or raise).  ``attention_tail.launches`` counts launches.
-    """
+def _forward(qsum: torch.Tensor, v_w: torch.Tensor, v_b: torch.Tensor,
+             energy_scale: torch.Tensor, mask: torch.Tensor,
+             memory: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if qsum.device.type == "cpu":
         return attention_tail_reference(qsum, v_w, v_b, energy_scale, mask,
                                         memory)
@@ -91,6 +89,55 @@ def attention_tail(qsum: torch.Tensor, v_w: torch.Tensor, v_b: torch.Tensor,
                        and memory.dtype != torch.bfloat16))
     attention_tail.launches += 1
     return attn, ctx
+
+
+class _AttentionTail(torch.autograd.Function):
+    """The tail with its analytic backward: the softmax/tanh chain in
+    closed form, fp32 throughout, ``d_e`` zeroed under the mask.  Each
+    gradient comes back in its input's dtype, so ``d_memory`` stays fp32
+    when ``memory`` came in fp32 (as it does even under bf16 compute: it
+    is the encoder's whole gradient signal)."""
+
+    @staticmethod
+    def forward(ctx, qsum, v_w, v_b, energy_scale, mask, memory):
+        attn, context = _forward(qsum, v_w, v_b, energy_scale, mask, memory)
+        ctx.save_for_backward(qsum, v_w, v_b, energy_scale, mask, memory,
+                              attn)
+        return attn, context
+
+    @staticmethod
+    def backward(ctx, d_attn_out, d_ctx):
+        qsum, v_w, v_b, energy_scale, mask, memory, attn = ctx.saved_tensors
+        d_attn_out, d_ctx = d_attn_out.float(), d_ctx.float()
+        th = torch.tanh(qsum.float())                        # (B, T, A)
+        pre = th @ v_w.float() + v_b.float()
+        d_attn = d_attn_out + torch.einsum("bd,btd->bt", d_ctx,
+                                           memory.float())
+        d_memory = torch.einsum("bt,bd->btd", attn, d_ctx)
+        d_e = attn * (d_attn - (d_attn * attn).sum(dim=1, keepdim=True))
+        d_e = d_e.masked_fill(mask, 0.0)                     # -1e9 branch
+        d_scale = (d_e * pre).sum()
+        d_pre = d_e * energy_scale.float()
+        d_v_b = d_pre.sum()
+        d_v_w = torch.einsum("bta,bt->a", th, d_pre)
+        d_qsum = d_pre[..., None] * v_w.float() * (1.0 - th * th)
+        return (d_qsum.to(qsum.dtype), d_v_w.to(v_w.dtype),
+                d_v_b.to(v_b.dtype).reshape(v_b.shape),
+                d_scale.to(energy_scale.dtype).reshape(energy_scale.shape),
+                None, d_memory.to(memory.dtype))
+
+
+def attention_tail(qsum: torch.Tensor, v_w: torch.Tensor, v_b: torch.Tensor,
+                   energy_scale: torch.Tensor, mask: torch.Tensor,
+                   memory: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same signature and returns as :func:`attention_tail_reference`,
+    differentiable in ``qsum``, ``v_w``, ``v_b``, ``energy_scale`` and
+    ``memory``.
+
+    CPU tensors take the plain version; CUDA tensors launch the Triton
+    kernel (or raise).  ``attention_tail.launches`` counts launches.
+    """
+    return _AttentionTail.apply(qsum, v_w, v_b, energy_scale, mask, memory)
 
 
 attention_tail.launches = 0

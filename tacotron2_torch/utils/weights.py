@@ -132,6 +132,24 @@ def _lists(tree: Any) -> Any:
     return out
 
 
+def export_jax_grads(model: Tacotron2,
+                     grads: Dict[str, torch.Tensor] = None) -> Dict[str, Any]:
+    """The model's gradients laid out as the JAX package's parameter tree
+    (fp32 numpy leaves), so that they compare with ``jax.grad`` leaf by
+    leaf.  ``grads`` maps parameter names to gradients; where it is None
+    each parameter's ``.grad`` is read.  A missing gradient is zero."""
+    named = dict(model.named_parameters())
+    tree: Dict[str, Any] = {}
+    for path, key, transpose in _pairs(model):
+        if path[0] != "params":
+            continue
+        g = named[key].grad if grads is None else grads.get(key)
+        a = (np.zeros(tuple(named[key].shape), np.float32) if g is None
+             else g.detach().float().cpu().numpy())
+        _set(tree, path[1:], (a.T if transpose else a).copy())
+    return _lists(tree)
+
+
 def export_jax_params(model: Tacotron2
                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Inverse of :func:`load_jax_params`: the model's weights as the JAX

@@ -1,7 +1,8 @@
-"""The port's two kernels against their plain versions, without JAX.
+"""The port's kernels against their plain versions, without JAX.
 
 The tests marked ``cuda`` launch the Triton ``attention_tail`` and the CUDA
-``decoder_infer_mega``; they skip where there is no card.  This file
+``decoder_infer_mega``, ``decoder_fwd_train_mega`` and
+``decoder_bwd_chain_mega``; they skip where there is no card.  This file
 imports nothing of JAX, so on a machine with a card and no JAX it runs
 without the suite's conftest:
 
@@ -11,6 +12,8 @@ The other tests run everywhere: the wrappers' routing and checks, the
 build's failure without ``nvcc``, and the weight bytes that the decode
 kernel's bound is computed from.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,8 +25,14 @@ from tacotron2_torch.models.tacotron2 import (Tacotron2, cast_params_bf16,
 from tacotron2_torch.ops import _build
 from tacotron2_torch.ops.attention_kernel import (attention_tail,
                                                   attention_tail_reference)
+from tacotron2_torch.ops.decoder_bptt import core_params, decoder_scan_bptt
+from tacotron2_torch.ops.decoder_bwd_kernel import (
+    decoder_bwd_chain_mega, decoder_bwd_chain_reference)
 from tacotron2_torch.ops.decoder_megakernel import (
     decoder_infer_mega, decoder_infer_mega_reference, weight_bytes)
+from tacotron2_torch.ops.decoder_train_kernel import (
+    decoder_fwd_train_mega, decoder_fwd_train_reference, kernel_operands,
+    operand_bytes)
 
 # every width a multiple of 8, as the decode kernel's vector loads need
 SMALL = dict(n_mels=8, prenet_dim=16, symbols_embedding_dim=32,
@@ -96,6 +105,22 @@ def test_library_path_follows_source():
     assert path.name.startswith("libdecoder_infer-") and path.suffix == ".so"
 
 
+@pytest.mark.parametrize("name", _build.CUDA_SOURCES)
+def test_sources_share_the_header(name, monkeypatch, tmp_path):
+    """Every CUDA source includes the shared header once, and its library
+    name follows the header's contents as well as its own."""
+    assert (_build.CSRC / f"{name}.cu").read_text().count(
+        '#include "decoder_common.cuh"') == 1
+    before = _build.library_path(name)
+    assert before.name.startswith(f"lib{name}-")
+    for f in _build.CSRC.glob("*.cu*"):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    with open(tmp_path / "decoder_common.cuh", "a") as f:
+        f.write("// edited\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.library_path(name).name != before.name
+
+
 def test_weight_bytes_full_width():
     """The bytes every decode step reads: ~72.8 MB fp32, ~36.4 MB bf16."""
     cfg = ModelConfig()
@@ -157,3 +182,158 @@ def test_cuda_decode_natural_gate_fire():
         got = decoder_infer_mega(dec, memory, MAX, 0.5, True, mask, "any")
     assert int(got[3]) == 2       # fires at the first eligible step
     assert got[4].tolist() == [2, 2]
+
+
+# --------------------------------------------------------------------------
+# the training pair: decoder_fwd_train_mega, decoder_bwd_chain_mega
+# --------------------------------------------------------------------------
+T_DEC = 10
+FWD_OUT = ("frames", "attn", "ha_s", "ca_s", "hd_s", "cd_s", "qsum_s",
+           "aa_s", "ad_s")
+BWD_OUT = ("g_att_s", "g_dec_s", "d_ctx_s", "d_pre_s", "d_qsum_s", "d_pq_s",
+           "dv", "dpm", "scal")
+# Kernel against plain version.  An element may differ by two bf16
+# roundings of the plain value where the output is stored in bf16 (a
+# rounding is at most 2^-7 of the value; both sides round at the same
+# places, and a sum taken in another order flips one now and then), and
+# beyond that by PAIR_TOL times the plain output's mean size (frames: about
+# their per-channel mean, which is the projection bias and no product).
+# fp32: the same products summed in another order.  bf16: what a flipped
+# rounding carries into the later steps.
+PAIR_TOL = {torch.float32: 5e-5, torch.bfloat16: 1.5e-2}
+
+
+def train_inputs(device, dtype=torch.float32, dropout=True, b=B, t_enc=T_ENC,
+                 t_dec=T_DEC):
+    kw = dict(SMALL) if dropout else dict(
+        SMALL, p_attention_dropout=0.0, p_decoder_dropout=0.0)
+    model = init_weights(Tacotron2(ModelConfig(**kw)), seed=0)
+    if dtype == torch.bfloat16:
+        model = cast_params_bf16(model)
+    dec = model.decoder.to(device)
+    rng = np.random.default_rng(2)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(device)
+    pre = (f(t_dec, b, SMALL["prenet_dim"]) * 0.3).abs()
+    memory = f(b, t_enc, SMALL["encoder_embedding_dim"]) * 0.5
+    with torch.no_grad():
+        pm = dec.attention.memory_layer(memory)
+    lens = torch.tensor([t_enc - 3 * (i % 2) for i in range(b)])
+    mask = make_pad_mask(lens, t_enc).to(device)
+    h = SMALL["decoder_rnn_dim"]
+    keep = lambda: (torch.from_numpy(rng.random((t_dec, b, h)) < 0.9)
+                    .to(device) if dropout else None)
+    ops = kernel_operands(core_params(dec))
+    cots = (f(t_dec, b, SMALL["n_mels"] + 1) * 0.5, f(t_dec, b, t_enc))
+    return dec, (dec.cfg, ops, pre, memory, pm, mask, keep(), keep()), cots
+
+
+def error_share(name, g, r):
+    """The largest error past two bf16 roundings (bf16 outputs only), as a
+    share of the plain output's mean size."""
+    stored_bf16 = r.dtype == torch.bfloat16
+    g, r = g.float(), r.float()
+    err = (g - r).abs()
+    if stored_bf16:
+        err = (err - 2 * 2.0 ** -7 * r.abs()).clamp(min=0)
+    if name == "frames":
+        r = r - r.mean(dim=(0, 1), keepdim=True)
+    return float(err.max()) / float(r.abs().mean())
+
+
+def assert_outputs_close(names, got, ref, tol):
+    for name, g, r in zip(names, got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        share = error_share(name, g, r)
+        assert share <= tol, (name, share)
+
+
+def test_train_pair_rejects_what_it_cannot_launch():
+    dec, args, cots = train_inputs("cpu")
+    cfg, ops, pre, memory, pm, mask, mka, mkd = args
+    with pytest.raises(ValueError, match="unsupported device"):
+        decoder_fwd_train_mega(cfg, ops, pre, memory.to("meta"), pm, mask,
+                               mka, mkd)
+    with pytest.raises(ValueError, match="unsupported device"):
+        decoder_bwd_chain_mega(cfg, ops, memory.to("meta"), mka, mkd,
+                               *([pre] * 8))
+    # the pair reads the decoder's weights less the prenet, every step
+    full = init_weights(Tacotron2(ModelConfig()), seed=0).decoder
+    cfgf = full.cfg
+    prenet = cfgf.prenet_dim * (cfgf.n_mels + cfgf.prenet_dim)
+    assert (operand_bytes(kernel_operands(core_params(full)))
+            == weight_bytes(full) - 4 * prenet)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [True, False])
+@pytest.mark.parametrize("b,t_enc", [(2, 12), (3, 13), (9, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_forward_matches_plain(dtype, b, t_enc, dropout):
+    _, args, _ = train_inputs(cuda_device(), dtype, dropout, b, t_enc)
+    before = decoder_fwd_train_mega.launches
+    got = decoder_fwd_train_mega(*args)
+    torch.cuda.synchronize()
+    assert decoder_fwd_train_mega.launches == before + 1
+    assert_outputs_close(FWD_OUT, got, decoder_fwd_train_reference(*args),
+                         PAIR_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [True, False])
+@pytest.mark.parametrize("b,t_enc", [(2, 12), (3, 13), (9, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_backward_matches_plain(dtype, b, t_enc, dropout):
+    _, args, cots = train_inputs(cuda_device(), dtype, dropout, b, t_enc)
+    cfg, ops, _, memory, _, _, mka, mkd = args
+    _, attns, _, ca_s, _, cd_s, qsum_s, aa_s, ad_s = (
+        decoder_fwd_train_reference(*args))
+    bargs = (cfg, ops, memory, mka, mkd, aa_s, ad_s, ca_s, cd_s, attns,
+             qsum_s, *cots)
+    before = decoder_bwd_chain_mega.launches
+    got = decoder_bwd_chain_mega(*bargs)
+    again = decoder_bwd_chain_mega(*bargs)
+    torch.cuda.synchronize()
+    assert decoder_bwd_chain_mega.launches == before + 2
+    assert_outputs_close(BWD_OUT, got, decoder_bwd_chain_reference(*bargs),
+                         PAIR_TOL[dtype])
+    for name, x, y in zip(BWD_OUT, got, again):
+        assert torch.equal(x, y), f"{name}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("megakernel", [True, False])
+def test_cuda_scan_bptt_routes(megakernel):
+    """On CUDA tensors ``decoder_scan_bptt`` launches the pair when the
+    config asks for it, else neither (the step loop launches the Triton
+    tail); both routes give the same gradients (fp32, 1e-4 relative)."""
+    dev = cuda_device()
+    dec, args, _ = train_inputs(dev)
+    cfg, _, pre, memory, pm, mask, mka, mkd = args
+    grads = {}
+    for on in (megakernel, None):      # None: the plain pair on the CPU
+        d = dec if on is not None else dec.cpu()
+        where = dev if on is not None else "cpu"
+        c = dataclasses.replace(cfg, decoder_megakernel=bool(on))
+        p = {n: x.detach().to(where).requires_grad_(True)
+             for n, x in core_params(d).items()}
+        counts = (decoder_fwd_train_mega.launches,
+                  decoder_bwd_chain_mega.launches, attention_tail.launches)
+        out = decoder_scan_bptt(
+            c, p, *(x.to(where) for x in (pre, memory, pm, mask, mka, mkd)))
+        ((out[0] ** 2).sum() + (out[1] ** 2).sum()).backward()
+        new = (decoder_fwd_train_mega.launches,
+               decoder_bwd_chain_mega.launches, attention_tail.launches)
+        if on is True:
+            assert (new[0] - counts[0], new[1] - counts[1]) == (1, 1)
+        else:
+            assert new[:2] == counts[:2]
+            assert (new[2] - counts[2]) == (T_DEC if on is False else 0)
+        grads[on] = {n: x.grad.cpu() for n, x in p.items()}
+    # relative to each gradient's largest value, with a floor of 1e-3 of
+    # the largest gradient of all (the v bias's true gradient is zero)
+    gscale = max(float(r.abs().max()) for r in grads[None].values())
+    for n, r in grads[None].items():
+        scale = float(r.abs().max()) + 1e-3 * gscale
+        assert float((grads[megakernel][n] - r).abs().max()) < 1e-4 * scale, n

@@ -186,11 +186,26 @@ def test_weight_bridge_rejects_wrong_shape():
         load_jax_params(bad, np_tree(params), np_tree(state))
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "AudioConfig"])
+@pytest.mark.parametrize("name", ["ModelConfig", "AudioConfig",
+                                  "GuidedAttentionConfig", "TrainConfig",
+                                  "Config"])
 def test_config_copy_matches(name):
     """The port's own config copy: every field it keeps has the JAX
     package's default, and the symbol table is the same."""
     assert port_config.SYMBOLS == jax_config.SYMBOLS
     ours = dataclasses.asdict(getattr(port_config, name)())
     theirs = dataclasses.asdict(getattr(jax_config, name)())
+    if name == "Config":       # nested: compare what each part keeps
+        assert set(ours) == set(theirs)
+        for part in ours:
+            assert {k: theirs[part][k] for k in ours[part]} == ours[part]
+        return
     assert {k: theirs[k] for k in ours} == ours
+    if name != "ModelConfig":
+        assert set(ours) == set(theirs)
+    else:
+        # the training slice's fields are kept; only the XLA scan and
+        # rematerialisation knobs are left out
+        assert set(theirs) - set(ours) == {
+            "decoder_scan_unroll", "remat_decoder_step",
+            "decoder_remat_policy"}
