@@ -32,7 +32,7 @@ it fails:
    main path, its error there (and over the sweeps of phases 4-5), its
    time, the plain version's, and the bound (the larger of bytes over
    3.35 TB/s and operations over the peak rate of their type, H100 SXM
-   data sheet), printed after phase 10 with all four kernels;
+   data sheet), printed after phase 10 with all five kernels;
 8. the CUDA ``decoder_fwd_train_mega`` (the teacher-forced decoder forward)
    against its plain version at full width on seeded weights: B in {2, 16},
    T_enc=128 with a ragged mask, T_dec=64, fp32 and bf16, dropout 0.1/0.1
@@ -54,10 +54,47 @@ it fails:
     zeroed before and read after; before it, on the same batch and masks,
     the first step's gradients by the kernel route against the plain
     route, and both kernels against their plain versions on that step's
-    own inputs.
+    own inputs;
+11. the CUDA ``conv_bn_act`` (eval Conv1d + BatchNorm + activation, folded)
+    against its plain version at full width: (C_in, C_out) in {(512, 512),
+    (80, 512), (512, 80)}, K=5, T in {1, 37, 128, 1000}, B in {1, 4, 16},
+    relu, tanh and none, fp32 and bf16 weights, seeded non-identity
+    BatchNorm statistics; the limit (``CONV_TOL``) is a share of the plain
+    output's mean size;
+12. the text -> PCM main path on seeded weights at the full
+    ``ModelConfig()`` width (bf16 serving cast, decode kernel and fused
+    convs on; random weights never fire the gate, so ``max_steps=400`` and
+    ``forced_stop_at`` end the decodes, and the audio is that of seeded
+    weights, not speech): four fixed sentences (one with a number, one with
+    an out-of-lexicon word) through ``synthesize_wav`` batched; one by one
+    through ``synthesize_pcm_proportional``, once with ``forced_stop_at``
+    inside the bucket picked from the text length (no escalation) and once
+    without (one escalation to ``max_steps``); and one through
+    ``synthesize`` from a ``state_dict`` the script saves under a
+    temporary directory into a WAV there, with the launch counters zeroed
+    before and read after.  The lexicon and both LTS tables are loaded,
+    token ids equal the pinned ones (``tests/test_torch_text.py`` pins the
+    same), ``frame_ends`` equal ``forced_stop_at`` or ``max_steps`` as the
+    stop rule says, PCM is int16 of length bucket x hop, finite, not silent
+    before the stop and at the floor after it, the WAV reads back; then
+    wall time, frames, seconds of audio and real-time factor per sentence,
+    and wall, device busy and idle share of each part of a request; then
+    ``decoder_infer_mega`` against the plain step loop on this path's own
+    decodes (the batched request; each sentence alone capped at the bucket
+    with the forced stop, capped without, and at ``max_steps``);
+13. ``conv_bn_act`` at the main paths' own shapes and inputs: each of the
+    eight layers of the batched request and of one single request, kernel
+    against plain version on that layer's real input, with its time, the
+    plain version's, cuDNN's on the folded weights (``library_ms``, and
+    its kernels' device time) and the bound; the same comparison, untimed,
+    on every layer of phase 6's requests, batched and one by one; then the
+    kernel route against the unfused (cuDNN, TF32 off) route for the whole
+    request (``frame_ends`` and mels).
 
-The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
-JAX or of ``tacotron2_tpu``.
+Phases 11-13 run after phase 7, before the training phases.  The
+``kernels`` line has five entries.  The last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
+``tacotron2_tpu``, and reads no weights file from the repository.
 """
 
 from __future__ import annotations
@@ -65,8 +102,10 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -78,12 +117,18 @@ PEAK_OPS = {torch.float32: 67e12,  # fp32 outside the tensor cores
 TAIL_TOL = 1e-5         # fp32 sums over <= 200 positions, other order
 # decode kernel vs plain step loop, one limit per output.  Typical sizes at
 # full width on seeded weights: mels and gate logits ~0.1-1, alignments
-# ~1/T_enc (~1e-2).  fp32: the same products summed in another order;
-# bf16 adds the composed location matrix, rounded once in the kernel and
-# per step in the plain conv.
+# ~1/T_enc.  fp32: the same products summed in another order; bf16 adds the
+# composed location matrix, rounded once in the kernel and per step in the
+# plain conv, and the plain loop's bf16 rounding of qsum, whose location
+# part grows with the cumulative alignment (steps / T_enc).  An alignment's
+# error scales with its size, so its limit is a share of the plain
+# alignments' mean size: read on an H100 in bf16, 1.3e-2 at T_enc=128 over
+# 300 steps, 1.5e-2 at T_enc=112 and 2.6e-2 at T_enc=32 over 400 steps
+# (8.2e-4 of 3.1e-2); in fp32 1.7e-6.
 DEC_OUTPUTS = ("mels", "gates", "aligns")
-DEC_TOL = {torch.float32: {"mels": 1e-4, "gates": 1e-4, "aligns": 1e-5},
-           torch.bfloat16: {"mels": 5e-3, "gates": 5e-3, "aligns": 1e-3}}
+DEC_TOL = {torch.float32: {"mels": 1e-4, "gates": 1e-4},
+           torch.bfloat16: {"mels": 5e-3, "gates": 5e-3}}
+DEC_ALIGN_SHARE = {torch.float32: 1e-3, torch.bfloat16: 6e-2}
 MAIN_TOL = 5e-2         # bf16 postnet mels, kernel vs step loop / CPU
 # training kernels vs their plain versions, one limit per output.  An
 # element may differ by BF16_ULPS roundings of the plain value where the
@@ -115,6 +160,41 @@ MAIN_PAIR_TOL = dict(
     dpm=1.6e-3, scal=1e-4)
 BPTT_TOL = 1e-3         # fp32 gradients, kernel pair vs plain pair/autograd
 GRAD_TOL = 5e-2         # bf16 train-step gradients, kernel vs plain route
+# conv_bn_act kernel vs its plain version: the largest error as a share of
+# the plain output's mean size.  Both sides round the folded weight and
+# the input at the same places and sum 2560 (or 400) products in fp32 in
+# another order (the tensor cores' own, in bf16).  Readings on an H100:
+# 4.9e-5 (fp32) and 8.3e-5 (bf16) over the seeded sweep of phase 11, and
+# 2.9e-5 over the eight layers on the main path's own inputs (bf16, seeded
+# weights); the limits stand 4 to 6 times above.
+CONV_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-4}
+CONV_MAIN_TOL = 1.5e-4
+# fused (kernel) route against unfused (cuDNN, TF32 off) route over a whole
+# bf16 request: the fused route rounds the folded weight W*g once and keeps
+# each layer's output fp32, the unfused one rounds W, lets cuDNN round the
+# conv's output to bf16 and scales afterwards.  Limits as shares of the
+# unfused postnet mels' mean size: the largest difference over the first
+# ten frames (read 9.8e-3 on an H100) and the mean difference over the
+# whole utterances (read 2.0e-3), each 5 times above its reading.
+ROUTE_FIRST_TOL = 5e-2
+ROUTE_MEAN_TOL = 1e-2
+# the sentences of the text -> PCM main path and their token ids
+# (tests/test_torch_text.py pins the same values against the JAX package)
+SMOKE_TEXTS = {
+    "The quick brown fox.": [
+        21, 6, 69, 41, 65, 35, 41, 69, 18, 53, 13, 44, 69, 31, 1, 41, 54],
+    "Speech synthesis on one card.": [
+        54, 52, 38, 19, 69, 54, 35, 44, 57, 6, 54, 6, 54, 69, 1, 44, 69, 65,
+        7, 44, 69, 41, 1, 53, 20],
+    "It costs 42 dollars.": [
+        35, 56, 69, 41, 1, 54, 56, 54, 69, 31, 10, 53, 56, 37, 69, 56, 62, 69,
+        20, 1, 42, 25, 67],
+    "A zorblaxian wug sings.": [
+        6, 69, 67, 11, 53, 18, 42, 4, 41, 54, 37, 6, 44, 69, 65, 7, 32, 69,
+        54, 35, 45, 67],
+}
+SPEAK_BUCKET = 256      # what 17-25 tokens pick: 7 frames a token + 40
+SPEAK_FORCED_STOP = 200  # inside that bucket
 MAX_STEPS = 400
 FORCED_STOP = 300
 SEED = 0
@@ -172,8 +252,8 @@ def max_err(a, b) -> float:
 def compare_decode(got, ref, dtype, where: str):
     """Hold a decode kernel's returns against the plain step loop's:
     n_frames and frame_ends exactly, the rows past the stop exactly, and
-    each output's stopped rows within its own limit.  Returns
-    {output: max abs error}."""
+    each output's stopped rows within its own limit (the alignments' is a
+    share of their mean size).  Returns {output: max abs error}."""
     n = int(ref[3])
     check(int(got[3]) == n, f"{where}: n_frames {int(got[3])} != {n}")
     check(torch.equal(got[4], ref[4]), f"{where}: frame_ends "
@@ -183,7 +263,8 @@ def compare_decode(got, ref, dtype, where: str):
         check(torch.equal(g[:, n:], r[:, n:]),
               f"{where}: {name} past the stop differ")
         errs[name] = float((g[:, :n].float() - r[:, :n].float()).abs().max())
-    tol = DEC_TOL[dtype]
+    tol = dict(DEC_TOL[dtype], aligns=DEC_ALIGN_SHARE[dtype] * float(
+        ref[2][:, :n].float().abs().mean()))
     print(f"[{where}] n_frames {n}, frame_ends {ref[4].tolist()}; max err "
           + ", ".join(f"{k} {errs[k]:.3e} (tol {tol[k]:g}, mean |ref| "
                       f"{float(r[:, :n].float().abs().mean()):.3e})"
@@ -402,7 +483,8 @@ def train_main_path(dev):
     from tacotron2_torch.models.layers import BatchNorm
     from tacotron2_torch.models.postnet import postnet_apply
     from tacotron2_torch.models.tacotron2 import (cast_params_bf16,
-                                                  init_projection_bias)
+                                                  init_projection_bias,
+                                                  replace_config)
     from tacotron2_torch.ops import decoder_bptt
     from tacotron2_torch.ops.attention_kernel import attention_tail
     from tacotron2_torch.ops.decoder_bwd_kernel import (
@@ -438,9 +520,7 @@ def train_main_path(dev):
           f"mel lengths {sorted(batch['mel_lengths'].tolist())}", flush=True)
 
     def set_route(on: bool) -> None:
-        c = dataclasses.replace(mc, decoder_megakernel=on)
-        model.cfg = c
-        model.decoder.cfg = c
+        replace_config(model, decoder_megakernel=on)
 
     # before the counted run: the first step's gradients by both routes on
     # the same batch and the same dropout masks, and both kernels against
@@ -678,22 +758,489 @@ def train_main_path(dev):
     ]
 
 
+def conv_layer(c_in, c_out, k, dtype, seed, dev):
+    """A conv + BatchNorm layer with seeded non-identity statistics."""
+    from tacotron2_torch.models.layers import BatchNorm, Conv1d
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *shape: torch.rand(*shape, generator=g)
+    conv, bn = Conv1d(c_in, c_out, k), BatchNorm(c_out, 1e-5)
+    bound_ = (c_in * k) ** -0.5
+    with torch.no_grad():
+        conv.weight.copy_((u(c_out, c_in, k) * 2 - 1) * bound_)
+        conv.bias.copy_((u(c_out) * 2 - 1) * bound_)
+        bn.weight.copy_(u(c_out) + 0.5)
+        bn.bias.copy_(u(c_out) * 0.4 - 0.2)
+        bn.running_mean.copy_(u(c_out) * 0.8 - 0.4)
+        bn.running_var.copy_(u(c_out) * 1.7 + 0.3)
+    for p in list(conv.parameters()) + list(bn.parameters()):
+        p.data = p.data.to(dtype)
+    return conv.to(dev), bn.to(dev)
+
+
+def conv_share(got, ref) -> float:
+    """Largest error as a share of the plain output's mean size."""
+    return float((got - ref).abs().max()) / float(ref.abs().mean())
+
+
+def convbn_sweep(dev):
+    """Phase 11.  Returns the largest absolute error over the sweep."""
+    from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
+                                                   conv_bn_act_reference)
+    worst_abs = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for c_in, c_out in ((512, 512), (80, 512), (512, 80)):
+            conv, bn = conv_layer(c_in, c_out, 5, dtype, c_in + c_out, dev)
+            worst, n = 0.0, 0
+            for t in (1, 37, 128, 1000):
+                for b in (1, 4, 16):
+                    x = torch.randn(
+                        b, c_in, t,
+                        generator=torch.Generator().manual_seed(b * t)).to(dev)
+                    for act in ("relu", "tanh", "none"):
+                        got = conv_bn_act(x, conv, bn, 1e-5, act)
+                        torch.cuda.synchronize()
+                        ref = conv_bn_act_reference(x, conv, bn, 1e-5, act)
+                        check(got.shape == ref.shape == (b, c_out, t)
+                              and got.dtype == torch.float32
+                              and bool(torch.isfinite(got).all()),
+                              f"conv_bn_act output at B={b} T={t}")
+                        share = conv_share(got, ref)
+                        check(share <= CONV_TOL[dtype],
+                              f"conv_bn_act {dtype} {c_in}->{c_out} B={b} "
+                              f"T={t} {act}: error {share} of the mean size, "
+                              f"limit {CONV_TOL[dtype]}")
+                        worst = max(worst, share)
+                        worst_abs = max(worst_abs,
+                                        float((got - ref).abs().max()))
+                        n += 1
+            x = torch.randn(4, c_in, 400, device=dev)
+            ms = time_ms(lambda: conv_bn_act(x, conv, bn, 1e-5, "tanh"), 50)
+            dms = device_ms(lambda: conv_bn_act(x, conv, bn, 1e-5, "tanh"),
+                            20, "conv_bn_act")
+            print(f"[conv_bn_act] {str(dtype)[6:]:8s} {c_in:3d}->{c_out:3d} "
+                  f"K=5: {n} cases (T 1/37/128/1000 x B 1/4/16 x relu/tanh/"
+                  f"none), worst error {worst:.2e} of the mean size (limit "
+                  f"{CONV_TOL[dtype]:g}); B=4 T=400: {ms:.4f} ms per call "
+                  f"with the fold, kernel alone {fmt_ms(dms)}", flush=True)
+    return worst_abs
+
+
+def text_to_pcm_main_path(dev, base, mels_requests):
+    """Phases 12 and 13 on ``base``, the seeded full-width model;
+    ``mels_requests`` are the token sequences of phase 6.  Returns
+    conv_bn_act's kernels-line entry and decoder_infer_mega's launches and
+    largest error on the text -> PCM path."""
+    import torch.nn.functional as F
+    from scipy.io import wavfile
+    from tacotron2_torch.config import Config
+    from tacotron2_torch.dsp.griffinlim import griffin_lim, mel_to_linear
+    from tacotron2_torch.infer.fused import (_mask_and_slice, estimate_frames,
+                                             pick_bucket,
+                                             synthesize_pcm_proportional,
+                                             synthesize_wav)
+    from tacotron2_torch.infer.synthesize import synthesize
+    from tacotron2_torch.models.decoder import decoder_infer
+    from tacotron2_torch.models.encoder import encoder_apply
+    from tacotron2_torch.models.postnet import postnet_apply
+    from tacotron2_torch.models.tacotron2 import (cast_params_bf16,
+                                                  make_pad_mask,
+                                                  replace_config,
+                                                  tacotron2_infer)
+    from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
+                                                   conv_bn_act_reference,
+                                                   fold_conv_bn)
+    from tacotron2_torch.ops.decoder_megakernel import (
+        decoder_infer_mega, decoder_infer_mega_reference)
+    from tacotron2_torch.text import (find_lexicon_path, lts_model,
+                                      lts_neural, pad_sequences,
+                                      text_to_sequence)
+    from tacotron2_torch.text.frontend import _default_g2p
+
+    # depth cut to MAX_STEPS frames; every width is ModelConfig()'s
+    cfg = Config(model=dataclasses.replace(base.cfg,
+                                           max_decoder_steps=MAX_STEPS))
+    acfg, hop = cfg.audio, cfg.audio.hop_length
+    texts = list(SMOKE_TEXTS)
+    model = cast_params_bf16(base).to(dev)
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters())
+          and model.cfg.decoder_megakernel and model.cfg.fused_convbn,
+          "serving model is not bf16 with both kernels on")
+
+    # the text frontend, on the host (the first call loads the lexicon and
+    # the two letter-to-sound tables)
+    t1 = time.perf_counter()
+    seqs = [text_to_sequence(t) for t in texts]
+    first_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    for _ in range(5):
+        [text_to_sequence(t) for t in texts]
+    text_ms = (time.perf_counter() - t1) * 1e3 / 5 / len(texts)
+    g2p = _default_g2p()
+    check(len(g2p._lexicon) > 100000 and find_lexicon_path().endswith(
+        os.path.join("third_party", "cmudict", "cmudict.gz")),
+        "the CMUdict lexicon did not load")
+    check(g2p._lts_model is not None and g2p._lts_neural is not None
+          and os.path.isfile(lts_model.DEFAULT_MODEL_PATH)
+          and os.path.isfile(lts_neural.DEFAULT_MODEL_PATH),
+          "a letter-to-sound table did not load: G2p would go on with rules")
+    check(g2p.resolution("zorblaxian") == "lts_model",
+          "the out-of-lexicon word did not reach the LTS tables")
+    for t, seq in zip(texts, seqs):
+        check(seq == SMOKE_TEXTS[t], f"token ids of {t!r}: {seq}")
+    print(f"[speak] lexicon of {len(g2p._lexicon)} words and both LTS tables "
+          f"loaded; {len(texts)} sentences, token ids as pinned "
+          f"({[len(q) for q in seqs]} tokens); text frontend {text_ms:.2f} ms "
+          f"a sentence on the host (first call with the loads "
+          f"{first_ms:.0f} ms); seeded weights, bf16: the audio is not "
+          f"speech", flush=True)
+
+    # warm-up outside the counted run (FFT plans, first launches)
+    synthesize_wav(model, ["warm up."], cfg, max_steps=8, gl_iters=1)
+    conv_bn_act.launches = 0
+    decoder_infer_mega.launches = 0
+    model_calls = 0
+
+    def counted(want_calls, where):
+        """The launches since the last call of this function."""
+        nonlocal model_calls
+        calls = decoder_infer_mega.launches - model_calls
+        model_calls += calls
+        check(calls == want_calls
+              and conv_bn_act.launches == 8 * model_calls,
+              f"{where}: {calls} model calls (expected {want_calls}), "
+              f"decoder_infer_mega {decoder_infer_mega.launches}, "
+              f"conv_bn_act {conv_bn_act.launches}")
+        return calls
+
+    def check_pcm(pcm, n, where):
+        """int16, not silent before the stop, at the floor after it (a
+        frame's window reaches two hops past its centre)."""
+        check(pcm.dtype == np.int16, f"{where}: PCM is {pcm.dtype}")
+        x = pcm.astype(np.float64)
+        peak = np.abs(x[:n * hop]).max()
+        rms = np.sqrt((x[:n * hop] ** 2).mean())
+        tail = np.abs(x[(n + 4) * hop:]).max() if (n + 4) * hop < len(x) else 0
+        check(np.isfinite(rms) and rms > 0 and peak > 0,
+              f"{where}: silent before the stop")
+        check(tail <= max(1.0, 0.02 * peak), f"{where}: {tail:.0f} after the "
+              f"stop, peak {peak:.0f}")
+        return rms, peak, tail
+
+    # (a) batched, texts in, trimmed waveforms out
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wavs = synthesize_wav(model, texts, cfg, max_steps=MAX_STEPS)
+    batched_s = time.perf_counter() - t1
+    counted(1, "synthesize_wav")
+    check(all(w.dtype == np.float32 and np.isfinite(w).all()
+              and float(np.abs(w).max()) > 0 for w in wavs),
+          "synthesize_wav: waveforms not finite or silent")
+    ends_b = [len(w) // hop for w in wavs]
+    check(all(len(w) == MAX_STEPS * hop for w in wavs),
+          f"batched: no gate stop, so every item ends at max_steps; got "
+          f"{ends_b}")
+    audio_s = sum(ends_b) * hop / acfg.sampling_rate
+    print(f"[speak] synthesize_wav, B={len(texts)}, max_steps {MAX_STEPS}: "
+          f"frame_ends {ends_b} (= max_steps: seeded weights fire no gate); "
+          f"wall {batched_s * 1e3:.1f} ms for {audio_s:.2f} s of audio, "
+          f"real-time factor {batched_s / audio_s:.4f}; peak "
+          f"{max(float(np.abs(w).max()) for w in wavs):.3f}", flush=True)
+
+    # (b) one by one through the length-proportional path: with a forced
+    # stop inside the picked bucket (one model call), then without (the
+    # gate is still open at the bucket's cap: one escalation to max_steps)
+    for text, seq in zip(texts, seqs):
+        tokens, lengths = pad_sequences([seq], pad_multiple=16)
+        check(pick_bucket(estimate_frames(len(seq)), MAX_STEPS)
+              == SPEAK_BUCKET, f"{text!r}: bucket from {len(seq)} tokens")
+        for forced, want_calls, want_bucket, want_end in (
+                (SPEAK_FORCED_STOP, 1, SPEAK_BUCKET, SPEAK_FORCED_STOP),
+                (None, 2, MAX_STEPS, MAX_STEPS)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pcm, ends, bucket, mel = synthesize_pcm_proportional(
+                model, acfg, tokens, lengths, max_steps=MAX_STEPS,
+                forced_stop_at=forced, return_mel=True)
+            wall = time.perf_counter() - t1
+            calls = counted(want_calls, repr(text))
+            n = int(ends[0])
+            check(bucket == want_bucket and n == want_end,
+                  f"{text!r}: forced_stop_at={forced} gave bucket {bucket}, "
+                  f"frame_ends {n}; expected {want_bucket}, {want_end}")
+            check(pcm.shape == (1, bucket * hop), f"PCM shape {pcm.shape}")
+            check(mel.shape == (1, bucket, acfg.n_mels)
+                  and bool(np.isfinite(mel).all()), "returned mel")
+            rms, peak, tail = check_pcm(pcm[0], n, repr(text))
+            secs = n * hop / acfg.sampling_rate
+            print(f"[speak] {text!r}: {len(seq)} tokens, forced_stop_at="
+                  f"{forced} -> {n} frames, bucket {bucket}, {calls} model "
+                  f"call(s); wall {wall * 1e3:.1f} ms for {secs:.2f} s of "
+                  f"audio, real-time factor {wall / secs:.4f}; PCM rms "
+                  f"{rms:.0f} peak {peak:.0f}, after the stop {tail:.0f}",
+                  flush=True)
+
+    # (c) the whole entry point: text + weights file -> WAV on disk.  The
+    # weights file is this model's own state_dict, saved here.
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "seeded_bf16.pt")
+        torch.save(model.state_dict(), weights)
+        t1 = time.perf_counter()
+        path = synthesize(texts[2], weights, os.path.join(tmp, "out"),
+                          cfg=cfg)
+        wall = time.perf_counter() - t1
+        check(os.path.isfile(path) and path.endswith("output_1.wav"),
+              f"no WAV at {path}")
+        sr, audio = wavfile.read(path)
+    counted(2, "synthesize")
+    check(sr == acfg.sampling_rate and audio.dtype == np.float32
+          and audio.ndim == 1 and bool(np.isfinite(audio).all()),
+          "the WAV read back")
+    check(len(audio) == MAX_STEPS * hop and float(np.abs(audio).max()) > 0,
+          f"the WAV's length {len(audio)} or level")
+    print(f"[speak] synthesize({texts[2]!r}) wrote and read back "
+          f"{len(audio)} samples ({len(audio) // hop} frames) at {sr} Hz, "
+          f"peak {float(np.abs(audio).max()):.3f}; wall {wall * 1e3:.1f} ms "
+          f"with the weights' load and the escalation", flush=True)
+    launches = (conv_bn_act.launches, decoder_infer_mega.launches)
+    print(f"[speak] launches conv_bn_act={launches[0]} decoder_infer_mega="
+          f"{launches[1]} over {model_calls} model calls", flush=True)
+    check(launches == (8 * model_calls, model_calls) and model_calls == 15,
+          f"text -> PCM path launched {launches} over {model_calls} calls")
+
+    # where a request's time goes, part by part (second of two runs each,
+    # under the profiler): the batched request, then the first alone
+    def timed(fn):
+        fn()
+        out, wall_ms, _, busy_ms = profile_step(fn)
+        return out, wall_ms, busy_ms
+
+    def parts(batch_texts, steps):
+        tokens, lengths = pad_sequences(
+            [text_to_sequence(t) for t in batch_texts], pad_multiple=16)
+        tok = torch.from_numpy(tokens).long().to(dev)
+        rows = []
+        memory, *row = timed(lambda: encoder_apply(model.encoder, tok))
+        rows.append(("encoder", *row))
+        mask = make_pad_mask(torch.from_numpy(lengths).to(dev),
+                             tokens.shape[1])
+        stop_mode = "all" if len(batch_texts) > 1 else "any"
+        decoded, *row = timed(lambda: decoder_infer(
+            model.decoder, memory, steps, cfg.model.gate_threshold,
+            mask=mask, stop_mode=stop_mode))
+        rows.append(("decode", *row))
+        coarse, ends = decoded[0], decoded[4]
+        residual, *row = timed(lambda: postnet_apply(
+            model.postnet, coarse.transpose(1, 2)))
+        rows.append(("postnet", *row))
+        mel_post = coarse + residual.transpose(1, 2)
+        mel_lin = torch.exp(_mask_and_slice(
+            mel_post, ends, steps, acfg.mel_eps).transpose(1, 2))
+        mkw = dict(sr=acfg.sampling_rate, n_fft=acfg.n_fft,
+                   n_mels=acfg.n_mels, fmin=acfg.fmin, fmax=acfg.fmax)
+        linear, *row = timed(lambda: mel_to_linear(mel_lin, **mkw))
+        rows.append(("mel_to_linear", *row))
+        _, *row = timed(lambda: griffin_lim(
+            linear, n_fft=acfg.n_fft, hop_length=hop,
+            win_length=acfg.win_length, length=steps * hop))
+        rows.append(("griffin_lim", *row))
+        total = sum(r[1] for r in rows)
+        print(f"[speak] one request by part, B={len(batch_texts)} "
+              f"T_enc={tokens.shape[1]} at {steps} frames (wall ms / device "
+              f"busy ms / idle share): text frontend on the host "
+              f"{text_ms * len(batch_texts):.2f}; "
+              + "; ".join(f"{n} {w:.2f} / {b:.2f} / {1 - b / w:.3f}"
+                          for n, w, b in rows)
+              + f"; device parts together {total:.1f} ms", flush=True)
+
+    parts(texts, MAX_STEPS)
+    parts(texts[:1], SPEAK_BUCKET)
+
+    # the decode kernel against the plain step loop on this path's own
+    # decodes: the batched request, and each sentence alone as the
+    # length-proportional path decodes it (bucket-capped with the forced
+    # stop, bucket-capped without, escalated to max_steps)
+    def decode_check(token_seqs, steps, forced):
+        tokens, lengths = pad_sequences(token_seqs, pad_multiple=16)
+        tok = torch.from_numpy(tokens).long().to(dev)
+        memory = encoder_apply(model.encoder, tok)
+        mask = make_pad_mask(torch.from_numpy(lengths).to(dev), tok.shape[1])
+        b = len(token_seqs)
+        args = (model.decoder, memory, steps, cfg.model.gate_threshold, True,
+                mask, "all" if b > 1 else "any", forced)
+        got = decoder_infer_mega(*args)
+        ref = decoder_infer_mega_reference(*args)
+        where = (f"main text->PCM B={b} T_enc={tok.shape[1]} max_steps="
+                 f"{steps} forced_stop_at={forced} decode kernel")
+        errs = compare_decode(got, ref, torch.bfloat16, where)
+        want = steps if forced is None else forced
+        check(got[4].tolist() == [want] * b,
+              f"{where}: frame_ends {got[4].tolist()}, expected {want}")
+        return max(errs.values())
+
+    speak_dec_err = max(
+        [decode_check(seqs, MAX_STEPS, None)]
+        + [decode_check([seq], steps, forced) for seq in seqs
+           for steps, forced in ((SPEAK_BUCKET, SPEAK_FORCED_STOP),
+                                 (SPEAK_BUCKET, None), (MAX_STEPS, None))])
+
+    # 13. conv_bn_act on the real input of each of the eight layers
+    def cudnn_layer(x, w_oik, h, act):
+        y = F.conv1d(x.to(w_oik.dtype), w_oik, padding=2).float() \
+            + h[None, :, None]
+        return torch.relu(y) if act == "relu" else (
+            torch.tanh(y) if act == "tanh" else y)
+
+    def layers_of(token_seqs, steps, timed):
+        """Kernel against plain version on each layer's real input of one
+        request; ``timed`` adds the times and the bound."""
+        tokens, lengths = pad_sequences(token_seqs, pad_multiple=16)
+        with torch.no_grad():
+            out, _, _ = tacotron2_infer(
+                model, tokens, max_steps=steps, text_lengths=lengths,
+                stop_mode="all" if len(token_seqs) > 1 else "any")
+            x = model.encoder.embedding(
+                torch.from_numpy(tokens).long().to(dev)).transpose(1, 2)
+        n_post = len(model.postnet.convs)
+        stack = [("encoder", i, c, b_, "relu") for i, (c, b_) in enumerate(
+            zip(model.encoder.convs, model.encoder.bns))] + [
+            ("postnet", i, c, b_, "tanh" if i < n_post - 1 else "none")
+            for i, (c, b_) in enumerate(zip(model.postnet.convs,
+                                            model.postnet.bns))]
+        rows = []
+        for part, i, conv, bn, act in stack:
+            if part == "postnet" and i == 0:
+                x = out.mel_coarse.transpose(1, 2)
+            eps = cfg.model.batchnorm_eps
+            got = conv_bn_act(x, conv, bn, eps, act)
+            torch.cuda.synchronize()
+            ref = conv_bn_act_reference(x, conv, bn, eps, act)
+            share = conv_share(got, ref)
+            where = (f"main B={x.shape[0]} T={x.shape[2]} {part}.{i} "
+                     f"{conv.weight.shape[1]}->{conv.weight.shape[0]} {act}")
+            check(share <= CONV_MAIN_TOL, f"{where}: conv_bn_act error "
+                  f"{share} of the mean size")
+            if not timed:
+                rows.append(dict(err_share=share,
+                                 max_abs_err=float((got - ref).abs().max())))
+                print(f"[{where}] kernel vs plain {share:.2e} of the mean "
+                      f"size (limit {CONV_MAIN_TOL:g})", flush=True)
+                x = got
+                continue
+            wmat, h = fold_conv_bn(conv, bn, eps)
+            w_oik = wmat.permute(2, 1, 0).to(conv.weight.dtype).contiguous()
+            xin = x
+            ms = time_ms(lambda: conv_bn_act(xin, conv, bn, eps, act), 30)
+            dms = device_ms(lambda: conv_bn_act(xin, conv, bn, eps, act), 20,
+                            "conv_bn_act")
+            plain = time_ms(
+                lambda: conv_bn_act_reference(xin, conv, bn, eps, act), 10)
+            lib = time_ms(lambda: cudnn_layer(xin, w_oik, h, act), 30)
+            lib_dev = device_ms(lambda: cudnn_layer(xin, w_oik, h, act), 20,
+                                "")
+            b_, c_in, t = x.shape
+            c_out, _, k = conv.weight.shape
+            # each input read once (x, the conv's and the BatchNorm's
+            # tensors), the output written once; the products' operations
+            # at the peak rate of the weight dtype
+            wdt = conv.weight.dtype
+            bnd = bound(x.numel() * x.element_size() + 4 * b_ * t * c_out
+                        + (k * c_in + 3) * c_out * wdt.itemsize + 8 * c_out,
+                        2 * b_ * t * c_in * c_out * k, wdt)
+            rows.append(dict(layer=f"{part}.{i}", B=b_, T=t, C_in=c_in,
+                             C_out=c_out, act=act, err_share=share,
+                             max_abs_err=float((got - ref).abs().max()),
+                             ms=ms, device_ms=dms, plain_ms=plain,
+                             library_ms=lib, library_device_ms=lib_dev,
+                             bound_ms=bnd[0], bound_by=bnd[1]))
+            print(f"[{where}] kernel vs plain {share:.2e} of the mean size "
+                  f"(limit {CONV_MAIN_TOL:g}); {ms:.4f} ms per "
+                  f"call with the fold, kernel alone {fmt_ms(dms)}, plain "
+                  f"{plain:.4f} ms, cuDNN on the folded weights {lib:.4f} "
+                  f"ms (its kernels alone {fmt_ms(lib_dev)}), bound "
+                  f"{bnd[0]:.5f} ms ({bnd[1]})", flush=True)
+            x = got
+        return rows
+
+    rows_b = layers_of(seqs, MAX_STEPS, True)
+    rows_1 = layers_of(seqs[:1], SPEAK_BUCKET, True)
+    # and of the tokens -> mels requests of phase 6, batched and one by one
+    rows_m = [row for batch in [mels_requests] + [[q] for q in mels_requests]
+              for row in layers_of(batch, MAX_STEPS, False)]
+
+    # the fused (kernel) route against the unfused (cuDNN, TF32 off) route
+    def set_fused(on: bool) -> None:
+        replace_config(model, fused_convbn=on)
+
+    tokens, lengths = pad_sequences(seqs, pad_multiple=16)
+    routes = {}
+    for on in (True, False):
+        set_fused(on)
+        before = conv_bn_act.launches
+        out, _, ends = tacotron2_infer(model, tokens, max_steps=MAX_STEPS,
+                                       text_lengths=lengths, stop_mode="all")
+        check(conv_bn_act.launches - before == (8 if on else 0),
+              f"fused_convbn={on} launched "
+              f"{conv_bn_act.launches - before} conv kernels")
+        routes[on] = (out.mel_postnet.float(), ends.cpu().numpy())
+    set_fused(True)
+    check(np.array_equal(routes[True][1], routes[False][1])
+          and bool((routes[True][1] == MAX_STEPS).all()),
+          f"fused and unfused routes stop at {routes[True][1].tolist()} and "
+          f"{routes[False][1].tolist()}")
+    d = (routes[True][0] - routes[False][0]).abs()
+    size = float(routes[False][0].abs().mean())
+    first, mean = float(d[:, :10].max()) / size, float(d.mean()) / size
+    print(f"[main text->PCM] fused route vs unfused route, whole batched "
+          f"request: frame_ends {routes[True][1].tolist()} on both; postnet "
+          f"mels of mean size {size:.3f}: first 10 frames differ by at most "
+          f"{first:.3e} of it (limit {ROUTE_FIRST_TOL}), whole utterances by "
+          f"{mean:.3e} of it on average (limit {ROUTE_MEAN_TOL}; largest "
+          f"single difference {float(d.max()):.3e}: a bf16 rollout feeds a "
+          f"folded weight's other rounding back in)", flush=True)
+    check(first <= ROUTE_FIRST_TOL and mean <= ROUTE_MEAN_TOL,
+          "fused and unfused routes disagree")
+
+    mid = rows_b[5]        # a 512 -> 512 postnet layer of the batched request
+    rows_all = rows_b + rows_1 + rows_m
+    conv_entry = dict(
+        name="conv_bn_act", route="cuda",
+        source="tacotron2_torch/csrc/conv_bn_act.cu",
+        replaces="tacotron2_tpu/ops/convbn_kernel.py:86",
+        launches=launches[0],
+        max_abs_err=max(r["max_abs_err"] for r in rows_all),
+        max_err_share_of_mean=max(r["err_share"] for r in rows_all),
+        ms=mid["ms"], plain_ms=mid["plain_ms"], bound_ms=mid["bound_ms"],
+        bound_by=mid["bound_by"], library_ms=mid["library_ms"],
+        device_ms=mid["device_ms"],
+        library_device_ms=mid["library_device_ms"],
+        shape=f"{mid['layer']} B={mid['B']} T={mid['T']} "
+              f"{mid['C_in']}->{mid['C_out']} K=5 weights bf16",
+        request_ms=sum(r["ms"] for r in rows_b),
+        request_device_ms=(None if any(r["device_ms"] is None for r in rows_b)
+                           else sum(r["device_ms"] for r in rows_b)),
+        layers_batched=rows_b, layers_single=rows_1)
+    return conv_entry, dict(speak_path_launches=launches[1],
+                            speak_path_max_abs_err=speak_dec_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels run "
               "only on a CUDA card", file=sys.stderr)
         return 2
     from tacotron2_torch.config import ModelConfig
-    from tacotron2_torch.infer.synthesize import synthesize_mels
+    from tacotron2_torch.infer.synthesize import (
+        synthesize_mels_tokens as synthesize_mels)
     from tacotron2_torch.models.decoder import decoder_infer_steps
     from tacotron2_torch.models.encoder import encoder_apply
     from tacotron2_torch.models.postnet import postnet_apply
     from tacotron2_torch.models.tacotron2 import (
         Tacotron2, _condition_memory, cast_params_bf16, init_weights,
-        make_pad_mask)
+        make_pad_mask, replace_config)
     from tacotron2_torch.ops import _build
     from tacotron2_torch.ops.attention_kernel import (
         attention_tail, attention_tail_reference)
+    from tacotron2_torch.ops.convbn_kernel import conv_bn_act
     from tacotron2_torch.ops.decoder_megakernel import (
         decoder_infer_mega, decoder_infer_mega_reference, weight_bytes)
     from tacotron2_torch.text.frontend import pad_sequences
@@ -802,9 +1349,7 @@ def main() -> int:
           f"max_steps {MAX_STEPS}, bf16 weights", flush=True)
 
     def set_megakernel(on: bool) -> None:
-        c = dataclasses.replace(model.cfg, decoder_megakernel=on)
-        model.cfg = c
-        model.decoder.cfg = c
+        replace_config(model, decoder_megakernel=on)
 
     def serve(on: bool):
         """Batched, then one request at a time; per-run wall seconds."""
@@ -827,15 +1372,20 @@ def main() -> int:
     for on in (True, False):
         decoder_infer_mega.launches = 0
         attention_tail.launches = 0
+        conv_bn_act.launches = 0
         results[on] = serve(on)
         launches[on] = (decoder_infer_mega.launches, attention_tail.launches)
+        check(conv_bn_act.launches == 8 * (1 + len(seqs)),
+              f"phase 6 launched conv_bn_act {conv_bn_act.launches} times")
+        conv_mels_launches = conv_bn_act.launches
         path = "decode kernel" if on else "step loop + attention kernel"
         frames = sum(m.shape[0] for mels, _, _ in results[on] for m in mels)
         batched, single = results[on][0], results[on][1:]
         steps_b = batched[1].shape[1]
         steps_s = sum(a.shape[1] for _, a, _ in single)
         print(f"[main] {path}: launches decoder_infer_mega="
-              f"{launches[on][0]} attention_tail={launches[on][1]}; "
+              f"{launches[on][0]} attention_tail={launches[on][1]} "
+              f"conv_bn_act={conv_bn_act.launches}; "
               f"batched B={len(seqs)}: {batched[2] * 1e3 / steps_b:.3f} ms/"
               f"step, {sum(m.shape[0] for m in batched[0]) / batched[2]:.1f} "
               f"frames/s; one by one: "
@@ -1008,13 +1558,23 @@ def main() -> int:
     ]
     del model, dec, cpu_model, results
 
+    # 11. conv_bn_act against its plain version; 12, 13. text -> PCM
+    conv_sweep_err = convbn_sweep(dev)
+    with torch.no_grad():
+        conv_kernel, speak_decode = text_to_pcm_main_path(dev, base, seqs)
+    conv_kernel["sweep_max_abs_err"] = conv_sweep_err
+    conv_kernel["mels_path_launches"] = conv_mels_launches
+    kernels[1].update(speak_decode)
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
+                                    speak_decode["speak_path_max_abs_err"])
+
     # 8, 9. the training kernels against their plain versions
     sweep = train_kernel_phases(dev, base, cfg)
     # 10. the training main path
     kernels[0]["train_path_launches"], train_kernels = train_main_path(dev)
     train_kernels[0]["sweep_max_abs_err"] = sweep["fwd"]
     train_kernels[1]["sweep_max_abs_err"] = sweep["bwd"]
-    kernels += train_kernels
+    kernels += train_kernels + [conv_kernel]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -98,6 +98,14 @@ class ModelConfig:
     # whose attention tail is the Triton kernel (ops/attention_kernel.py).
     decoder_megakernel: bool = True
 
+    # Serve the encoder's and the postnet's conv layers through the fused
+    # eval-mode Conv1d + BatchNorm + activation (ops/convbn_kernel.py): the
+    # CUDA kernel on CUDA tensors, its plain folded version on CPU tensors.
+    # False runs the unfused Conv1d -> BatchNorm -> activation chain.  A
+    # field of the port only: the JAX package switches its kernel with an
+    # environment variable.  Training never takes the fused route.
+    fused_convbn: bool = True
+
 
 @dataclasses.dataclass(frozen=True)
 class GuidedAttentionConfig:

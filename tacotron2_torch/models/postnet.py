@@ -13,12 +13,14 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops.convbn_kernel import conv_bn_act
 from .layers import BatchNorm, Conv1d, dropout
 
 
 class Postnet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.cfg = cfg
         n = cfg.postnet_n_convolutions
         dims_in = [cfg.n_mels] + [cfg.postnet_embedding_dim] * (n - 1)
         dims_out = [cfg.postnet_embedding_dim] * (n - 1) + [cfg.n_mels]
@@ -41,9 +43,16 @@ def postnet_apply(post: Postnet, x: torch.Tensor, train: bool = False,
     (masks drawn from ``generator``, or ``masks[i]`` for layer i); under
     low-precision weights the activations between layers stay in the weight
     dtype, while BatchNorm statistics are taken in fp32 and the residual
-    comes out fp32.  Eval mode keeps fp32 between layers.
+    comes out fp32.  Eval mode keeps fp32 between layers, and with
+    ``cfg.fused_convbn`` runs each layer as one folded conv + BatchNorm +
+    tanh (none on the last) (``ops/convbn_kernel.py``).
     """
     n = len(post.convs)
+    if not train and post.cfg.fused_convbn:
+        for i, (conv, bn) in enumerate(zip(post.convs, post.bns)):
+            x = conv_bn_act(x, conv, bn, post.cfg.batchnorm_eps,
+                            "tanh" if i < n - 1 else "none")
+        return x
     cdt = post.convs[0].weight.dtype
     mid_dtype = cdt if (train and cdt != torch.float32) else None
     for i, (conv, bn) in enumerate(zip(post.convs, post.bns)):

@@ -9,6 +9,7 @@ validation run.
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -51,6 +52,18 @@ class Tacotron2(nn.Module):
         so that ``torch.func.functional_call`` can run it on a cast copy of
         the parameters."""
         return _teacher_forced(self, *args, **kwargs)
+
+
+def replace_config(model: Tacotron2, **changes) -> ModelConfig:
+    """Change fields of the model's config (``decoder_megakernel``,
+    ``fused_convbn``, ...) in place: the model and each of its parts that
+    keeps the config get the same new one, so they cannot drift apart.
+    Fields that size a layer cannot be changed on a built model."""
+    cfg = dataclasses.replace(model.cfg, **changes)
+    for m in model.modules():
+        if isinstance(getattr(m, "cfg", None), ModelConfig):
+            m.cfg = cfg
+    return cfg
 
 
 @torch.no_grad()

@@ -23,7 +23,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CUDA_SOURCES = ("decoder_infer", "decoder_train_fwd", "decoder_train_bwd")
+CUDA_SOURCES = ("decoder_infer", "decoder_train_fwd", "decoder_train_bwd",
+                "conv_bn_act")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

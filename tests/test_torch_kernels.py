@@ -1,8 +1,9 @@
 """The port's kernels against their plain versions, without JAX.
 
 The tests marked ``cuda`` launch the Triton ``attention_tail`` and the CUDA
-``decoder_infer_mega``, ``decoder_fwd_train_mega`` and
-``decoder_bwd_chain_mega``; they skip where there is no card.  This file
+``decoder_infer_mega``, ``decoder_fwd_train_mega``,
+``decoder_bwd_chain_mega`` and ``conv_bn_act``; they skip where there is no
+card.  This file
 imports nothing of JAX, so on a machine with a card and no JAX it runs
 without the suite's conftest:
 
@@ -20,9 +21,15 @@ import pytest
 import torch
 
 from tacotron2_torch.config import ModelConfig
+from tacotron2_torch.models.encoder import encoder_apply
+from tacotron2_torch.models.layers import BatchNorm, Conv1d
+from tacotron2_torch.models.postnet import postnet_apply
 from tacotron2_torch.models.tacotron2 import (Tacotron2, cast_params_bf16,
-                                              init_weights, make_pad_mask)
+                                              init_weights, make_pad_mask,
+                                              replace_config)
 from tacotron2_torch.ops import _build
+from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
+                                               conv_bn_act_reference)
 from tacotron2_torch.ops.attention_kernel import (attention_tail,
                                                   attention_tail_reference)
 from tacotron2_torch.ops.decoder_bptt import core_params, decoder_scan_bptt
@@ -107,10 +114,11 @@ def test_library_path_follows_source():
 
 @pytest.mark.parametrize("name", _build.CUDA_SOURCES)
 def test_sources_share_the_header(name, monkeypatch, tmp_path):
-    """Every CUDA source includes the shared header once, and its library
-    name follows the header's contents as well as its own."""
+    """Every decoder source includes the shared header once (the conv
+    kernel stands alone), and every library's name follows the header's
+    contents as well as its own source's."""
     assert (_build.CSRC / f"{name}.cu").read_text().count(
-        '#include "decoder_common.cuh"') == 1
+        '#include "decoder_common.cuh"') == int(name.startswith("decoder_"))
     before = _build.library_path(name)
     assert before.name.startswith(f"lib{name}-")
     for f in _build.CSRC.glob("*.cu*"):
@@ -337,3 +345,119 @@ def test_cuda_scan_bptt_routes(megakernel):
     for n, r in grads[None].items():
         scale = float(r.abs().max()) + 1e-3 * gscale
         assert float((grads[megakernel][n] - r).abs().max()) < 1e-4 * scale, n
+
+
+def conv_layer(c_in, c_out, k, dtype, seed, device):
+    """A conv + BatchNorm layer with seeded non-identity statistics."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *shape: torch.rand(*shape, generator=g)
+    conv, bn = Conv1d(c_in, c_out, k), BatchNorm(c_out, 1e-5)
+    bound = (c_in * k) ** -0.5
+    with torch.no_grad():
+        conv.weight.copy_((u(c_out, c_in, k) * 2 - 1) * bound)
+        conv.bias.copy_((u(c_out) * 2 - 1) * bound)
+        bn.weight.copy_(u(c_out) + 0.5)
+        bn.bias.copy_(u(c_out) * 0.4 - 0.2)
+        bn.running_mean.copy_(u(c_out) * 0.8 - 0.4)
+        bn.running_var.copy_(u(c_out) * 1.7 + 0.3)
+    for p in list(conv.parameters()) + list(bn.parameters()):
+        p.data = p.data.to(dtype)
+    return conv.to(device), bn.to(device)
+
+
+# conv_bn_act kernel vs its plain version, as a share of the plain
+# output's mean size.  fp32: the same fp32 products summed in another
+# order.  bf16: both round the folded weight and the input at the same
+# places; the tensor cores sum in another order (and the plain version's
+# fp32 matmul of bf16-rounded values is exact per product too).
+# Readings on an H100 at full width: 4.9e-5 (fp32), 8.3e-5 (bf16).
+CONV_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-4}
+
+
+def test_conv_bn_act_rejects_what_it_cannot_launch():
+    conv, bn = conv_layer(8, 8, 5, torch.float32, 0, "cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv_bn_act(torch.zeros(1, 8, 4, device="meta"), conv, bn, 1e-5,
+                    "relu")
+    with pytest.raises(ValueError, match="act must be"):
+        conv_bn_act(torch.zeros(1, 8, 4), conv, bn, 1e-5, "gelu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "tanh", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out,k,b,t", [
+    (32, 32, 5, 2, 13), (8, 32, 5, 3, 1), (32, 8, 5, 1, 37),
+    (20, 70, 3, 2, 65), (80, 512, 5, 2, 130), (512, 80, 5, 1, 64),
+    (36, 40, 7, 2, 129)])
+def test_cuda_conv_bn_act_matches_plain(c_in, c_out, k, b, t, dtype, act):
+    dev = cuda_device()
+    conv, bn = conv_layer(c_in, c_out, k, dtype, seed=c_in + t, device=dev)
+    x = torch.randn(b, c_in, t,
+                    generator=torch.Generator().manual_seed(t)).to(dev)
+    before = conv_bn_act.launches
+    got = conv_bn_act(x, conv, bn, 1e-5, act)
+    torch.cuda.synchronize()
+    assert conv_bn_act.launches == before + 1
+    ref = conv_bn_act_reference(x, conv, bn, 1e-5, act)
+    assert got.shape == ref.shape == (b, c_out, t)
+    assert got.dtype == torch.float32
+    share = float((got - ref).abs().max()) / float(ref.abs().mean())
+    assert share <= CONV_TOL[dtype], share
+
+
+@pytest.mark.cuda
+def test_cuda_conv_bn_act_checks_inputs():
+    dev = cuda_device()
+    conv, bn = conv_layer(8, 8, 5, torch.float32, 0, dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_bn_act(torch.zeros(1, 9, 4, device=dev), conv, bn, 1e-5, "relu")
+    with pytest.raises(TypeError, match="input dtype"):
+        conv_bn_act(torch.zeros(1, 8, 4, device=dev, dtype=torch.float16),
+                    conv, bn, 1e-5, "relu")
+    even, _ = conv_layer(8, 8, 4, torch.float32, 0, dev)
+    with pytest.raises(ValueError, match="odd kernel sizes"):
+        conv_bn_act(torch.zeros(1, 8, 4, device=dev), even, bn, 1e-5, "relu")
+    cpu_conv, cpu_bn = conv_layer(8, 8, 5, torch.float32, 0, "cpu")
+    with pytest.raises(ValueError, match="different devices"):
+        conv_bn_act(torch.zeros(1, 8, 4, device=dev), cpu_conv, cpu_bn, 1e-5,
+                    "relu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_encoder_postnet_fused_route(dtype):
+    """Eval encoder and postnet on the card: the fused route launches the
+    kernel once a layer and agrees with the unfused (cuDNN, TF32 off)
+    route: fp32 by summation order, bf16 by the folded weight's rounding."""
+    dev = cuda_device()
+    model = init_weights(Tacotron2(ModelConfig(**SMALL)), seed=3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for bn in list(model.encoder.bns) + list(model.postnet.bns):
+            bn.running_mean.copy_(torch.rand(bn.running_mean.shape,
+                                             generator=g) - 0.5)
+            bn.running_var.copy_(torch.rand(bn.running_var.shape,
+                                            generator=g) + 0.5)
+    if dtype == torch.bfloat16:
+        model = cast_params_bf16(model)
+    model = model.to(dev)
+    tokens = torch.randint(0, 72, (3, 21), generator=g).to(dev)
+    coarse = torch.randn(3, SMALL["n_mels"], 17, generator=g).to(dev)
+
+    def run(on):
+        replace_config(model, fused_convbn=on)
+        with torch.no_grad():
+            return (encoder_apply(model.encoder, tokens),
+                    postnet_apply(model.postnet, coarse))
+
+    before = conv_bn_act.launches
+    fused = run(True)
+    assert conv_bn_act.launches == before + 8
+    unfused = run(False)
+    assert conv_bn_act.launches == before + 8
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for f, u in zip(fused, unfused):
+        assert f.dtype == torch.float32 and f.shape == u.shape
+        assert float((f - u).abs().max()) <= tol * max(
+            1.0, float(u.abs().max()))

@@ -191,15 +191,20 @@ def test_weight_bridge_rejects_wrong_shape():
                                   "Config"])
 def test_config_copy_matches(name):
     """The port's own config copy: every field it keeps has the JAX
-    package's default, and the symbol table is the same."""
+    package's default, and the symbol table is the same.  One field is the
+    port's alone: ``ModelConfig.fused_convbn`` (there an environment
+    variable switches the kernel)."""
     assert port_config.SYMBOLS == jax_config.SYMBOLS
     ours = dataclasses.asdict(getattr(port_config, name)())
     theirs = dataclasses.asdict(getattr(jax_config, name)())
     if name == "Config":       # nested: compare what each part keeps
         assert set(ours) == set(theirs)
+        assert ours["model"].pop("fused_convbn") is True
         for part in ours:
             assert {k: theirs[part][k] for k in ours[part]} == ours[part]
         return
+    if name == "ModelConfig":
+        assert ours.pop("fused_convbn") is True
     assert {k: theirs[k] for k in ours} == ours
     if name != "ModelConfig":
         assert set(ours) == set(theirs)

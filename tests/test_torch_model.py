@@ -21,7 +21,8 @@ from tacotron2_tpu.config import Config as JaxConfig
 from tacotron2_tpu.config import ModelConfig as JaxModelConfig
 from tacotron2_tpu.models.tacotron2 import tacotron2_infer_jit, tacotron2_init
 from tacotron2_torch.config import ModelConfig
-from tacotron2_torch.infer.synthesize import synthesize_mels
+from tacotron2_torch.infer.synthesize import (synthesize_mels,
+                                              synthesize_mels_tokens)
 from tacotron2_torch.models.tacotron2 import (Tacotron2, cast_params_bf16,
                                               init_weights, tacotron2_infer)
 from tacotron2_torch.utils.weights import load_jax_params
@@ -98,8 +99,8 @@ def test_synthesize_mels_small(small, monkeypatch, n_items):
         params, state, [str(i) for i in range(n_items)],
         cfg=JaxConfig(model=JaxModelConfig(**SMALL)), max_steps=10,
         speaker_id=1)
-    mels, al = synthesize_mels(model, seqs, max_steps=10, speaker_id=1,
-                               device="cpu")
+    mels, al = synthesize_mels_tokens(model, seqs, max_steps=10,
+                                      speaker_id=1, device="cpu")
     assert len(mels) == n_items
     for r, g in zip(ref_mels, mels):
         assert r.shape == g.shape
@@ -115,7 +116,9 @@ def test_cuda_requested_without_card_raises(small):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tacotron2_infer(model, np.zeros((1, 8), np.int32), max_steps=3)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        synthesize_mels(model, [[1, 2, 3]], max_steps=3)
+        synthesize_mels_tokens(model, [[1, 2, 3]], max_steps=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        synthesize_mels(model, ["hello"], max_steps=3)
 
 
 def test_cast_params_bf16(small):
