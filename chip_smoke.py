@@ -81,15 +81,19 @@ it fails:
     and wall, device busy and idle share of each part of a request; then
     ``decoder_infer_mega`` against the plain step loop on this path's own
     decodes (the batched request; each sentence alone capped at the bucket
-    with the forced stop, capped without, and at ``max_steps``);
+    with the forced stop, capped without, and at ``max_steps``; and, on the
+    fp32 model ``load_model`` gives from the same file, the ``synthesize``
+    request's two decodes);
 13. ``conv_bn_act`` at the main paths' own shapes and inputs: each of the
     eight layers of the batched request and of one single request, kernel
     against plain version on that layer's real input, with its time, the
     plain version's, cuDNN's on the folded weights (``library_ms``, and
-    its kernels' device time) and the bound; the same comparison, untimed,
-    on every layer of phase 6's requests, batched and one by one; then the
-    kernel route against the unfused (cuDNN, TF32 off) route for the whole
-    request (``frame_ends`` and mels).
+    its kernels' device time, both kernels' from a CUDA graph of 20 calls)
+    and the bound; the same comparison, untimed, on every layer of phase
+    6's requests, batched and one by one, and of the fp32 ``synthesize``
+    request at both its lengths; then the kernel route against the unfused
+    (cuDNN, TF32 off) route for the whole request (``frame_ends`` and
+    mels).
 
 Phases 11-13 run after phase 7, before the training phases.  The
 ``kernels`` line has five entries.  The last line is
@@ -110,6 +114,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12,  # fp32 outside the tensor cores
@@ -224,10 +229,9 @@ def time_ms(fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, n: int, kernel: str):
-    """Mean device milliseconds per call spent in the kernels whose name
-    holds ``kernel``, from torch.profiler; None where it saw no device
-    time."""
+def kernel_launches(fn, n: int):
+    """{kernel name: (launches, device ms)} that torch.profiler saw over
+    ``n`` calls of ``fn`` (after one call outside the window)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -235,9 +239,45 @@ def device_ms(fn, n: int, kernel: str):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if kernel in e.key)
-    return us / n / 1e3 if us > 0 else None
+    return {e.key: (e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def device_ms(fn, n: int, kernel: str):
+    """Mean device milliseconds of one launch of the kernel whose name holds
+    ``kernel`` (``fn`` launches it once a call), from torch.profiler over
+    ``n`` calls.  The profiler leaves a few launches out of its trace now
+    and then (97 of 100 seen on an H100), so the mean is over the launches
+    it saw; fails if it saw none or more than ``n``."""
+    hits = [v for k, v in kernel_launches(fn, n).items() if kernel in k]
+    count = sum(c for c, _ in hits)
+    check(0 < count <= n, f"torch.profiler saw {count} launches of {kernel} "
+          f"in {n} calls")
+    return sum(ms for _, ms in hits) / count
+
+
+def graph_ms(fn, n: int, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn`` alone: ``n`` calls captured
+    in one CUDA graph, its replays timed with CUDA events.  The time holds
+    the kernels' own and the graph's gaps between them, and no host time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays / n
 
 
 def fmt_ms(ms) -> str:
@@ -814,15 +854,122 @@ def convbn_sweep(dev):
                                         float((got - ref).abs().max()))
                         n += 1
             x = torch.randn(4, c_in, 400, device=dev)
-            ms = time_ms(lambda: conv_bn_act(x, conv, bn, 1e-5, "tanh"), 50)
-            dms = device_ms(lambda: conv_bn_act(x, conv, bn, 1e-5, "tanh"),
-                            20, "conv_bn_act")
+            call = lambda: conv_bn_act(x, conv, bn, 1e-5, "tanh")
+            repeat = torch.equal(call(), call())
+            check(repeat, f"conv_bn_act {dtype} {c_in}->{c_out}: two "
+                  "launches on one input differ")
+            ms, first, split, dms, n_seen = conv_call_times(call, conv, x)
+            stale = conv_refold_check(conv, bn, x)
             print(f"[conv_bn_act] {str(dtype)[6:]:8s} {c_in:3d}->{c_out:3d} "
                   f"K=5: {n} cases (T 1/37/128/1000 x B 1/4/16 x relu/tanh/"
                   f"none), worst error {worst:.2e} of the mean size (limit "
-                  f"{CONV_TOL[dtype]:g}); B=4 T=400: {ms:.4f} ms per call "
-                  f"with the fold, kernel alone {fmt_ms(dms)}", flush=True)
+                  f"{CONV_TOL[dtype]:g}); B=4 T=400: split {split}, "
+                  f"{ms:.4f} ms per call with the fold made, first call "
+                  f"with the fold {first:.4f} ms, kernel alone (a CUDA "
+                  f"graph of 20 launches) {dms:.4f} ms; ten calls "
+                  f"dispatch only their outputs' allocation and launch ten "
+                  f"times, torch.profiler saw {n_seen} of those launches "
+                  f"and no other kernel; "
+                  f"two launches bit for bit; after a copy_ into the weight "
+                  f"{stale:.2e} of the mean size", flush=True)
     return worst_abs
+
+
+class DispatchedOps(TorchDispatchMode):
+    """The ATen ops dispatched to PyTorch inside the ``with`` block."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def conv_call_times(call, conv, x):
+    """A conv_bn_act call's time with the layer's fold made, the first
+    call's (which makes the fold), the split it launches with, the kernel's
+    own device time (a CUDA graph of 20 calls) and the launches
+    torch.profiler saw of ten calls.  With the fold made a call must
+    dispatch nothing to PyTorch but its output's allocation and launch the
+    kernel once: the profiler leaves short launches out of its trace now
+    and then (at times all ten), so it is held only to seeing no other
+    kernel."""
+    from tacotron2_torch.ops import convbn_kernel
+    ms = time_ms(call, 30)
+
+    def first_call():
+        convbn_kernel._FOLDS.pop(conv, None)
+        return call()
+
+    first = time_ms(first_call, 10)
+    before = convbn_kernel.conv_bn_act.launches
+    with DispatchedOps() as dispatched:
+        for _ in range(10):
+            call()
+    check(dispatched.ops == ["aten.empty.memory_format"] * 10
+          and convbn_kernel.conv_bn_act.launches == before + 10,
+          f"ten conv_bn_act calls with the fold made dispatched "
+          f"{dispatched.ops} and launched "
+          f"{convbn_kernel.conv_bn_act.launches - before} times")
+    seen = kernel_launches(call, 10)
+    check(all("conv_bn_act" in k for k in seen), f"ten conv_bn_act calls "
+          f"with the fold made: torch.profiler saw other kernels: "
+          f"{sorted(seen)}")
+    return (ms, first, convbn_kernel.launch_split(x, conv),
+            graph_ms(call, 20), sum(c for c, _ in seen.values()))
+
+
+def conv_refold_check(conv, bn, x, eps=1e-5):
+    """After a copy_ into the conv's weight the kernel agrees with the plain
+    version on the new weights (the fold was made again), and after a
+    copy_ of the old weights back it gives the old bits.  Returns the
+    error as a share of the plain output's mean size."""
+    from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
+                                                   conv_bn_act_reference)
+    with torch.no_grad():
+        before = conv_bn_act(x, conv, bn, eps, "none")
+        w0 = conv.weight.clone()
+        conv.weight.copy_(-0.5 * w0)
+        got = conv_bn_act(x, conv, bn, eps, "none")
+        torch.cuda.synchronize()
+        share = conv_share(got, conv_bn_act_reference(x, conv, bn, eps,
+                                                      "none"))
+        limit = CONV_TOL[conv.weight.dtype]
+        check(share <= limit, f"conv_bn_act after a copy_ into the weight: "
+              f"{share} of the mean size (limit {limit}): the fold was not "
+              f"made again")
+        conv.weight.copy_(w0)
+        check(torch.equal(conv_bn_act(x, conv, bn, eps, "none"), before),
+              "conv_bn_act after the weight was copied back differs")
+    return share
+
+
+def conv_split_sweep(model, seqs, eps):
+    """conv_bn_act's device time at each split for two layers of the text ->
+    PCM path: a 512 -> 512 encoder layer of one sentence (B=1, T_enc=32)
+    and a 512 -> 512 postnet layer of the batched request (B=4, T=400), on
+    seeded inputs; the wrapper's pick is marked."""
+    from tacotron2_torch.ops import convbn_kernel as ck
+    from tacotron2_torch.text import pad_sequences
+    t_enc = pad_sequences(seqs[:1], pad_multiple=16)[0].shape[1]
+    g = torch.Generator().manual_seed(SEED)
+    for part, b, t in (("encoder", 1, t_enc), ("postnet", len(seqs),
+                                                MAX_STEPS)):
+        layers = getattr(model, part)
+        conv, bn = layers.convs[1], layers.bns[1]
+        x = torch.randn(b, conv.weight.shape[1], t, generator=g).to(
+            conv.weight.device)
+        fold = ck.folded_weights(conv, bn, eps)
+        pick = ck.launch_split(x, conv)
+        times = {s: graph_ms(lambda: ck._launch(x, fold, "tanh", s), 20)
+                 for s in (1, 2, 4, 8)}
+        print(f"[conv_bn_act split] {part}.1 B={b} T={t} 512->512 bf16, "
+              f"kernel alone by split (CUDA graphs of 20 launches): "
+              + ", ".join(f"S={s} {ms:.4f} ms" + (" (picked)" if s == pick
+                                                   else "")
+                          for s, ms in times.items()), flush=True)
 
 
 def text_to_pcm_main_path(dev, base, mels_requests):
@@ -838,7 +985,7 @@ def text_to_pcm_main_path(dev, base, mels_requests):
                                              pick_bucket,
                                              synthesize_pcm_proportional,
                                              synthesize_wav)
-    from tacotron2_torch.infer.synthesize import synthesize
+    from tacotron2_torch.infer.synthesize import load_model, synthesize
     from tacotron2_torch.models.decoder import decoder_infer
     from tacotron2_torch.models.encoder import encoder_apply
     from tacotron2_torch.models.postnet import postnet_apply
@@ -988,6 +1135,7 @@ def text_to_pcm_main_path(dev, base, mels_requests):
         path = synthesize(texts[2], weights, os.path.join(tmp, "out"),
                           cfg=cfg)
         wall = time.perf_counter() - t1
+        served = load_model(weights, cfg, dev)      # launches no kernel
         check(os.path.isfile(path) and path.endswith("output_1.wav"),
               f"no WAV at {path}")
         sr, audio = wavfile.read(path)
@@ -1000,12 +1148,17 @@ def text_to_pcm_main_path(dev, base, mels_requests):
     print(f"[speak] synthesize({texts[2]!r}) wrote and read back "
           f"{len(audio)} samples ({len(audio) // hop} frames) at {sr} Hz, "
           f"peak {float(np.abs(audio).max()):.3f}; wall {wall * 1e3:.1f} ms "
-          f"with the weights' load and the escalation", flush=True)
+          f"with the weights' load and the escalation; load_model upcasts "
+          f"the file's bf16 weights to fp32, as the JAX package does, so "
+          f"this request runs the fp32 (FMA) conv_bn_act and the fp32 "
+          f"decode kernel", flush=True)
     launches = (conv_bn_act.launches, decoder_infer_mega.launches)
     print(f"[speak] launches conv_bn_act={launches[0]} decoder_infer_mega="
           f"{launches[1]} over {model_calls} model calls", flush=True)
     check(launches == (8 * model_calls, model_calls) and model_calls == 15,
           f"text -> PCM path launched {launches} over {model_calls} calls")
+    check(all(p.dtype == torch.float32 for p in served.state_dict().values()
+              if p.is_floating_point()), "load_model did not serve fp32")
 
     # where a request's time goes, part by part (second of two runs each,
     # under the profiler): the batched request, then the first alone
@@ -1059,29 +1212,34 @@ def text_to_pcm_main_path(dev, base, mels_requests):
     # decodes: the batched request, and each sentence alone as the
     # length-proportional path decodes it (bucket-capped with the forced
     # stop, bucket-capped without, escalated to max_steps)
-    def decode_check(token_seqs, steps, forced):
+    def decode_check(token_seqs, steps, forced, net=model):
         tokens, lengths = pad_sequences(token_seqs, pad_multiple=16)
         tok = torch.from_numpy(tokens).long().to(dev)
-        memory = encoder_apply(model.encoder, tok)
+        memory = encoder_apply(net.encoder, tok)
         mask = make_pad_mask(torch.from_numpy(lengths).to(dev), tok.shape[1])
         b = len(token_seqs)
-        args = (model.decoder, memory, steps, cfg.model.gate_threshold, True,
+        args = (net.decoder, memory, steps, cfg.model.gate_threshold, True,
                 mask, "all" if b > 1 else "any", forced)
         got = decoder_infer_mega(*args)
         ref = decoder_infer_mega_reference(*args)
-        where = (f"main text->PCM B={b} T_enc={tok.shape[1]} max_steps="
-                 f"{steps} forced_stop_at={forced} decode kernel")
-        errs = compare_decode(got, ref, torch.bfloat16, where)
+        dtype = next(net.decoder.parameters()).dtype
+        where = (f"main text->PCM {str(dtype)[6:]} B={b} T_enc={tok.shape[1]}"
+                 f" max_steps={steps} forced_stop_at={forced} decode kernel")
+        errs = compare_decode(got, ref, dtype, where)
         want = steps if forced is None else forced
         check(got[4].tolist() == [want] * b,
               f"{where}: frame_ends {got[4].tolist()}, expected {want}")
         return max(errs.values())
 
+    # and the fp32 model that synthesize served in (c), at that request's
+    # two decodes: bucket-capped, then escalated
     speak_dec_err = max(
         [decode_check(seqs, MAX_STEPS, None)]
         + [decode_check([seq], steps, forced) for seq in seqs
            for steps, forced in ((SPEAK_BUCKET, SPEAK_FORCED_STOP),
-                                 (SPEAK_BUCKET, None), (MAX_STEPS, None))])
+                                 (SPEAK_BUCKET, None), (MAX_STEPS, None))]
+        + [decode_check([seqs[2]], steps, None, served)
+           for steps in (SPEAK_BUCKET, MAX_STEPS)])
 
     # 13. conv_bn_act on the real input of each of the eight layers
     def cudnn_layer(x, w_oik, h, act):
@@ -1090,22 +1248,22 @@ def text_to_pcm_main_path(dev, base, mels_requests):
         return torch.relu(y) if act == "relu" else (
             torch.tanh(y) if act == "tanh" else y)
 
-    def layers_of(token_seqs, steps, timed):
+    def layers_of(token_seqs, steps, timed, net=model):
         """Kernel against plain version on each layer's real input of one
         request; ``timed`` adds the times and the bound."""
         tokens, lengths = pad_sequences(token_seqs, pad_multiple=16)
         with torch.no_grad():
             out, _, _ = tacotron2_infer(
-                model, tokens, max_steps=steps, text_lengths=lengths,
+                net, tokens, max_steps=steps, text_lengths=lengths,
                 stop_mode="all" if len(token_seqs) > 1 else "any")
-            x = model.encoder.embedding(
+            x = net.encoder.embedding(
                 torch.from_numpy(tokens).long().to(dev)).transpose(1, 2)
-        n_post = len(model.postnet.convs)
+        n_post = len(net.postnet.convs)
         stack = [("encoder", i, c, b_, "relu") for i, (c, b_) in enumerate(
-            zip(model.encoder.convs, model.encoder.bns))] + [
+            zip(net.encoder.convs, net.encoder.bns))] + [
             ("postnet", i, c, b_, "tanh" if i < n_post - 1 else "none")
-            for i, (c, b_) in enumerate(zip(model.postnet.convs,
-                                            model.postnet.bns))]
+            for i, (c, b_) in enumerate(zip(net.postnet.convs,
+                                            net.postnet.bns))]
         rows = []
         for part, i, conv, bn, act in stack:
             if part == "postnet" and i == 0:
@@ -1115,8 +1273,9 @@ def text_to_pcm_main_path(dev, base, mels_requests):
             torch.cuda.synchronize()
             ref = conv_bn_act_reference(x, conv, bn, eps, act)
             share = conv_share(got, ref)
-            where = (f"main B={x.shape[0]} T={x.shape[2]} {part}.{i} "
-                     f"{conv.weight.shape[1]}->{conv.weight.shape[0]} {act}")
+            where = (f"main {str(conv.weight.dtype)[6:]} B={x.shape[0]} "
+                     f"T={x.shape[2]} {part}.{i} {conv.weight.shape[1]}->"
+                     f"{conv.weight.shape[0]} {act}")
             check(share <= CONV_MAIN_TOL, f"{where}: conv_bn_act error "
                   f"{share} of the mean size")
             if not timed:
@@ -1129,14 +1288,16 @@ def text_to_pcm_main_path(dev, base, mels_requests):
             wmat, h = fold_conv_bn(conv, bn, eps)
             w_oik = wmat.permute(2, 1, 0).to(conv.weight.dtype).contiguous()
             xin = x
-            ms = time_ms(lambda: conv_bn_act(xin, conv, bn, eps, act), 30)
-            dms = device_ms(lambda: conv_bn_act(xin, conv, bn, eps, act), 20,
-                            "conv_bn_act")
+            call = lambda: conv_bn_act(xin, conv, bn, eps, act)
+            check(torch.equal(call(), got), f"{where}: two launches on one "
+                  "input differ")
+            ms, first, split, dms, n_seen = conv_call_times(call, conv,
+                                                            xin)
+            refold = conv_refold_check(conv, bn, xin, eps)
             plain = time_ms(
                 lambda: conv_bn_act_reference(xin, conv, bn, eps, act), 10)
             lib = time_ms(lambda: cudnn_layer(xin, w_oik, h, act), 30)
-            lib_dev = device_ms(lambda: cudnn_layer(xin, w_oik, h, act), 20,
-                                "")
+            lib_dev = graph_ms(lambda: cudnn_layer(xin, w_oik, h, act), 20)
             b_, c_in, t = x.shape
             c_out, _, k = conv.weight.shape
             # each input read once (x, the conv's and the BatchNorm's
@@ -1149,23 +1310,36 @@ def text_to_pcm_main_path(dev, base, mels_requests):
             rows.append(dict(layer=f"{part}.{i}", B=b_, T=t, C_in=c_in,
                              C_out=c_out, act=act, err_share=share,
                              max_abs_err=float((got - ref).abs().max()),
-                             ms=ms, device_ms=dms, plain_ms=plain,
+                             split=split, ms=ms, first_call_ms=first,
+                             profiler_saw_of_10=n_seen,
+                             device_ms=dms, plain_ms=plain,
                              library_ms=lib, library_device_ms=lib_dev,
                              bound_ms=bnd[0], bound_by=bnd[1]))
             print(f"[{where}] kernel vs plain {share:.2e} of the mean size "
-                  f"(limit {CONV_MAIN_TOL:g}); {ms:.4f} ms per "
-                  f"call with the fold, kernel alone {fmt_ms(dms)}, plain "
-                  f"{plain:.4f} ms, cuDNN on the folded weights {lib:.4f} "
-                  f"ms (its kernels alone {fmt_ms(lib_dev)}), bound "
-                  f"{bnd[0]:.5f} ms ({bnd[1]})", flush=True)
+                  f"(limit {CONV_MAIN_TOL:g}), two launches bit for bit, "
+                  f"{refold:.2e} after a copy_ into the weight; ten calls "
+                  f"one launch each (torch.profiler saw {n_seen} of them, "
+                  f"no other kernel); "
+                  f"split {split}; {ms:.4f} ms per call with the fold made "
+                  f"(first call with the fold {first:.4f} ms), kernel alone "
+                  f"{dms:.4f} ms, plain {plain:.4f} ms, cuDNN on the folded "
+                  f"weights {lib:.4f} ms (its kernels alone {lib_dev:.4f} "
+                  f"ms; both alone from CUDA graphs of 20 calls), bound "
+                  f"{bnd[0]:.5f} ms ({bnd[1]})",
+                  flush=True)
             x = got
         return rows
 
     rows_b = layers_of(seqs, MAX_STEPS, True)
     rows_1 = layers_of(seqs[:1], SPEAK_BUCKET, True)
+    conv_split_sweep(model, seqs, cfg.model.batchnorm_eps)
     # and of the tokens -> mels requests of phase 6, batched and one by one
     rows_m = [row for batch in [mels_requests] + [[q] for q in mels_requests]
               for row in layers_of(batch, MAX_STEPS, False)]
+    # and of the fp32 model that synthesize served in (c), at that
+    # request's two postnet lengths
+    rows_s = [row for steps in (SPEAK_BUCKET, MAX_STEPS)
+              for row in layers_of([seqs[2]], steps, False, served)]
 
     # the fused (kernel) route against the unfused (cuDNN, TF32 off) route
     def set_fused(on: bool) -> None:
@@ -1201,7 +1375,7 @@ def text_to_pcm_main_path(dev, base, mels_requests):
           "fused and unfused routes disagree")
 
     mid = rows_b[5]        # a 512 -> 512 postnet layer of the batched request
-    rows_all = rows_b + rows_1 + rows_m
+    rows_all = rows_b + rows_1 + rows_m + rows_s
     conv_entry = dict(
         name="conv_bn_act", route="cuda",
         source="tacotron2_torch/csrc/conv_bn_act.cu",
@@ -1209,15 +1383,16 @@ def text_to_pcm_main_path(dev, base, mels_requests):
         launches=launches[0],
         max_abs_err=max(r["max_abs_err"] for r in rows_all),
         max_err_share_of_mean=max(r["err_share"] for r in rows_all),
-        ms=mid["ms"], plain_ms=mid["plain_ms"], bound_ms=mid["bound_ms"],
+        split=mid["split"], ms=mid["ms"], first_call_ms=mid["first_call_ms"],
+        plain_ms=mid["plain_ms"], bound_ms=mid["bound_ms"],
         bound_by=mid["bound_by"], library_ms=mid["library_ms"],
         device_ms=mid["device_ms"],
         library_device_ms=mid["library_device_ms"],
         shape=f"{mid['layer']} B={mid['B']} T={mid['T']} "
               f"{mid['C_in']}->{mid['C_out']} K=5 weights bf16",
         request_ms=sum(r["ms"] for r in rows_b),
-        request_device_ms=(None if any(r["device_ms"] is None for r in rows_b)
-                           else sum(r["device_ms"] for r in rows_b)),
+        request_device_ms=sum(r["device_ms"] for r in rows_b),
+        device_ms_from="CUDA events over a CUDA graph of 20 calls",
         layers_batched=rows_b, layers_single=rows_1)
     return conv_entry, dict(speak_path_launches=launches[1],
                             speak_path_max_abs_err=speak_dec_err)

@@ -42,9 +42,12 @@ def load_model(checkpoint_path: str, cfg: Optional[Config] = None,
                device: Device = "cuda") -> Tacotron2:
     """Load a model on ``device`` from the port's weights file: the model's
     ``state_dict`` written by ``torch.save`` (parameters and BatchNorm
-    statistics, in the dtypes they were stored in;
-    ``tools/export_torch_weights.py`` writes one from a checkpoint of the
-    JAX package).
+    statistics; ``tools/export_torch_weights.py`` writes one from a
+    checkpoint of the JAX package).  Every floating tensor is upcast to fp32
+    on load, as the JAX package restores a bf16 checkpoint into its fp32
+    template (``tacotron2_tpu/train/checkpoint.py::restore_params_only``):
+    the model serves in fp32.  For bf16 serving cast it with
+    ``models/tacotron2.py::cast_params_bf16``.
 
     ``cfg`` must match the file's architecture (a multi-speaker file needs
     ``cfg.model.n_speakers`` set).  An Orbax checkpoint directory of the
@@ -59,9 +62,9 @@ def load_model(checkpoint_path: str, cfg: Optional[Config] = None,
             "file written by torch.save, not an Orbax checkpoint of the JAX "
             "package; export one with tools/export_torch_weights.py")
     sd = torch.load(checkpoint_path, weights_only=True, map_location=device)
+    sd = {k: v.float() if v.is_floating_point() else v for k, v in sd.items()}
     model = Tacotron2(cfg.model)
     try:
-        # assign: the model takes the file's tensors, dtypes included
         model.load_state_dict(sd, strict=True, assign=True)
     except RuntimeError as e:
         raise RuntimeError(
@@ -130,13 +133,15 @@ def synthesize(text: str, checkpoint_path: str, output_dir: str,
                device: Device = "cuda") -> str:
     """Full single-utterance pipeline; returns the written WAV path."""
     cfg = cfg or Config()
-    if vocoder.lower() != "griffinlim":
-        raise NotImplementedError(
-            f"vocoder {vocoder!r}: the port has no HiFi-GAN yet (ROADMAP "
-            "A11); Griffin-Lim is the only vocoder")
     print("Loading Tacotron 2 model...")
     model = load_model(checkpoint_path, cfg, device)
     print("Tacotron 2 model loaded.")
+
+    # "hifigan" tries HiFi-GAN and falls back to Griffin-Lim with a
+    # message; any other name is Griffin-Lim (as in the JAX package)
+    from .vocode import try_load_hifigan_params
+    hifigan_params = (try_load_hifigan_params()
+                      if vocoder.lower() == "hifigan" else None)
 
     # Length-proportional path: the mel bucket is picked from the text
     # length before any device work, encoder + decode + postnet + vocoder
@@ -151,7 +156,8 @@ def synthesize(text: str, checkpoint_path: str, output_dir: str,
     speaker_ids = make_speaker_ids(speaker_id, 1, cfg.model)
     pcm, ends, bucket, mel = synthesize_pcm_proportional(
         model, cfg.audio, tokens, lengths, speaker_ids,
-        gl_iters=griffinlim_iters, return_mel=True, device=device)
+        gl_iters=griffinlim_iters, hifigan_params=hifigan_params,
+        return_mel=True, device=device)
     n0 = int(ends[0])
     if n0 < 3:
         print(f"[WARN] Very short mel length ({n0}) - possible "

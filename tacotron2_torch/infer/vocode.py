@@ -5,9 +5,10 @@ arbitrary lengths; this helper pads the time axis to 128-frame buckets
 (log-floor frames), vocodes, and trims the audio back, so that batched
 traffic stacks mels of one bucket into one vocoder call and the cached
 window-sum envelopes (``dsp/stft.py``) are reused.  The ``vocoder``
-callable argument is kept for a neural vocoder; the HiFi-GAN loaders of the
-JAX package are not ported yet, so ``vocoder=None`` (Griffin-Lim) is the
-only vocoder the port ships.
+callable argument is kept for a neural vocoder.  HiFi-GAN is not ported
+yet (ROADMAP A11): :func:`try_load_hifigan_params` falls back to
+Griffin-Lim as the JAX package's loader does when it fails, so
+``vocoder=None`` (Griffin-Lim) is the only vocoder the port ships.
 """
 
 from __future__ import annotations
@@ -103,3 +104,17 @@ def vocode_mels(mels: Sequence[np.ndarray], cfg: AudioConfig,
         for j, i in enumerate(idxs):
             out[i] = audio[j, : int(mels[i].shape[0]) * cfg.hop_length]
     return out
+
+
+def try_load_hifigan_params(checkpoint_path: Optional[str] = None):
+    """HiFi-GAN parameters for the fused synthesis path, or None (with the
+    JAX package's message) on ANY failure, so that callers fall back to
+    Griffin-Lim.  Until ``models/hifigan.py`` is ported (ROADMAP A11) its
+    import fails and this always returns None."""
+    try:
+        from ..models import hifigan
+        return hifigan.load_hifigan_params(checkpoint_path)
+    except Exception as e:
+        print(f"HiFi-GAN unavailable ({type(e).__name__}: {e}); "
+              f"falling back to Griffin-Lim.")
+        return None

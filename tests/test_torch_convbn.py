@@ -16,6 +16,9 @@ scales after the conv, the limit is the JAX package's own 3e-2
 """
 
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 
@@ -38,7 +41,8 @@ from tacotron2_torch.models.tacotron2 import (Tacotron2, cast_params_bf16,
                                               replace_config)
 from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
                                                conv_bn_act_reference,
-                                               fold_conv_bn)
+                                               fold_conv_bn, folded_weights,
+                                               split_count)
 from tacotron2_torch.utils.weights import load_jax_params
 
 EPS = 1e-5
@@ -143,6 +147,136 @@ def test_reference_matches_unfused_port_layers():
     np.testing.assert_allclose(
         unfused.numpy(), conv_bn_act_reference(x, conv, bn, EPS, "tanh"),
         atol=2e-5, rtol=0)
+
+
+def fresh_fold(conv, bn, eps):
+    """``fold_conv_bn`` cast and laid out afresh as the kernel takes it:
+    (K, C_out, C_in) in the weight dtype, zero-padded to 64 output and 32
+    input channels."""
+    wmat, h = fold_conv_bn(conv, bn, eps)
+    k, c_in, c_out = wmat.shape
+    w = torch.zeros(k, -(-c_out // 64) * 64, -(-c_in // 32) * 32,
+                    dtype=conv.weight.dtype)
+    w[:, :c_out, :c_in] = wmat.permute(0, 2, 1).to(conv.weight.dtype)
+    return w, h
+
+
+def assert_fresh(fold, conv, bn, eps):
+    w, h = fresh_fold(conv, bn, eps)
+    assert fold.w.dtype == w.dtype and fold.h.dtype == torch.float32
+    assert torch.equal(fold.w, w) and torch.equal(fold.h, h)
+
+
+def test_fold_is_made_once():
+    _, (conv, bn) = make_layer(40, 70, 5, "bfloat16", seed=3)
+    fold = folded_weights(conv, bn, EPS)
+    assert fold.w.shape == (5, 128, 64) and fold.h.shape == (70,)
+    assert_fresh(fold, conv, bn, EPS)
+    again = folded_weights(conv, bn, EPS)
+    assert again is fold and again.w is fold.w and again.h is fold.h
+
+
+def _copy_into_weight(conv, bn, eps):
+    with torch.no_grad():
+        conv.weight.copy_(-0.5 * conv.weight)
+    return eps
+
+
+def _optimizer_step(conv, bn, eps):
+    with torch.no_grad():
+        bn.weight.add_(torch.ones_like(bn.weight), alpha=-0.25)
+    return eps
+
+
+def _load_state_dict(assign):
+    def change(conv, bn, eps):
+        sd = {k: v * 1.5 for k, v in conv.state_dict().items()}
+        conv.load_state_dict(sd, assign=assign)
+        return eps
+    return change
+
+
+def _cast(conv, bn, eps):
+    conv.to(torch.bfloat16)
+    return eps
+
+
+def _train_mode_batchnorm(conv, bn, eps):
+    x = torch.randn(3, bn.weight.shape[0], 9,
+                    generator=torch.Generator().manual_seed(0))
+    bn(x, train=True)
+    return eps
+
+
+FOLD_CHANGES = {
+    "copy_ into the weight": _copy_into_weight,
+    "optimizer step": _optimizer_step,
+    "load_state_dict": _load_state_dict(False),
+    "load_state_dict assign": _load_state_dict(True),
+    ".to(dtype)": _cast,
+    "train-mode BatchNorm update": _train_mode_batchnorm,
+    "another eps": lambda conv, bn, eps: 1e-3,
+}
+
+
+@pytest.mark.parametrize("change", list(FOLD_CHANGES))
+def test_fold_is_made_again_after(change):
+    _, (conv, bn) = make_layer(36, 20, 5, "float32", seed=5)
+    old = folded_weights(conv, bn, EPS)
+    eps = FOLD_CHANGES[change](conv, bn, EPS)
+    fold = folded_weights(conv, bn, eps)
+    assert fold is not old
+    assert fold.w.dtype != old.w.dtype or not (
+        torch.equal(fold.w, old.w) and torch.equal(fold.h, old.h))
+    assert_fresh(fold, conv, bn, eps)
+    assert folded_weights(conv, bn, eps) is fold
+
+
+@pytest.mark.parametrize("change", ["load_state_dict assign",
+                                    ".to(dtype)"])
+def test_fold_does_not_keep_replaced_weights(change):
+    """The fold holds no storage of its sources: once a weight is replaced
+    its old storage is freed, and the fold is made again."""
+    _, (conv, bn) = make_layer(36, 20, 5, "float32", seed=5)
+    folded_weights(conv, bn, EPS)
+    old = weakref.ref(conv.weight.untyped_storage())
+    FOLD_CHANGES[change](conv, bn, EPS)
+    gc.collect()
+    assert old() is None
+    assert_fresh(folded_weights(conv, bn, EPS), conv, bn, EPS)
+
+
+def test_fold_after_cast_params_bf16():
+    """``cast_params_bf16`` serves a bf16 copy: its layers fold afresh in
+    bf16, and the fp32 model keeps its own fold."""
+    _, _, _, model = model_pair(14, "float32")
+    conv, bn = model.postnet.convs[0], model.postnet.bns[0]
+    old = folded_weights(conv, bn, EPS)
+    cast = cast_params_bf16(model)
+    c16, b16 = cast.postnet.convs[0], cast.postnet.bns[0]
+    fold = folded_weights(c16, b16, EPS)
+    assert fold is not old and fold.w.dtype == torch.bfloat16
+    assert_fresh(fold, c16, b16, EPS)
+    assert folded_weights(conv, bn, EPS) is old
+
+
+# clusters of 1, 2, 4 and 8 blocks that a card holds at once
+TWO_AN_SM = (264, 132, 64, 32)
+FOUR_AN_SM = (528, 264, 132, 64)
+
+
+@pytest.mark.parametrize("shape,capacity,split", [
+    ((1, 32, 512, 512), TWO_AN_SM, 8),    # one sentence's encoder: 8 tiles
+    ((1, 256, 512, 512), TWO_AN_SM, 8),   # its postnet: 32 tiles
+    ((4, 32, 512, 512), (264, 132, 64, 30), 4),   # 32 tiles, 30 clusters
+    ((4, 400, 512, 512), TWO_AN_SM, 1),   # the batched postnet fills a wave
+    ((4, 400, 512, 512), FOUR_AN_SM, 2),
+    ((1, 32, 80, 512), TWO_AN_SM, 2),     # 3 chunks of C_in
+    ((1, 32, 36, 40), TWO_AN_SM, 2),      # ragged C_in: 2 chunks
+    ((16, 1000, 512, 512), TWO_AN_SM, 1),
+])
+def test_split_count(shape, capacity, split):
+    assert split_count(*shape, capacity) == split
 
 
 def test_wrapper_rejects_bad_act():

@@ -28,8 +28,9 @@ from tacotron2_torch.models.tacotron2 import (Tacotron2, cast_params_bf16,
                                               init_weights, make_pad_mask,
                                               replace_config)
 from tacotron2_torch.ops import _build
-from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
-                                               conv_bn_act_reference)
+from tacotron2_torch.ops.convbn_kernel import (_launch, conv_bn_act,
+                                               conv_bn_act_reference,
+                                               folded_weights)
 from tacotron2_torch.ops.attention_kernel import (attention_tail,
                                                   attention_tail_reference)
 from tacotron2_torch.ops.decoder_bptt import core_params, decoder_scan_bptt
@@ -404,6 +405,84 @@ def test_cuda_conv_bn_act_matches_plain(c_in, c_out, k, b, t, dtype, act):
     assert got.dtype == torch.float32
     share = float((got - ref).abs().max()) / float(ref.abs().mean())
     assert share <= CONV_TOL[dtype], share
+
+
+def conv_share(got, ref):
+    return float((got - ref).abs().max()) / float(ref.abs().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out,b,t", [
+    (512, 512, 1, 32),      # one sentence's encoder layer
+    (80, 512, 1, 37),       # ragged C_in: the postnet's first layer
+    (36, 40, 2, 65),        # ragged C_in, two chunks
+    (24, 70, 1, 9)])        # fewer chunks than blocks: empty slices
+def test_cuda_conv_bn_act_split_matches_plain(c_in, c_out, b, t, dtype,
+                                              split):
+    """Every split of C_in across a cluster against the plain version, and
+    two launches bit for bit."""
+    dev = cuda_device()
+    conv, bn = conv_layer(c_in, c_out, 5, dtype, seed=c_in + t, device=dev)
+    x = torch.randn(b, c_in, t,
+                    generator=torch.Generator().manual_seed(t)).to(dev)
+    fold = folded_weights(conv, bn, 1e-5)
+    got = _launch(x, fold, "tanh", split)
+    torch.cuda.synchronize()
+    ref = conv_bn_act_reference(x, conv, bn, 1e-5, "tanh")
+    assert got.shape == ref.shape and conv_share(got, ref) <= CONV_TOL[dtype]
+    assert torch.equal(_launch(x, fold, "tanh", split), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_conv_bn_act_is_repeatable(dtype):
+    """At the wrapper's own split, two calls on one input give the same
+    bits (the partials are summed in rank order, without atomics)."""
+    dev = cuda_device()
+    conv, bn = conv_layer(512, 512, 5, dtype, seed=7, device=dev)
+    for b, t in ((1, 32), (4, 400)):
+        x = torch.randn(b, 512, t,
+                        generator=torch.Generator().manual_seed(b)).to(dev)
+        assert torch.equal(conv_bn_act(x, conv, bn, 1e-5, "relu"),
+                           conv_bn_act(x, conv, bn, 1e-5, "relu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)])
+def test_cuda_conv_bn_act_takes_strided_input(x_dtype, w_dtype):
+    """A transposed (B, T, C) input, as the encoder's embedding is, and a
+    bf16 one, read in place: with the fold made a call dispatches nothing
+    to PyTorch but its output's allocation (no copy, no cast, no fold),
+    launches once, and gives the plain version's result."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    dev = cuda_device()
+    conv, bn = conv_layer(40, 64, 5, w_dtype, seed=2, device=dev)
+    x = torch.randn(3, 70, 40, generator=torch.Generator().manual_seed(2)
+                    ).to(dev, x_dtype).transpose(1, 2)
+    conv_bn_act(x, conv, bn, 1e-5, "relu")      # makes the fold
+    before = conv_bn_act.launches
+    with Ops() as seen:
+        for _ in range(3):
+            got = conv_bn_act(x, conv, bn, 1e-5, "relu")
+    assert seen.ops == ["aten.empty.memory_format"] * 3, seen.ops
+    assert conv_bn_act.launches == before + 3
+    torch.cuda.synchronize()
+    ref = conv_bn_act_reference(x, conv, bn, 1e-5, "relu")
+    assert conv_share(got, ref) <= CONV_TOL[w_dtype]
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ by more than 1.
 
 import importlib
 import os
+import re
 import sys
 
 import numpy as np
@@ -264,9 +265,33 @@ def test_hifigan_is_not_silently_replaced(small, tmp_path):
     with pytest.raises(NotImplementedError, match="A11"):
         fused.synthesize_wav(model, TEXTS, cfg=cfg, hifigan_params={},
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        synth.synthesize("hi", "unused.pt", str(tmp_path), vocoder="hifigan",
-                         device="cpu")
+
+
+FALLBACK = re.compile(r"^HiFi-GAN unavailable \((\w+): .+\); falling back "
+                      r"to Griffin-Lim\.$", re.M)
+
+
+def test_hifigan_falls_back_to_griffin_lim(small, tmp_path, capsys):
+    """``synthesize(vocoder="hifigan")`` finds no HiFi-GAN, says so in the
+    JAX package's words and writes the Griffin-Lim WAV, bit for bit; any
+    other name is Griffin-Lim too."""
+    _, _, model, _, cfg = small
+    weights = str(tmp_path / "weights.pt")
+    torch.save(model.state_dict(), weights)
+    assert jvocode.try_load_hifigan_params() is None
+    jax_line = FALLBACK.search(capsys.readouterr().out)
+    paths = {v: synth.synthesize("Hello world.", weights,
+                                 str(tmp_path / v), vocoder=v, cfg=cfg,
+                                 griffinlim_iters=2, device="cpu")
+             for v in ("griffinlim", "HiFiGAN", "other")}
+    out = capsys.readouterr().out
+    assert jax_line and len(FALLBACK.findall(out)) == 1
+    assert vocode.try_load_hifigan_params() is None
+    assert FALLBACK.search(capsys.readouterr().out)
+    ref, _ = load_audio(paths["griffinlim"])
+    for v in ("HiFiGAN", "other"):
+        got, _ = load_audio(paths[v])
+        assert got.dtype == ref.dtype and np.array_equal(got, ref), v
 
 
 def test_load_model_round_trip(small, tmp_path):
@@ -276,9 +301,8 @@ def test_load_model_round_trip(small, tmp_path):
           for k, v in model.state_dict().items()}
     torch.save(sd, path)
     loaded = synth.load_model(path, cfg, device="cpu")
-    for k, v in loaded.state_dict().items():
-        assert v.dtype == sd[k].dtype and torch.equal(v, sd[k]), k
-    assert loaded.encoder.bns[0].running_var.dtype == torch.float32
+    for k, v in loaded.state_dict().items():    # upcast on load
+        assert v.dtype == torch.float32 and torch.equal(v, sd[k].float()), k
     out, _, _ = tacotron2_infer(loaded, [[3, 4, 5]], max_steps=4,
                                 device="cpu")
     assert torch.isfinite(out.mel_postnet).all()
@@ -291,6 +315,23 @@ def test_load_model_round_trip(small, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             synth.load_model(path, cfg)
+
+
+def test_load_model_serves_fp32(small, tmp_path):
+    """A bf16 weights file loads as fp32 parameters and buffers equal to
+    the file's values, as the JAX package restores a bf16 checkpoint into
+    its fp32 template; the file itself stays bf16."""
+    _, _, model, _, cfg = small
+    path = str(tmp_path / "bf16.pt")
+    sd = cast_params_bf16(model).state_dict()
+    torch.save(sd, path)
+    loaded = synth.load_model(path, cfg, device="cpu")
+    named = dict(loaded.named_parameters())
+    assert any(sd[k].dtype == torch.bfloat16 for k in named)
+    for k, v in list(loaded.named_parameters()) + list(loaded.named_buffers()):
+        assert v.dtype == torch.float32 and torch.equal(v, sd[k].float()), k
+    assert all(v.dtype == sd[k].dtype for k, v in torch.load(
+        path, weights_only=True).items())
 
 
 def test_synthesize_mels_from_texts(small):
@@ -324,7 +365,8 @@ def test_export_tool_round_trip(small, tmp_path):
     """``tools/export_torch_weights.py`` on a small seeded model: a
     params-only checkpoint of the JAX package (stored as bf16 numbers) ->
     weights file -> ``load_model``, tensor for tensor against
-    ``load_jax_params``; parameters come back bf16, statistics fp32."""
+    ``load_jax_params``; the file holds bf16 parameters and fp32
+    statistics, and both load as fp32."""
     params, state, _, _, cfg = small
     params = jax_cast_params_bf16(params)
     ckpt = str(tmp_path / "ckpt")
@@ -337,9 +379,11 @@ def test_export_tool_round_trip(small, tmp_path):
     loaded = synth.load_model(path, cfg, device="cpu")
     named = dict(loaded.named_parameters())
     assert set(sd) == set(ref) == set(loaded.state_dict())
-    for k, v in loaded.state_dict().items():
-        assert v.dtype == (torch.bfloat16 if k in named else torch.float32), k
-        assert torch.equal(v.float(), ref[k]) and torch.equal(v, sd[k]), k
+    for k, v in loaded.state_dict().items():    # the file: bf16 parameters
+        assert sd[k].dtype == (torch.bfloat16 if k in named
+                               else torch.float32), k
+        assert v.dtype == torch.float32, k
+        assert torch.equal(v, ref[k]) and torch.equal(v, sd[k].float()), k
 
 
 @pytest.fixture(scope="module")
@@ -391,9 +435,8 @@ def test_synthesize_writes_the_same_wav(jax_phase, tmp_path):
     ref, sr_ref = load_audio(ref_path)
     got, sr = load_audio(path)
     assert sr == sr_ref == 22050
-    # the JAX loader serves the bf16 checkpoint upcast to fp32, the port's
-    # file keeps bf16: the stop may move by a frame or two
-    assert abs(len(got) - len(ref)) <= 2 * 256
-    assert abs(len(got) // 256 - SMOKE_FRAME_ENDS[text]) <= 2
-    n = min(len(got), len(ref))
-    assert np.corrcoef(got[:n], ref[:n])[0, 1] > 0.9
+    # both loaders serve the bf16 checkpoint upcast to fp32: the same gate
+    # stop, the pinned one, and the same audio within the waveform limit
+    # (observed 1.2e-4 of the peak)
+    assert len(got) == len(ref) == SMOKE_FRAME_ENDS[text] * 256
+    assert_wav_close(got, ref)
