@@ -34,14 +34,17 @@ it fails:
    3.35 TB/s and operations over the peak rate of their type, H100 SXM
    data sheet), printed after phase 10 with all five kernels;
 8. the CUDA ``decoder_fwd_train_mega`` (the teacher-forced decoder forward)
-   against its plain version at full width on seeded weights: B in {2, 16},
+   against its plain version at full width on seeded weights: B in
+   {2, 5, 16} (5: a padded M tile in the reverse chain's products),
    T_enc=128 with a ragged mask, T_dec=64, fp32 and bf16, dropout 0.1/0.1
    with seeded masks and once with dropout off; all nine outputs, each
    with its own limit (``FWD_TOL``);
 9. the CUDA ``decoder_bwd_chain_mega`` (the split-BPTT reverse chain)
    against its plain version on the series phase 8 stored and seeded
-   cotangents: all nine outputs, each with its own limit (``BWD_TOL``),
-   and two runs bit for bit; then the whole ``decoder_scan_bptt``
+   cotangents: all nine outputs, each with its own limit (``BWD_TOL``;
+   at bf16 B=5 ``scal`` is printed beside the plain version run on the
+   CPU instead, which misses that limit itself there), and two runs bit
+   for bit; then the whole ``decoder_scan_bptt``
    gradient (parameters, prenet frames, memory, pm) at B=2, T_dec=32 in
    fp32: kernel pair against plain pair, and against ``torch.autograd``
    through the plain step loop;
@@ -320,11 +323,13 @@ def bound(n_bytes: float, n_ops: float, dtype: torch.dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_outputs(names, got, ref, tol, where: str):
+def compare_outputs(names, got, ref, tol, where: str, unheld=()):
     """Hold a training kernel's outputs against its plain version's.  Per
     element the error may reach BF16_ULPS bf16 roundings of the plain value
     (outputs stored in bf16 only; a rounding is at most 2^-7 of the value) plus ``tol[name]`` times the plain
-    output's mean size.  Returns {name: max abs error}."""
+    output's mean size.  Outputs named in ``unheld`` are printed with
+    their share and not held to the limit.  Returns {name: max abs
+    error}."""
     errs, parts = {}, []
     for name, g, r in zip(names, got, ref):
         check(g.shape == r.shape and g.dtype == r.dtype,
@@ -345,9 +350,10 @@ def compare_outputs(names, got, ref, tol, where: str):
         share = float(err_over.max()) / scale
         parts.append(f"{name} {errs[name]:.2e}: "
                      + (f"past {BF16_ULPS} roundings " if stored_bf16 else "")
-                     + f"{share:.2e} of mean {scale:.2e} (limit "
-                     f"{tol[name]:g})")
-        check(share <= tol[name],
+                     + f"{share:.2e} of mean {scale:.2e} ("
+                     + ("not held, see below" if name in unheld
+                        else f"limit {tol[name]:g}") + ")")
+        check(name in unheld or share <= tol[name],
               f"{where}: {name} error {errs[name]}, {share} of its mean "
               f"size {scale}, limit {tol[name]}")
     print(f"[{where}] max err " + ", ".join(parts), flush=True)
@@ -418,7 +424,7 @@ def train_kernel_phases(dev, base, cfg):
         m = base if dtype == torch.float32 else cast_params_bf16(base)
         dec = copy.deepcopy(m.decoder).to(dev)
         ops = kernel_operands(core_params(dec))
-        for b, dropout in ((2, True), (16, True), (16, False)):
+        for b, dropout in ((2, True), (5, True), (16, True), (16, False)):
             c = cfg if dropout else dataclasses.replace(
                 cfg, p_attention_dropout=0.0, p_decoder_dropout=0.0)
             ins, cots = inputs(dec, b, 64, dropout, seed=200 + b)
@@ -447,16 +453,37 @@ def train_kernel_phases(dev, base, cfg):
             torch.cuda.synchronize()
             check(all(torch.equal(x, y) for x, y in zip(gotb, again)),
                   f"decoder_bwd_chain_mega {tag}: two runs differ")
-            errs = compare_outputs(BWD_OUT, gotb,
-                                   decoder_bwd_chain_reference(*bargs),
-                                   PAIR_TOL[dtype],
-                                   f"decoder_bwd_chain_mega {tag}")
+            refb = decoder_bwd_chain_reference(*bargs)
+            # bf16, B=5: scal is the sum of d_e * (e_raw + v_b), which
+            # cancels; at these inputs the plain version run on the CPU
+            # misses PAIR_TOL's scal limit against itself run on the card
+            # (PERF.md), so no implementation can be held to it there:
+            # the share is printed beside the plain CPU run's
+            unheld = ("scal",) if dtype == torch.bfloat16 and b == 5 else ()
+            errs = compare_outputs(BWD_OUT, gotb, refb, PAIR_TOL[dtype],
+                                   f"decoder_bwd_chain_mega {tag}", unheld)
+            if unheld:
+                cpu = decoder_bwd_chain_reference(*(
+                    {n: v.cpu() for n, v in x.items()} if isinstance(x, dict)
+                    else x.cpu() if torch.is_tensor(x) else x
+                    for x in bargs))
+                share = lambda x: float((x.float() - refb[8].float().cpu())
+                                        .abs().max()) / float(
+                    refb[8].float().abs().mean())
+                print(f"[decoder_bwd_chain_mega {tag}] scal, as a share of "
+                      f"its mean size: kernel {share(gotb[8].cpu()):.2e}, "
+                      f"the plain version on the CPU {share(cpu[8]):.2e}, "
+                      f"both against the plain version on the card (limit "
+                      f"{PAIR_TOL[dtype]['scal']:g})", flush=True)
             sweep_err["bwd"] = max(sweep_err["bwd"], *errs.values())
             ms = time_ms(lambda: decoder_bwd_chain_mega(*bargs), 2, warm=0)
+            plan = decoder_bwd_chain_mega.last_plan
             print(f"[decoder_bwd_chain_mega {tag}] two runs bit for bit; "
                   f"{ms:.3f} ms, {ms * 1e3 / 64:.1f} us/step, grid "
-                  f"{decoder_bwd_chain_mega.last_grid_blocks} blocks",
-                  flush=True)
+                  f"{decoder_bwd_chain_mega.last_grid_blocks} blocks of "
+                  f"{plan.smem_bytes / 1024:.1f} KB shared memory, "
+                  f"{plan.m_tiles} pass(es) over the batch, {plan.k_chunks} "
+                  f"K-chunks", flush=True)
         del dec
 
     # 9. the whole decoder_scan_bptt gradient, fp32, B=2, T_dec=32

@@ -148,6 +148,165 @@ __device__ __forceinline__ void row_dot(float (&acc)[1][kNB], const W* row,
   warp_dot<W, 1>(acc, rows, x, xs, K, nb, lane);
 }
 
+// ---------------------------------------------------------------------
+// Staged skinny product, y[b][i] = sum_k x[b][k] * w[i][k], for a batch of
+// a few rows against a tall weight matrix (one row per output, contiguous
+// over k).  warp_dot above reads x from L2 once for every weight row; here
+// a block stages x once per K-chunk in shared memory beside its own weight
+// rows (16-byte cp.async, a kStages-deep ring), so x leaves L2 once a
+// block.  x is already in W (rounded once where it was written), so the
+// loop rounds nothing.  Each sum is warp_dot's, operation for operation: a
+// K-chunk is one 16-byte piece a lane (lane l takes the Vec<W>::N elements
+// at l * N of every 32 * N), summed by FMA in k order, then warp_sum; so
+// the results are bit for bit those of row_dot on the same values, and do
+// not change from run to run.  A warp owns one weight row of a pass; the
+// batch goes in passes of kMTile rows.  (Two rows a warp, one pass for a
+// block's 16 rows, spilled registers and ran slower in bf16.)
+// ---------------------------------------------------------------------
+constexpr int kChunkBytes = 512;   // a row's K-chunk: 32 lanes x 16 bytes
+constexpr int kStages = 6;
+constexpr int kMTile = 16;         // batch rows per pass
+constexpr int kMGroup = 4;         // batch rows loaded and summed together
+constexpr int kTileRows = kWarps;  // weight rows per pass, one a warp
+constexpr int kStageBytes = (kMTile + kTileRows) * kChunkBytes;
+constexpr int kProductSmemBytes =
+    kStages * kStageBytes + kMTile * kTileRows * (int)sizeof(float);
+
+// 16 bytes global -> shared, skipping L1.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A W value as fp32 by moving its bits (bf16 is the top half of an fp32):
+// the same value as to_f, on the integer pipe instead of the conversion
+// unit, which runs at a fraction of its rate.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __uint_as_float((uint32_t)__bfloat16_as_ushort(x) << 16);
+}
+
+// The Vec<W>::N values of a 16-byte piece of shared memory, as fp32.
+template <typename W>
+__device__ __forceinline__ void load_piece(const char* p,
+                                           float (&v)[Vec<W>::N]);
+template <>
+__device__ __forceinline__ void load_piece<float>(const char* p,
+                                                  float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+template <>
+__device__ __forceinline__ void load_piece<__nv_bfloat16>(const char* p,
+                                                          float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // element 2i is the low half of word i
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// The block's product for weight tiles [tile0, tile1) (kTileRows rows
+// each, one pass a tile, warp w on row w): every y[b][i] with b < B and i
+// in those tiles goes to epi(b, i, y) once, from one thread.  Called by
+// the whole block (block-uniform arguments).  x is (B, K) and w (rows, K),
+// both in W, row-contiguous, 16-byte aligned, with K a multiple of
+// Vec<W>::N (the wrapper checks the widths); smem holds kProductSmemBytes,
+// 16-byte aligned.  x is state this kernel wrote: cp.async.cg reads it
+// from L2.
+template <typename W, typename Epi>
+__device__ void staged_product(const W* x, int B, const W* w, int K,
+                               int tile0, int tile1, char* smem, Epi epi) {
+  constexpr int V = Vec<W>::N;
+  constexpr int kPieces = kChunkBytes / 16;   // = 32, one a lane
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_bytes = K * (int)sizeof(W);
+  const int n_chunks = (row_bytes + kChunkBytes - 1) / kChunkBytes;
+  float* res = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  for (int m0 = 0; m0 < B; m0 += kMTile) {
+    const int mrows = min(kMTile, B - m0);
+    const char* xg = reinterpret_cast<const char*>(x + (size_t)m0 * K);
+    for (int tile = tile0; tile < tile1; ++tile) {
+      const char* wg =
+          reinterpret_cast<const char*>(w + (size_t)tile * kTileRows * K);
+      // chunk ch into its stage: the batch rows, then the weight rows
+      auto issue = [&](int ch) {
+        if (ch < n_chunks) {
+          char* st = smem + (ch % kStages) * kStageBytes;
+          const int off = ch * kChunkBytes;
+          const int pieces = min(kChunkBytes, row_bytes - off) / 16;
+          for (int p = threadIdx.x; p < (kMTile + kTileRows) * kPieces;
+               p += kThreads) {
+            const int r = p / kPieces, q = p % kPieces;
+            if (q >= pieces || (r < kMTile && r >= mrows)) continue;
+            const char* src = r < kMTile ? xg + (size_t)r * row_bytes
+                                         : wg + (size_t)(r - kMTile) *
+                                                    row_bytes;
+            cp_async16(st + r * kChunkBytes + q * 16, src + off + q * 16);
+          }
+        }
+        cp_async_commit();   // one group per chunk, empty past the end
+      };
+      float acc[kMTile];
+#pragma unroll
+      for (int m = 0; m < kMTile; ++m) acc[m] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kStages - 1; ++s) issue(s);
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        cp_async_wait<kStages - 2>();   // this thread's copies of chunk ch
+        __syncthreads();                // everyone's; stage ch-1 is free
+        issue(ch + kStages - 1);
+        // lanes past a ragged last chunk add nothing, as in warp_dot
+        if (lane * 16 < min(kChunkBytes, row_bytes - ch * kChunkBytes)) {
+          const char* st = smem + (ch % kStages) * kStageBytes + lane * 16;
+          float wv[V];
+          load_piece<W>(st + (kMTile + warp) * kChunkBytes, wv);
+          // a group of batch rows at a time, without a branch inside, so
+          // their sums interleave; rows of a group past B add into sums
+          // that are never read
+#pragma unroll
+          for (int g = 0; g < kMTile; g += kMGroup) {
+            if (g < mrows) {
+              float xv[kMGroup][V];
+#pragma unroll
+              for (int mm = 0; mm < kMGroup; ++mm)
+                load_piece<W>(st + (g + mm) * kChunkBytes, xv[mm]);
+#pragma unroll
+              for (int mm = 0; mm < kMGroup; ++mm)
+#pragma unroll
+                for (int i = 0; i < V; ++i)
+                  acc[g + mm] = fmaf(xv[mm][i], wv[i], acc[g + mm]);
+            }
+          }
+        }
+      }
+      cp_async_wait<0>();
+      // the sums, through shared memory, so that the epilogue's threads
+      // take neighbouring weight rows of one batch row
+#pragma unroll
+      for (int m = 0; m < kMTile; ++m) {
+        const float v = warp_sum(acc[m]);
+        if (lane == 0) res[m * kTileRows + warp] = v;
+      }
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < mrows * kTileRows; idx += kThreads)
+        epi(m0 + idx / kTileRows, tile * kTileRows + idx % kTileRows,
+            res[idx]);
+      __syncthreads();   // the ring and res are reused by the next pass
+    }
+  }
+}
+
 // Pre-activation LSTM gates of hidden unit j for batch rows b0..b0+nb-1:
 // acc[g][b] = [x1 | x2][b] . wi[g*H + j] + h_old[b] . wh[g*H + j], gate
 // order i, f, g, o, reduced over the warp (no bias).

@@ -16,28 +16,40 @@
 //
 // Every product contracts the OUTPUT dimension of a weight.  The port holds
 // weights as (out, in); the wrapper hands this kernel a transposed copy of
-// each matrix, made once per call, so that the row of one result element is
-// contiguous over the contracted dimension and the warp-per-output product
-// of decoder_common.cuh serves here too.  w_heads and d_out are zero-padded
-// from M+1 to a multiple of 8 columns for the 16-byte vector loads.
+// each matrix, made once per call ([wi_d | wh_d] and [wi_a | wh_a] stacked
+// into one matrix each), so that the row of one result element is
+// contiguous over the contracted dimension.
 //
 // Phases of step t, separated by grid.sync() (six per step):
-//   A  head backward, decoder-LSTM gate gradients g_dec (rounded to W,
-//      emitted), d_cd carry          [shares a phase with E of step t+1]
-//   B  d_xd = g_dec . wi_d, d_hd = g_dec . wh_d; d_ctx complete (emitted)
+//   A  head backward, rnd(d_out) . w_heads; decoder-LSTM gate gradients
+//      g_dec (rounded to W, emitted), d_cd carry
+//                                    [shares a phase with E of step t+1]
+//   B  [d_xd | d_hd] = g_dec . [wi_d | wh_d]; d_ctx complete (emitted)
 //   C1 d_attn = d_attn_out + d_prev + d_cum + rnd(d_ctx) . memory
 //   C2 softmax backward on the stored row, th = tanh(qsum) from the stored
 //      rounded qsum, d_qsum; d_pm += unrounded d_qsum (one owner per
 //      element); d_qsum emitted rounded to W; per-block partial sums over
 //      the 8 positions of a block for d_pq, dv and the two scalars
-//   C3 fixed-order sums of the partials (d_pq emitted; dv, scalars
-//      accumulated); location backward: d_prev, d_cum from the rounded
-//      d_qsum and the composed (2K, A) matrix, a K-tap correlation
+//   C3 fixed-order sums of the partials (d_pq emitted, and kept rounded to
+//      W for D; dv, scalars accumulated); location backward: d_prev, d_cum
+//      from the rounded d_qsum and the composed (2K, A) matrix, a K-tap
+//      correlation over rows staged in shared memory
 //   D  d_ha_att = rnd(d_pq) . wq, attention-LSTM gate gradients g_att
 //      (rounded, emitted), d_ca carry
-//   E  d_xa = g_att . wi_a (d_pre emitted, d_ctx carry), d_ha = g_att . wh_a
+//   E  [d_xa | d_ha] = g_att . [wi_a | wh_a] (d_pre emitted, d_ctx carry)
 // Sums that cross blocks use per-block partials and a second pass in a
 // fixed order, never float atomics: two runs give the same bits.
+//
+// The four products A, B, D and E are staged_product (decoder_common.cuh):
+// a block takes a run of 8-row weight tiles, stages its operand (written
+// once, already rounded to W: the emitted g_dec / g_att row of this step,
+// the rounded d_out and d_pq) and its weight rows K-chunk by K-chunk in a
+// cp.async ring, and sums each output by FMA in warp_dot's own order, so
+// the outputs are bit for bit those of a warp per row reading the operand
+// from L2, which cost 1.14 GB of L2 reads a step in B and E at B=16.  Sums
+// in another order (the tensor cores' among them) move the bf16 roundings
+// of the gate gradients, and the chain carries each moved rounding on;
+// the plain version's limits at T_dec=64 leave no room for that (PERF.md).
 //
 // Bound on an H100 SXM.  With every input read once the floor is the
 // products' operations at the bf16 tensor-core rate (0.32 ms for B=16,
@@ -55,10 +67,8 @@
 
 struct TrainBwdArgs {
   // transposed weights in W: one contiguous row per INPUT of the layer
-  const void* wi_a_t;    // (P+E, 4H)
-  const void* wh_a_t;    // (H, 4H)
-  const void* wi_d_t;    // (H+E, 4H)
-  const void* wh_d_t;    // (H, 4H)
+  const void* w_b;       // (H+E+H, 4H): [wi_d | wh_d] transposed
+  const void* w_e;       // (P+E+H, 4H): [wi_a | wh_a] transposed
   const void* wq_t;      // (H, A)
   const void* w_heads_t; // (H+E, MP) zero-padded columns
   const void* wloc;      // (2K, A) composed location conv + dense
@@ -74,7 +84,7 @@ struct TrainBwdArgs {
   const float* cd_s;     // (S, B, H)
   const float* attn_s;   // (S, B, T)
   const void* qsum_s;    // (S, B, T, A) in W
-  const float* d_out;    // (S, B, MP) zero-padded columns
+  const void* d_out;     // (S, B, MP) in W, zero-padded columns
   const float* d_attn_out;  // (S, B, T)
   // outputs
   void* g_att_s;         // (S, B, 4H) in W
@@ -94,13 +104,11 @@ struct TrainBwdArgs {
   float* d_ctxn;         // (B, E) carry
   float* d_prev;         // (B, T) carry
   float* d_cum;          // (B, T) carry
-  float* g_a;            // (B, 4H) this step's rounded g_att
-  float* g_d;            // (B, 4H) this step's rounded g_dec
   float* d_ha_drop;      // (B, H)
   float* d_ctx_head;     // (B, E) head part of d_ctx
   float* d_ctx;          // (B, E)
   float* d_attn;         // (B, T)
-  float* d_pq;           // (B, A)
+  void* d_pq_w;          // (B, A) in W: this step's rounded d_pq
   float* part_pq;        // (B, NC, A), NC = ceil(T / 8)
   float* part_dv;        // (B, NC, A)
   float* part_sc;        // (B, NC, 2)
@@ -113,13 +121,12 @@ struct TrainBwdArgs {
 // its hidden state after dropout.  Activations are re-derived in fp32 from
 // the rounded PRE-activations, never from rounded outputs, so a saturated
 // gate keeps its small derivative factor.  Emits the four gradients rounded
-// to W (row of g_out in W, row of g_scr in fp32) and updates the cell-state
-// carry d_c.
+// to W into the emitted row g_out, which the next phase reads back as its
+// product's operand, and updates the cell-state carry d_c.
 template <typename W>
 __device__ __forceinline__ void lstm_gate_grads(
     float d_h_drop, float keep, const uint8_t* mk, const W* pre_row,
-    float c_t, float c_prev, float* d_c, W* g_out_row, float* g_scr_row,
-    int H, int j) {
+    float c_t, float c_prev, float* d_c, W* g_out_row, int H, int j) {
   const float d_h = keep < 1.f ? (d_h_drop / keep) * (float)(*mk) : d_h_drop;
   const float gi = sigmoidf(to_f(pre_row[j]));
   const float gf = sigmoidf(to_f(pre_row[H + j]));
@@ -133,18 +140,15 @@ __device__ __forceinline__ void lstm_gate_grads(
                       d_cv * gi * (1.f - gg * gg),
                       d_o * go * (1.f - go)};
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    st_w(g_out_row + q * H + j, g[q]);
-    g_scr_row[q * H + j] = rnd<W>(g[q]);
-  }
+  for (int q = 0; q < 4; ++q) st_w(g_out_row + q * H + j, g[q]);
   *d_c = d_cv * gf;
 }
 
 template <typename W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
 decoder_train_bwd_kernel(const TrainBwdArgs a) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int B = a.B, T = a.T, H = a.H, P = a.P, E = a.E, A = a.A, MP = a.MP,
             K = a.K, S = a.S;
   const int G = 4 * H;
@@ -152,18 +156,19 @@ decoder_train_bwd_kernel(const TrainBwdArgs a) {
   float* sm_pq = smem;                      // kWarps * A
   float* sm_dv = sm_pq + kWarps * A;        // kWarps * A
   float* sm_sc = sm_dv + kWarps * A;        // kWarps * 2
+  char* smem_c = reinterpret_cast<char*>(smem);   // A, B, C3, D, E
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gw = blockIdx.x * kWarps + warp;
   const int nw = gridDim.x * kWarps;
   const int gtid = blockIdx.x * kThreads + threadIdx.x;
   const int nthreads = gridDim.x * kThreads;
-  const W* wi_a_t = static_cast<const W*>(a.wi_a_t);
-  const W* wh_a_t = static_cast<const W*>(a.wh_a_t);
-  const W* wi_d_t = static_cast<const W*>(a.wi_d_t);
-  const W* wh_d_t = static_cast<const W*>(a.wh_d_t);
+  const W* w_b = static_cast<const W*>(a.w_b);
+  const W* w_e = static_cast<const W*>(a.w_e);
   const W* wq_t = static_cast<const W*>(a.wq_t);
   const W* w_heads_t = static_cast<const W*>(a.w_heads_t);
+  const W* d_out = static_cast<const W*>(a.d_out);
+  W* d_pq_w = static_cast<W*>(a.d_pq_w);
   const W* wloc = static_cast<const W*>(a.wloc);
   const W* mem = static_cast<const W*>(a.mem);
   const W* aa_s = static_cast<const W*>(a.aa_s);
@@ -180,59 +185,46 @@ decoder_train_bwd_kernel(const TrainBwdArgs a) {
 
     // A: d_proj = rnd(d_out[t]) . w_heads; columns < H go on through the
     // decoder-LSTM gate gradients, the others are the head part of d_ctx
-    for (int i = gw; i < H + E; i += nw) {
-      for (int b0 = 0; b0 < B; b0 += kNB) {
-        const int nb = min(kNB, B - b0);
-        float acc[1][kNB] = {};
-        row_dot<W>(acc, w_heads_t + (size_t)i * MP,
-                   a.d_out + (tb + b0) * MP, MP, MP, nb, lane);
-        warp_reduce<1>(acc);
-        if (lane < nb) {
-          float dp[1];
-          pick_row<1>(acc, lane, dp);
-          const int bb = b0 + lane;
-          if (i < H) {
-            const size_t bi = (size_t)bb * H + i, row = tb + bb;
-            lstm_gate_grads<W>(
-                dp[0] + __ldcg(a.d_hd + bi), a.keep_d,
-                a.mkd + row * H + i, ad_s + row * G, a.cd_s[row * H + i],
-                t > 0 ? a.cd_s[(row - B) * H + i] : 0.f, a.d_cd + bi,
-                g_dec_s + row * G, a.g_d + (size_t)bb * G, H, i);
-          } else {
-            a.d_ctx_head[(size_t)bb * E + i - H] = dp[0];
-          }
-        }
-      }
+    {
+      const int nt = (H + E) / kTileRows;
+      staged_product<W>(
+          d_out + tb * MP, B, w_heads_t, MP, blockIdx.x * nt / gridDim.x,
+          (blockIdx.x + 1) * nt / gridDim.x, smem_c,
+          [&](int bb, int i, float dp) {
+            if (i < H) {
+              const size_t bi = (size_t)bb * H + i, row = tb + bb;
+              lstm_gate_grads<W>(
+                  dp + __ldcg(a.d_hd + bi), a.keep_d, a.mkd + row * H + i,
+                  ad_s + row * G, a.cd_s[row * H + i],
+                  t > 0 ? a.cd_s[(row - B) * H + i] : 0.f, a.d_cd + bi,
+                  g_dec_s + row * G, H, i);
+            } else {
+              a.d_ctx_head[(size_t)bb * E + i - H] = dp;
+            }
+          });
     }
     grid.sync();
 
-    // B: d_xd = g_dec . wi_d (first H columns: d_ha_drop; the rest adds to
-    // d_ctx), d_hd = g_dec . wh_d
-    for (int i = gw; i < 2 * H + E; i += nw) {
-      const W* wrow = i < H + E ? wi_d_t + (size_t)i * G
-                                : wh_d_t + (size_t)(i - H - E) * G;
-      for (int b0 = 0; b0 < B; b0 += kNB) {
-        const int nb = min(kNB, B - b0);
-        float acc[1][kNB] = {};
-        row_dot<W>(acc, wrow, a.g_d + (size_t)b0 * G, G, G, nb, lane);
-        warp_reduce<1>(acc);
-        if (lane < nb) {
-          float r[1];
-          pick_row<1>(acc, lane, r);
-          const int bb = b0 + lane;
-          if (i < H) {
-            a.d_ha_drop[(size_t)bb * H + i] = r[0];
-          } else if (i < H + E) {
-            const size_t o = (size_t)bb * E + i - H;
-            const float d = (__ldcg(a.d_ctx_head + o) + __ldcg(a.d_ctxn + o)) +
-                            r[0];
-            a.d_ctx[o] = d;
-            a.d_ctx_s[(tb + bb) * E + i - H] = d;
-          } else {
-            a.d_hd[(size_t)bb * H + i - H - E] = r[0];
-          }
-        }
-      }
+    // B: [d_xd | d_hd] = g_dec . [wi_d | wh_d] (first H columns:
+    // d_ha_drop; the next E add to d_ctx; the last H are d_hd)
+    {
+      const int nt = (2 * H + E) / kTileRows;
+      staged_product<W>(
+          g_dec_s + tb * G, B, w_b, G, blockIdx.x * nt / gridDim.x,
+          (blockIdx.x + 1) * nt / gridDim.x, smem_c,
+          [&](int bb, int i, float r) {
+            if (i < H) {
+              a.d_ha_drop[(size_t)bb * H + i] = r;
+            } else if (i < H + E) {
+              const size_t o = (size_t)bb * E + i - H;
+              const float d =
+                  (__ldcg(a.d_ctx_head + o) + __ldcg(a.d_ctxn + o)) + r;
+              a.d_ctx[o] = d;
+              a.d_ctx_s[(tb + bb) * E + i - H] = d;
+            } else {
+              a.d_hd[(size_t)bb * H + i - H - E] = r;
+            }
+          });
     }
     grid.sync();
 
@@ -313,7 +305,7 @@ decoder_train_bwd_kernel(const TrainBwdArgs a) {
         sp += __ldcg(a.part_pq + ((size_t)b * NC + ch) * A + j);
         sd += __ldcg(a.part_dv + ((size_t)b * NC + ch) * A + j);
       }
-      a.d_pq[i] = sp;
+      st_w(d_pq_w + i, sp);
       a.d_pq_s[tb * A + i] = sp;
       a.dv[i] = __ldcg(a.dv + i) + sd;
     }
@@ -330,85 +322,105 @@ decoder_train_bwd_kernel(const TrainBwdArgs a) {
         a.scal_out[1] = __ldcg(a.scal_out + 1) + s1;
       }
     }
-    // ... and the location backward, one warp per (b, t_enc):
+    // ... and the location backward, one block per (b, kWarps positions),
+    // one warp per position:
     // d_prev[b, s'] = sum_{k, j} d_qsum_c[b, s' + lpad - k, j] * wloc[k, j],
-    // d_cum likewise with wloc[K + k]
-    for (int idx = gw; idx < B * T; idx += nw) {
-      const int b = idx / T, sp = idx % T;
-      float ap = 0.f, ac = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const int s = sp + lpad - k;
-        if (s < 0 || s >= T) continue;
-        const W* dq = d_qsum_s + ((tb + b) * T + s) * A;
-        for (int j = lane; j < A; j += 32) {
-          const float x = ldcg_f(dq + j);
-          ap = fmaf(x, to_f(wloc[(size_t)k * A + j]), ap);
-          ac = fmaf(x, to_f(wloc[(size_t)(K + k) * A + j]), ac);
+    // d_cum likewise with wloc[K + k].  The kWarps + K - 1 rows of d_qsum
+    // that the block's taps reach and the composed matrix are staged in
+    // shared memory first (16-byte loads), so a row leaves L2 once a block
+    // and not once a tap.
+    {
+      constexpr int V = Vec<W>::N;
+      const int nr = kWarps + K - 1;
+      W* rows_s = reinterpret_cast<W*>(smem_c);   // (nr, A)
+      W* wl_s = rows_s + (size_t)nr * A;          // (2K, A)
+      for (int task = blockIdx.x; task < B * NC; task += gridDim.x) {
+        const int b = task / NC, s0 = task % NC * kWarps;
+        const int r0 = s0 + lpad - (K - 1);   // first row a tap reaches
+        for (int i = threadIdx.x * V; i < nr * A; i += kThreads * V) {
+          const int r = r0 + i / A;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (r >= 0 && r < T)
+            v = __ldcg(reinterpret_cast<const uint4*>(
+                d_qsum_s + ((tb + b) * T + r) * A + i % A));
+          *reinterpret_cast<uint4*>(rows_s + i) = v;
         }
-      }
-      ap = warp_sum(ap);
-      ac = warp_sum(ac);
-      if (lane == 0) {
-        a.d_prev[idx] = ap;
-        a.d_cum[idx] = __ldcg(a.d_cum + idx) + ac;
+        for (int i = threadIdx.x * V; i < 2 * K * A; i += kThreads * V)
+          *reinterpret_cast<uint4*>(wl_s + i) =
+              __ldg(reinterpret_cast<const uint4*>(wloc + i));
+        __syncthreads();
+        const int sp = s0 + warp;
+        if (sp < T) {
+          float ap = 0.f, ac = 0.f;
+          for (int k = 0; k < K; ++k) {
+            const int s = sp + lpad - k;
+            if (s < 0 || s >= T) continue;
+            const W* dq = rows_s + (size_t)(s - r0) * A;
+            for (int j = lane; j < A; j += 32) {
+              const float x = widen(dq[j]);
+              ap = fmaf(x, widen(wl_s[k * A + j]), ap);
+              ac = fmaf(x, widen(wl_s[(K + k) * A + j]), ac);
+            }
+          }
+          ap = warp_sum(ap);
+          ac = warp_sum(ac);
+          if (lane == 0) {
+            const size_t idx = (size_t)b * T + sp;
+            a.d_prev[idx] = ap;
+            a.d_cum[idx] = __ldcg(a.d_cum + idx) + ac;
+          }
+        }
+        __syncthreads();
       }
     }
     grid.sync();
 
     // D: d_ha_att = rnd(d_pq) . wq, then the attention-LSTM gate gradients
-    for (int i = gw; i < H; i += nw) {
-      for (int b0 = 0; b0 < B; b0 += kNB) {
-        const int nb = min(kNB, B - b0);
-        float acc[1][kNB] = {};
-        row_dot<W>(acc, wq_t + (size_t)i * A, a.d_pq + (size_t)b0 * A, A, A,
-                   nb, lane);
-        warp_reduce<1>(acc);
-        if (lane < nb) {
-          float r[1];
-          pick_row<1>(acc, lane, r);
-          const int bb = b0 + lane;
-          const size_t bi = (size_t)bb * H + i, row = tb + bb;
-          const float d_h = (__ldcg(a.d_ha_drop + bi) + r[0]) +
-                            __ldcg(a.d_ha + bi);
-          lstm_gate_grads<W>(
-              d_h, a.keep_a, a.mka + row * H + i, aa_s + row * G,
-              a.ca_s[row * H + i], t > 0 ? a.ca_s[(row - B) * H + i] : 0.f,
-              a.d_ca + bi, g_att_s + row * G, a.g_a + (size_t)bb * G, H, i);
-        }
-      }
+    {
+      const int nt = H / kTileRows;
+      staged_product<W>(
+          d_pq_w, B, wq_t, A, blockIdx.x * nt / gridDim.x,
+          (blockIdx.x + 1) * nt / gridDim.x, smem_c,
+          [&](int bb, int i, float r) {
+            const size_t bi = (size_t)bb * H + i, row = tb + bb;
+            const float d_h =
+                (__ldcg(a.d_ha_drop + bi) + r) + __ldcg(a.d_ha + bi);
+            lstm_gate_grads<W>(
+                d_h, a.keep_a, a.mka + row * H + i, aa_s + row * G,
+                a.ca_s[row * H + i], t > 0 ? a.ca_s[(row - B) * H + i] : 0.f,
+                a.d_ca + bi, g_att_s + row * G, H, i);
+          });
     }
     grid.sync();
 
-    // E: d_xa = g_att . wi_a (first P columns: d_pre, emitted; the rest is
-    // the d_ctx carry), d_ha = g_att . wh_a.  No barrier after it: phase A
-    // of the next step reads nothing this phase writes.
-    for (int i = gw; i < P + E + H; i += nw) {
-      const W* wrow = i < P + E ? wi_a_t + (size_t)i * G
-                                : wh_a_t + (size_t)(i - P - E) * G;
-      for (int b0 = 0; b0 < B; b0 += kNB) {
-        const int nb = min(kNB, B - b0);
-        float acc[1][kNB] = {};
-        row_dot<W>(acc, wrow, a.g_a + (size_t)b0 * G, G, G, nb, lane);
-        warp_reduce<1>(acc);
-        if (lane < nb) {
-          float r[1];
-          pick_row<1>(acc, lane, r);
-          const int bb = b0 + lane;
-          if (i < P) {
-            a.d_pre_s[(tb + bb) * P + i] = r[0];
-          } else if (i < P + E) {
-            a.d_ctxn[(size_t)bb * E + i - P] = r[0];
-          } else {
-            a.d_ha[(size_t)bb * H + i - P - E] = r[0];
-          }
-        }
-      }
+    // E: [d_xa | d_ha] = g_att . [wi_a | wh_a] (first P columns: d_pre,
+    // emitted; the next E the d_ctx carry; the last H d_ha).  No barrier
+    // after it: phase A of the next step reads nothing this phase writes,
+    // and the shared memory it leaves is next used after A's barrier.
+    {
+      const int nt = (P + E + H) / kTileRows;
+      staged_product<W>(
+          g_att_s + tb * G, B, w_e, G, blockIdx.x * nt / gridDim.x,
+          (blockIdx.x + 1) * nt / gridDim.x, smem_c,
+          [&](int bb, int i, float r) {
+            if (i < P) {
+              a.d_pre_s[(tb + bb) * P + i] = r;
+            } else if (i < P + E) {
+              a.d_ctxn[(size_t)bb * E + i - P] = r;
+            } else {
+              a.d_ha[(size_t)bb * H + i - P - E] = r;
+            }
+          });
     }
   }
 }
 
+// Phase C2, C3's staging (sized for fp32) and the products use the same
+// shared memory in turn.
 static size_t smem_bytes(const TrainBwdArgs& a) {
-  return sizeof(float) * (2 * kWarps * a.A + 2 * kWarps);
+  const size_t c2 = sizeof(float) * (2 * kWarps * a.A + 2 * kWarps);
+  const size_t c3 = sizeof(float) * (kWarps + 3 * a.K - 1) * a.A;
+  return std::max(std::max(c2, c3), (size_t)kProductSmemBytes);
 }
 
 // Returns a cudaError_t (0 = launched).  bf16 != 0: weights, memory and
@@ -424,4 +436,8 @@ extern "C" int t2_decoder_train_bwd(TrainBwdArgs* a, int bf16, int device,
 
 extern "C" int t2_decoder_train_bwd_args_size() {
   return (int)sizeof(TrainBwdArgs);
+}
+
+extern "C" int t2_decoder_train_bwd_smem_bytes(const TrainBwdArgs* a) {
+  return (int)smem_bytes(*a);
 }

@@ -34,7 +34,7 @@ from which the weight gradients are time-batched products
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -143,13 +143,13 @@ def decoder_bwd_chain_reference(
 class _Args(ctypes.Structure):
     """Mirror of ``struct TrainBwdArgs`` in csrc/decoder_train_bwd.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "wi_a_t", "wh_a_t", "wi_d_t", "wh_d_t", "wq_t", "w_heads_t", "wloc",
+        "w_b", "w_e", "wq_t", "w_heads_t", "wloc",
         "v", "scal", "mem", "mka", "mkd", "aa_s", "ad_s", "ca_s", "cd_s",
         "attn_s", "qsum_s", "d_out", "d_attn_out",
         "g_att_s", "g_dec_s", "d_ctx_s", "d_pre_s", "d_qsum_s", "d_pq_s",
         "dv", "dpm", "scal_out",
-        "d_ha", "d_ca", "d_hd", "d_cd", "d_ctxn", "d_prev", "d_cum", "g_a",
-        "g_d", "d_ha_drop", "d_ctx_head", "d_ctx", "d_attn", "d_pq",
+        "d_ha", "d_ca", "d_hd", "d_cd", "d_ctxn", "d_prev", "d_cum",
+        "d_ha_drop", "d_ctx_head", "d_ctx", "d_attn", "d_pq_w",
         "part_pq", "part_dv", "part_sc")]
         + [(n, ctypes.c_int) for n in (
             "B", "T", "H", "P", "E", "A", "M", "MP", "K", "S")]
@@ -157,7 +157,62 @@ class _Args(ctypes.Structure):
            ("grid_blocks", ctypes.c_int)])
 
 
-_POSITIONS_PER_BLOCK = 8      # kWarps in csrc/decoder_common.cuh
+# constants of csrc/decoder_common.cuh
+_POSITIONS_PER_BLOCK = 8      # kWarps
+_M_TILE = 16                  # kMTile: batch rows of one product pass
+_TILE_ROWS = 8                # kTileRows: weight rows of one pass
+_CHUNK_BYTES = 512            # kChunkBytes: bytes of a row per K-chunk
+_PRODUCT_SMEM_BYTES = (6 * (_M_TILE + _TILE_ROWS) * _CHUNK_BYTES
+                       + _M_TILE * _TILE_ROWS * 4)
+# two blocks an SM: 228 KB of shared memory less 1 KB reserved per block
+_SMEM_PER_BLOCK = (228 - 2) * 1024 // 2
+
+
+class ChainPlan(NamedTuple):
+    """How the kernel cuts one launch, as ``csrc/decoder_train_bwd.cu``
+    computes it on the card."""
+    m_tiles: int           # passes of each product over the batch (16 rows)
+    k_chunks: int          # K-chunks of one row of B's and E's operand (4H)
+    head_cols: int         # M + 1 padded to 8: phase A's K
+    position_chunks: int   # blocks of 8 encoder positions in C2 and C3
+    smem_bytes: int        # dynamic shared memory of a block
+
+
+def chain_plan(dims: Dict[str, int], b: int, t_enc: int, taps: int,
+               cdt: torch.dtype) -> ChainPlan:
+    """The plan of one launch at widths ``dims`` (H, P, E, A, M), batch
+    ``b``, ``t_enc`` encoder steps and a location conv of ``taps`` taps;
+    raises on what the kernel cannot take (the widths' multiples of 8 are
+    ``check_pair_inputs``'s).  Phase A's operand, the output cotangent, is
+    zero-padded from M + 1 to 8 columns."""
+    if b < 1 or t_enc < 1:
+        raise ValueError(f"decoder_bwd_chain_mega: batch {b}, T_enc {t_enc}")
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decoder_bwd_chain_mega: weight dtype {cdt}")
+    h, a, m = dims["H"], dims["A"], dims["M"]
+    # phase C2's partials, C3's staged rows and location matrix (as fp32),
+    # the products' ring: one region, used in turn
+    smem = max(4 * (2 * _POSITIONS_PER_BLOCK * a + 2 * _POSITIONS_PER_BLOCK),
+               4 * (_POSITIONS_PER_BLOCK + 3 * taps - 1) * a,
+               _PRODUCT_SMEM_BYTES)
+    if smem > _SMEM_PER_BLOCK:
+        raise ValueError(f"decoder_bwd_chain_mega: {smem} bytes of shared "
+                         "memory a block leave no room for two an SM")
+    row_bytes = 4 * h * (2 if cdt == torch.bfloat16 else 4)
+    return ChainPlan(m_tiles=-(-b // _M_TILE),
+                     k_chunks=-(-row_bytes // _CHUNK_BYTES),
+                     head_cols=-(-(m + 1) // 8) * 8,
+                     position_chunks=-(-t_enc // _POSITIONS_PER_BLOCK),
+                     smem_bytes=smem)
+
+
+def product_weights(ops: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two products' weights as the kernel reads them, one contiguous
+    row per input: ``[wi_d | wh_d]`` and ``[wi_a | wh_a]`` transposed, so
+    that ``g @ w.t()`` is the pair of products ``g @ wi, g @ wh``."""
+    return tuple(torch.cat([ops[i], ops[h]], dim=1).t().contiguous()
+                 for i, h in (("wi_d", "wh_d"), ("wi_a", "wh_a")))
 
 
 def _lib() -> ctypes.CDLL:
@@ -167,6 +222,8 @@ def _lib() -> ctypes.CDLL:
     lib.t2_decoder_train_bwd.restype = ctypes.c_int
     lib.t2_decoder_train_bwd_args_size.argtypes = []
     lib.t2_decoder_train_bwd_args_size.restype = ctypes.c_int
+    lib.t2_decoder_train_bwd_smem_bytes.argtypes = [ctypes.POINTER(_Args)]
+    lib.t2_decoder_train_bwd_smem_bytes.restype = ctypes.c_int
     if lib.t2_decoder_train_bwd_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError("TrainBwdArgs layout differs between csrc/"
                            "decoder_train_bwd.cu and "
@@ -215,22 +272,23 @@ def decoder_bwd_chain_mega(
         raise ValueError(f"{name}: memory batch {memory.shape[0]} != {b}")
     keep_a = 1.0 - cfg.p_attention_dropout
     keep_d = 1.0 - cfg.p_decoder_dropout
-    mp = -(-(M + 1) // 8) * 8
+    plan = chain_plan(dims, b, t_enc, cfg.location_kernel_size, cdt)
+    mp = plan.head_cols
     tr = lambda x: x.t().contiguous()
     e = lambda *shape, dtype=torch.float32: torch.empty(*shape, device=dev,
                                                         dtype=dtype)
     z = lambda *shape: torch.zeros(*shape, device=dev)
-    nc = -(-t_enc // _POSITIONS_PER_BLOCK)
+    nc = plan.position_chunks
+    w_b, w_e = product_weights(ops)
     ins = dict(
-        wi_a_t=tr(ops["wi_a"]), wh_a_t=tr(ops["wh_a"]),
-        wi_d_t=tr(ops["wi_d"]), wh_d_t=tr(ops["wh_d"]), wq_t=tr(ops["wq"]),
+        w_b=w_b, w_e=w_e, wq_t=tr(ops["wq"]),
         w_heads_t=F.pad(tr(ops["w_heads"]), (0, mp - M - 1)).contiguous(),
         wloc=ops["wloc"], v=ops["v"], scal=ops["scal"],
         mem=memory.detach().to(cdt).contiguous(),
         aa_s=aa_s.contiguous(), ad_s=ad_s.contiguous(),
         ca_s=ca_s.contiguous(), cd_s=cd_s.contiguous(),
         attn_s=attns.contiguous(), qsum_s=qsum_s.contiguous(),
-        d_out=F.pad(d_out_s, (0, mp - M - 1)).contiguous(),
+        d_out=F.pad(d_out_s, (0, mp - M - 1)).to(cdt).contiguous(),
         d_attn_out=d_attn_out.contiguous())
     ins["mka"] = check_keep_mask(name, mka_s, keep_a, (t_dec, b, H),
                                  ins["ca_s"])
@@ -245,8 +303,9 @@ def decoder_bwd_chain_mega(
     scratch = dict(
         d_ha=z(b, H), d_ca=z(b, H), d_hd=z(b, H), d_cd=z(b, H),
         d_ctxn=z(b, E), d_prev=z(b, t_enc), d_cum=z(b, t_enc),
-        g_a=e(b, 4 * H), g_d=e(b, 4 * H), d_ha_drop=e(b, H),
-        d_ctx_head=e(b, E), d_ctx=e(b, E), d_attn=e(b, t_enc), d_pq=e(b, A),
+        d_ha_drop=e(b, H),
+        d_ctx_head=e(b, E), d_ctx=e(b, E), d_attn=e(b, t_enc),
+        d_pq_w=e(b, A, dtype=cdt),
         part_pq=e(b, nc, A), part_dv=e(b, nc, A), part_sc=e(b, nc, 2))
     tensors = {**ins, **out, **scratch}
     args = _Args(**{k: v.data_ptr() for k, v in tensors.items()},
@@ -259,8 +318,10 @@ def decoder_bwd_chain_mega(
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
     decoder_bwd_chain_mega.launches += 1
     decoder_bwd_chain_mega.last_grid_blocks = args.grid_blocks
+    decoder_bwd_chain_mega.last_plan = plan
     return tuple(out.values())
 
 
 decoder_bwd_chain_mega.launches = 0
 decoder_bwd_chain_mega.last_grid_blocks = 0
+decoder_bwd_chain_mega.last_plan = None

@@ -35,7 +35,8 @@ from tacotron2_torch.ops.attention_kernel import (attention_tail,
                                                   attention_tail_reference)
 from tacotron2_torch.ops.decoder_bptt import core_params, decoder_scan_bptt
 from tacotron2_torch.ops.decoder_bwd_kernel import (
-    decoder_bwd_chain_mega, decoder_bwd_chain_reference)
+    _Args, _lib, chain_plan, decoder_bwd_chain_mega,
+    decoder_bwd_chain_reference, product_weights)
 from tacotron2_torch.ops.decoder_megakernel import (
     decoder_infer_mega, decoder_infer_mega_reference, weight_bytes)
 from tacotron2_torch.ops.decoder_train_kernel import (
@@ -291,9 +292,12 @@ def test_cuda_train_forward_matches_plain(dtype, b, t_enc, dropout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [True, False])
-@pytest.mark.parametrize("b,t_enc", [(2, 12), (3, 13), (9, 24)])
+@pytest.mark.parametrize("b,t_enc", [(1, 13), (2, 12), (3, 13), (5, 13),
+                                     (9, 24), (16, 37), (24, 37)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_train_backward_matches_plain(dtype, b, t_enc, dropout):
+    """Batches below, at and above one 16-row M tile of the products, and
+    encoder lengths that are not a multiple of 8."""
     _, args, cots = train_inputs(cuda_device(), dtype, dropout, b, t_enc)
     cfg, ops, _, memory, _, _, mka, mkd = args
     _, attns, _, ca_s, _, cd_s, qsum_s, aa_s, ad_s = (
@@ -309,6 +313,142 @@ def test_cuda_train_backward_matches_plain(dtype, b, t_enc, dropout):
                          PAIR_TOL[dtype])
     for name, x, y in zip(BWD_OUT, got, again):
         assert torch.equal(x, y), f"{name}: two runs differ"
+
+
+FULL = ModelConfig()
+FULL_DIMS = dict(H=FULL.decoder_rnn_dim, P=FULL.prenet_dim,
+                 E=FULL.encoder_embedding_dim, A=FULL.attention_dim,
+                 M=FULL.n_mels)
+SMALL_DIMS = dict(H=SMALL["decoder_rnn_dim"], P=SMALL["prenet_dim"],
+                  E=SMALL["encoder_embedding_dim"], A=SMALL["attention_dim"],
+                  M=SMALL["n_mels"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_enc", [37, 128])
+@pytest.mark.parametrize("b", [2, 5, 8, 16, 24])
+def test_chain_plan(b, t_enc, dtype):
+    """The reverse chain's cut at full width: the batch in passes of 16
+    rows, K-chunks covering a row of the 4H-wide operand, the head operand
+    padded to 8 columns, position blocks covering T_enc, and shared memory
+    that leaves room for two blocks an SM."""
+    plan = chain_plan(FULL_DIMS, b, t_enc, FULL.location_kernel_size, dtype)
+    h, m = FULL_DIMS["H"], FULL_DIMS["M"]
+    assert 16 * (plan.m_tiles - 1) < b <= 16 * plan.m_tiles
+    row_bytes = 4 * h * (2 if dtype == torch.bfloat16 else 4)
+    assert (plan.k_chunks - 1) * 512 < row_bytes <= plan.k_chunks * 512
+    assert plan.head_cols == 88 and m + 1 <= plan.head_cols
+    assert (plan.position_chunks - 1) * 8 < t_enc <= plan.position_chunks * 8
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    small = chain_plan(SMALL_DIMS, b, t_enc, SMALL["location_kernel_size"],
+                       dtype)
+    assert small.smem_bytes == plan.smem_bytes      # the ring sets it
+    assert small.k_chunks == (1 if dtype == torch.bfloat16 else 2)
+    assert small.head_cols == 16
+
+
+@pytest.mark.parametrize("dims,b,t_enc,dtype,err", [
+    (dict(FULL_DIMS, A=512), 16, 128, torch.bfloat16, ValueError),
+    (dict(FULL_DIMS, A=1024), 16, 128, torch.float32, ValueError),
+    (FULL_DIMS, 0, 128, torch.bfloat16, ValueError),
+    (FULL_DIMS, -1, 128, torch.float32, ValueError),
+    (FULL_DIMS, 16, 0, torch.float32, ValueError),
+    (FULL_DIMS, 16, 128, torch.float16, TypeError),
+    (FULL_DIMS, 5, 37, torch.float64, TypeError)])
+def test_chain_plan_rejects(dims, b, t_enc, dtype, err):
+    """An empty batch or encoder, another weight dtype, and an attention
+    width whose staged location rows would leave no room for two blocks an
+    SM."""
+    with pytest.raises(err):
+        chain_plan(dims, b, t_enc, FULL.location_kernel_size, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [2, 5, 8, 16, 24])
+def test_product_weights_match_the_products(b, dtype):
+    """The stacked, transposed weights of phases B and E, one row per
+    output, give the plain version's four products."""
+    _, args, _ = train_inputs("cpu", dtype, b=b)
+    ops = args[1]
+    w_b, w_e = product_weights(ops)
+    h = SMALL["decoder_rnn_dim"]
+    assert w_b.is_contiguous() and w_e.is_contiguous()
+    assert w_b.dtype == w_e.dtype == dtype
+    rng = np.random.default_rng(b)
+    g = torch.from_numpy(rng.standard_normal((b, 4 * h)).astype(
+        np.float32)).to(dtype).float()
+    for w, (i, hh) in zip((w_b, w_e), (("wi_d", "wh_d"), ("wi_a", "wh_a"))):
+        got = g @ w.float().t()
+        want = torch.cat([g @ ops[i].float(), g @ ops[hh].float()], dim=1)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chain_plan_matches_the_kernel(dtype):
+    """The shared memory the launcher asks for is the plan's."""
+    cuda_device()
+    for b, t_enc in ((5, 37), (24, 128)):
+        plan = chain_plan(FULL_DIMS, b, t_enc, FULL.location_kernel_size,
+                          dtype)
+        args = _Args(B=b, T=t_enc, K=FULL.location_kernel_size, **FULL_DIMS)
+        assert _lib().t2_decoder_train_bwd_smem_bytes(args) == plan.smem_bytes
+
+
+def full_width_chain_inputs(dtype, b, t_enc=37, t_dec=6, dropout=True):
+    """Full-width reverse-chain inputs on the card: K = 4H = 4096, so the
+    products walk many K-chunks through the ring."""
+    dev = cuda_device()
+    cfg = FULL if dropout else dataclasses.replace(
+        FULL, p_attention_dropout=0.0, p_decoder_dropout=0.0)
+    model = init_weights(Tacotron2(cfg), seed=0)
+    if dtype == torch.bfloat16:
+        model = cast_params_bf16(model)
+    dec = model.decoder.to(dev)
+    rng = np.random.default_rng(3)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    pre = (f(t_dec, b, cfg.prenet_dim) * 0.5).relu()
+    memory = f(b, t_enc, cfg.encoder_embedding_dim) * 0.5
+    with torch.no_grad():
+        pm = dec.attention.memory_layer(memory)
+    mask = make_pad_mask(torch.tensor([t_enc - 5 * (i % 3)
+                                       for i in range(b)]), t_enc).to(dev)
+    h = cfg.decoder_rnn_dim
+    keep = lambda: (torch.from_numpy(rng.random((t_dec, b, h)) < 0.9).to(dev)
+                    if dropout else None)
+    ops = kernel_operands(core_params(dec))
+    mka, mkd = keep(), keep()
+    fargs = (cfg, ops, pre, memory, pm, mask, mka, mkd)
+    _, attns, _, ca_s, _, cd_s, qsum_s, aa_s, ad_s = (
+        decoder_fwd_train_reference(*fargs))
+    cots = (f(t_dec, b, cfg.n_mels + 1) * 0.1, f(t_dec, b, t_enc) * 0.1)
+    return (cfg, ops, memory, mka, mkd, aa_s, ad_s, ca_s, cd_s, attns,
+            qsum_s, *cots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_backward_is_repeatable(dtype):
+    """Two launches at full width give the same bits (no float atomics;
+    every sum is taken in one fixed order)."""
+    bargs = full_width_chain_inputs(dtype, b=16)
+    got = decoder_bwd_chain_mega(*bargs)
+    again = decoder_bwd_chain_mega(*bargs)
+    torch.cuda.synchronize()
+    for name, x, y in zip(BWD_OUT, got, again):
+        assert torch.equal(x, y), f"{name}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [5, 24])
+def test_cuda_train_backward_full_width_matches_plain(b):
+    """fp32 at full width, one M tile padded (B=5) and two (B=24)."""
+    bargs = full_width_chain_inputs(torch.float32, b=b)
+    got = decoder_bwd_chain_mega(*bargs)
+    torch.cuda.synchronize()
+    assert_outputs_close(BWD_OUT, got, decoder_bwd_chain_reference(*bargs),
+                         PAIR_TOL[torch.float32])
 
 
 @pytest.mark.cuda
