@@ -18,7 +18,14 @@ it fails:
    ``ModelConfig()`` width on seeded weights (fp32 and bf16 weights,
    B in {1, 8}, T_enc=128 with a ragged mask, both stop modes, first frame
    dropped and kept, ``max_steps=400``, ``forced_stop_at=300``), with one
-   limit per output (``DEC_TOL``);
+   limit per output (``DEC_TOL``); then, in each type, decodes that the
+   gate itself stops (``gate_stop_offset``: a gate-bias offset picked from
+   the plain loop's own logits, B=8, at least two rows stopping at
+   different frames by frame 200, every logit four times this type's
+   largest gate error of the sweep at B=8 from the threshold up to its
+   stop: seeded weights' logits move by about 1e-4 a frame, too little for
+   ten times the gate limit), kernel
+   against plain loop under both stop modes, ``frame_ends`` exactly;
 6. the main path: seeded token sequences through ``synthesize_mels``
    (bf16 weights), batched and one by one, with the decode kernel on and
    off; the launch counters are zeroed before and read after, the outputs
@@ -315,6 +322,129 @@ def compare_decode(got, ref, dtype, where: str):
     for k in DEC_OUTPUTS:
         check(errs[k] <= tol[k], f"{where}: {k} error {errs[k]} > {tol[k]}")
     return errs
+
+
+def gate_stop_offset(dec, candidates, max_steps: int, gate_threshold: float,
+                     margin: float, latest: int, drop_first: bool = True):
+    """A decoder whose gate stops rows by itself, from seeded weights whose
+    gate never fires: the plain step loop decodes each (memory, mask) of
+    ``candidates`` in turn (stop mode "all", ``drop_first``) and a
+    gate-bias offset is picked from its own gate logits.  The gate feeds
+    nothing back, so the offset changes nothing before a stop.  It must make
+    at least two rows stop at different frames no later than ``latest``,
+    and keep every row's logits at least ``margin`` from the threshold's
+    logit at every frame up to its stop (all frames where it does not
+    stop), so that the kernel's error cannot move a stop.  The offset is
+    applied to a copy of ``dec`` and the pick is checked on that copy's own
+    logits.  Returns (candidate index, offset, the copy, per row the frame
+    of its gate stop or 0 for none), or None where no candidate qualifies.
+    """
+    import math
+    from tacotron2_torch.ops.decoder_megakernel import (
+        decoder_infer_mega_reference)
+    level = math.log(gate_threshold / (1 - gate_threshold))
+
+    def logits(d, memory, mask):
+        with torch.no_grad():
+            out = decoder_infer_mega_reference(
+                d, memory, max_steps, gate_threshold, drop_first, mask,
+                "all")
+        return int(out[3]), out[1].float().cpu().numpy()[:, 1:]
+
+    def stops_for(g, taus):
+        """Per level in ``taus``: the frame of each row's first logit above
+        it (frames 2..max_steps; 0: none) and the logits' least distance
+        from it up to each row's stop."""
+        above = g[None] > taus[:, None, None]
+        fired = above.any(2)
+        first = above.argmax(2)
+        upto = np.where(fired, first, g.shape[1] - 1)
+        seen = np.arange(g.shape[1])[None, None] <= upto[:, :, None]
+        dist = np.where(seen, np.abs(g[None] - taus[:, None, None]),
+                        np.inf).min((1, 2))
+        return np.where(fired, first + 2, 0), dist
+
+    def qualifies(frames, dist):
+        early = frames[(frames > 0) & (frames <= latest)]
+        return dist >= margin and len(set(early.tolist())) >= 2
+
+    for i, (memory, mask) in enumerate(candidates):
+        n, g = logits(dec, memory, mask)
+        if n != max_steps:
+            continue
+        taus = np.linspace(g.min(), g.max(), 4001)
+        frames, dist = stops_for(g, taus)
+        ok = [k for k in range(len(taus)) if qualifies(frames[k], dist[k])]
+        if not ok:
+            continue
+        k = max(ok, key=lambda k: dist[k])
+        offset = level - float(taus[k])
+        hot = copy.deepcopy(dec)
+        # an fp32 bias, so that a bf16 model takes the offset unrounded
+        hot.gate_layer.bias = torch.nn.Parameter(
+            hot.gate_layer.bias.detach().float() + offset)
+        _, g_hot = logits(hot, memory, mask)
+        frames, dist = stops_for(g_hot, np.array([level]))
+        if qualifies(frames[0], dist[0]):
+            return i, offset, hot, frames[0].tolist()
+    return None
+
+
+def expected_ends(stops, stop_mode: str, max_steps: int):
+    """n_frames and frame_ends of a decode whose rows stop by the gate at
+    ``stops`` (0: never)."""
+    fired = [s for s in stops if s > 0]
+    if stop_mode == "any":
+        n = min(fired) if fired else max_steps
+    else:
+        n = max(fired) if len(fired) == len(stops) else max_steps
+    return n, [min(s, n) if s > 0 else n for s in stops]
+
+
+def gate_fired_stops(dec, dtype, cfg, margin, dev, kernel, plain,
+                     make_pad_mask):
+    """Phase 5's decodes that the gate itself stops: B=8, T_enc=128, a
+    gate-bias offset from ``gate_stop_offset`` (memory seeds 500-515,
+    first frame kept, two rows or more stopping by frame MAX_STEPS // 2),
+    the kernel against the plain step loop under both stop modes, with
+    n_frames and frame_ends those the plain loop's logits predict."""
+    b = 8
+    lens = torch.tensor([128 - 37 * (i % 3) for i in range(b)])
+    mask = make_pad_mask(lens, 128).to(dev)
+
+    def candidates():
+        for seed in range(500, 516):
+            g = torch.Generator().manual_seed(seed)
+            yield (torch.randn(b, 128, cfg.encoder_embedding_dim,
+                               generator=g) * 0.5).to(dev), mask
+
+    picked = gate_stop_offset(dec, candidates(), MAX_STEPS,
+                              cfg.gate_threshold, margin, MAX_STEPS // 2,
+                              drop_first=False)
+    check(picked is not None, f"{str(dtype)[6:]}: no gate-bias offset "
+          f"makes two rows stop by the gate {margin:.1e} from the "
+          f"threshold")
+    i, offset, hot, stops = picked
+    memory = list(candidates())[i][0]
+    print(f"[decoder_infer_mega {str(dtype)[6:]} B={b} gate stops] memory "
+          f"seed {500 + i}, gate-bias offset {offset:+.6f}, margin "
+          f"{margin:.1e} (4 x this dtype's gate error at B=8): rows stop "
+          f"by the gate at frames {stops} (0: not by frame {MAX_STEPS})",
+          flush=True)
+    for stop_mode in ("any", "all"):
+        args = (hot, memory, MAX_STEPS, cfg.gate_threshold, False, mask,
+                stop_mode, None)
+        with torch.no_grad():
+            got = kernel(*args)
+            ref = plain(*args)
+        torch.cuda.synchronize()
+        n, ends = expected_ends(stops, stop_mode, MAX_STEPS)
+        where = (f"decoder_infer_mega {str(dtype)[6:]} B={b} gate stops "
+                 f"{stop_mode}")
+        check(int(ref[3]) == n and ref[4].tolist() == ends,
+              f"{where}: the plain loop stopped at {int(ref[3])}, "
+              f"{ref[4].tolist()}; the logits said {n}, {ends}")
+        compare_decode(got, ref, dtype, where)
 
 
 def bound(n_bytes: float, n_ops: float, dtype: torch.dtype):
@@ -1510,7 +1640,7 @@ def main() -> int:
     # 5. decoder_infer_mega kernel vs plain step loop, full width
     cfg = ModelConfig()
     base = init_weights(Tacotron2(cfg), seed=SEED)
-    dec_err = {}
+    dec_err, gate_err = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         m = base if dtype == torch.float32 else cast_params_bf16(base)
         dec = copy.deepcopy(m.decoder).to(dev)
@@ -1540,6 +1670,13 @@ def main() -> int:
                     print(f"[{where}] {ms:.3f} ms, {ms * 1e3 / steps:.1f} "
                           f"us/step, grid {decoder_infer_mega.last_grid_blocks}"
                           f" blocks", flush=True)
+                    if b > 1:
+                        gate_err[dtype] = max(gate_err.get(dtype, 0.0),
+                                              errs["gates"])
+        gate_fired_stops(dec, dtype, cfg, max(4 * gate_err[dtype], 1e-6),
+                         dev,
+                         decoder_infer_mega, decoder_infer_mega_reference,
+                         make_pad_mask)
         del dec
 
     # 6. the main path: requests through synthesize_mels, bf16 weights

@@ -414,13 +414,14 @@ __device__ inline void energy_phase(const W* wloc, const float* prev,
 
 // Softmax over T and context, one block per (b, kCtxCols-column chunk of
 // E): attn = softmax(energy[b]); prev = attn; cum += attn; ctx[b] = attn .
-// mem[b] (W memory, fp32 sum).  attn_out, where not null, receives the row
-// at attn_out + b * attn_stride.  Shared memory: red (kWarps + 1), ctx_red
+// mem[b] (W memory, fp32 sum), stored as C (fp32, or W where every reader
+// rounds it to W anyway).  attn_out, where not null, receives the row at
+// attn_out + b * attn_stride.  Shared memory: red (kWarps + 1), ctx_red
 // (kWarps * kCtxCols), attn_s (T).
-template <typename W>
+template <typename W, typename C = float>
 __device__ inline void softmax_context_phase(const float* energy, const W* mem,
                                              float* prev, float* cum,
-                                             float* ctx, float* attn_out,
+                                             C* ctx, float* attn_out,
                                              size_t attn_stride, float* red,
                                              float* ctx_red, float* attn_s,
                                              int B, int T, int E) {
@@ -461,7 +462,7 @@ __device__ inline void softmax_context_phase(const float* energy, const W* mem,
     if (warp == 0 && d < E) {
       float sum = 0.f;
       for (int w = 0; w < kWarps; ++w) sum += ctx_red[w * kCtxCols + lane];
-      ctx[(size_t)b * E + d] = sum;
+      st_w(ctx + (size_t)b * E + d, sum);
     }
     __syncthreads();
   }

@@ -5,13 +5,16 @@ decoder_infer_mega``.  The CUDA C++ kernel (``csrc/decoder_infer.cu``) is a
 persistent cooperative kernel whose time loop runs on the card; its source
 note describes the design and its bound (the decoder weights read once per
 step: ~10.9 us per step in bf16, ~21.7 us in fp32 on an H100 SXM at
-3.35 TB/s).  The plain version, :func:`decoder_infer_mega_reference`, is
-the step loop of ``models/decoder.py`` with the plain attention tail.
+3.35 TB/s).  The kernel reads its weights in the layout
+:func:`decode_weights` makes once per model and keeps.  The plain version,
+:func:`decoder_infer_mega_reference`, is the step loop of
+``models/decoder.py`` with the plain attention tail.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional
 
 import torch
@@ -23,11 +26,11 @@ from . import _build
 class _Args(ctypes.Structure):
     """Mirror of ``struct DecoderArgs`` in csrc/decoder_infer.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "pw1", "pw2", "wi_a", "wh_a", "wi_d", "wh_d", "wq", "wloc",
-        "w_heads", "b_a", "b_d", "b_heads", "v", "scal", "mem", "pm", "mask",
+        "pw1", "pw2", "w_att", "w_dec", "wq", "wloc", "w_heads", "b_a", "b_d",
+        "b_heads", "v", "scal", "mem", "pm", "mask",
         "mels", "gates", "aligns", "ends", "n_frames",
-        "h_att", "c_att", "h_dec", "c_dec", "ctx", "prev", "cum", "mel",
-        "p1", "p2", "pq", "energy", "done", "item_end", "flags")]
+        "mel_w", "p1_w", "p2_w", "ctx_w", "h_att_w", "h_dec_w", "c_att",
+        "c_dec", "prev", "cum", "pq", "energy", "flags", "bar")]
         + [(n, ctypes.c_int) for n in (
             "B", "T", "H", "P", "E", "A", "M", "K",
             "max_steps", "drop_first", "stop_all", "forced_stop_at")]
@@ -40,6 +43,12 @@ def _lib() -> ctypes.CDLL:
                                      ctypes.c_int, ctypes.c_void_p]
     lib.t2_decoder_infer.restype = ctypes.c_int
     lib.t2_decoder_args_size.restype = ctypes.c_int
+    lib.t2_decoder_infer_tile_rows.argtypes = [ctypes.c_int]
+    lib.t2_decoder_infer_tile_rows.restype = ctypes.c_int
+    if (lib.t2_decoder_infer_tile_rows(0), lib.t2_decoder_infer_tile_rows(1)
+            ) != (TILE_ROWS, LSTM_TILE_ROWS):
+        raise RuntimeError("weight tile rows differ between csrc/"
+                           "decoder_infer.cu and ops/decoder_megakernel.py")
     if lib.t2_decoder_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError("DecoderArgs layout differs between csrc/"
                            "decoder_infer.cu and ops/decoder_megakernel.py")
@@ -96,23 +105,97 @@ def weight_bytes(dec: Decoder) -> int:
     return sum(x.numel() * x.element_size() for x in _weights(dec).values())
 
 
-def decoder_infer_mega(dec: Decoder, memory: torch.Tensor, max_steps: int,
-                       gate_threshold: float, drop_first_frame: bool = True,
-                       mask: Optional[torch.Tensor] = None,
-                       stop_mode: str = "any",
-                       forced_stop_at: Optional[int] = None):
-    """Same signature and returns as ``models.decoder.decoder_infer``.
+def gate_interleave(w: torch.Tensor) -> torch.Tensor:
+    """(4H, K) in PyTorch's gate order (rows g*H + j) -> rows 4j + g, so
+    that four neighbouring rows are the i, f, g, o gates of one unit."""
+    four_h, k = w.shape
+    return w.reshape(4, four_h // 4, k).transpose(0, 1).reshape(four_h, k)
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise).  ``decoder_infer_mega.launches`` counts launches.
-    """
-    if memory.device.type == "cpu":
-        return decoder_infer_mega_reference(
-            dec, memory, max_steps, gate_threshold, drop_first_frame, mask,
-            stop_mode, forced_stop_at)
-    if memory.device.type != "cuda":
-        raise ValueError(f"decoder_infer_mega: unsupported device "
-                         f"{memory.device}")
+
+CHUNK_BYTES = 512      # a chunk of a weight row: 16 bytes a lane of a warp
+TILE_ROWS = 8          # weight rows of a block's tile: one a warp
+LSTM_TILE_ROWS = 16    # the LSTMs': two a warp, the gates of four units
+
+
+def tile_major(w: torch.Tensor, widths, rows: int) -> torch.Tensor:
+    """(n, sum(widths)) -> (tiles, chunks, rows, CHUNK_BYTES / itemsize):
+    each segment of ``widths`` zero-padded to whole chunks, the rows to
+    whole tiles, and a tile's chunk made contiguous, as the kernel copies
+    it."""
+    ce = CHUNK_BYTES // w.element_size()
+    segs = [torch.nn.functional.pad(x, (0, -x.shape[1] % ce))
+            for x in w.split(list(widths), 1)]
+    wp = torch.cat(segs, 1)
+    wp = torch.nn.functional.pad(wp, (0, 0, 0, -wp.shape[0] % rows))
+    return (wp.reshape(wp.shape[0] // rows, rows, wp.shape[1] // ce, ce)
+            .transpose(1, 2).contiguous())
+
+
+def _segments(cfg) -> dict:
+    """Each weight matrix's operand segments, in the kernel's order."""
+    h, e, p = cfg.decoder_rnn_dim, cfg.encoder_embedding_dim, cfg.prenet_dim
+    return dict(pw1=(cfg.n_mels,), pw2=(p,), w_att=(p, e, h),
+                w_dec=(h, e, h), wq=(h,), w_heads=(h, e))
+
+
+def _relaid(dec: Decoder) -> dict:
+    """:func:`_weights` in the kernel's layout (see :func:`decode_weights`)."""
+    ops = _weights(dec)
+    for name in ("att", "dec"):
+        wi, wh = ops.pop(f"wi_{name[0]}"), ops.pop(f"wh_{name[0]}")
+        ops[f"w_{name}"] = gate_interleave(torch.cat([wi, wh], 1))
+    m = dec.cfg.n_mels
+    ops["w_heads"] = torch.cat([ops["w_heads"][m:], ops["w_heads"][:m]])
+    ops["b_heads"] = torch.cat([ops["b_heads"][m:], ops["b_heads"][:m]])
+    for name, widths in _segments(dec.cfg).items():
+        rows = LSTM_TILE_ROWS if name in ("w_att", "w_dec") else TILE_ROWS
+        ops[name] = tile_major(ops[name], widths, rows)
+    return ops
+
+
+_PLANS: "weakref.WeakKeyDictionary[Decoder, tuple]" = \
+    weakref.WeakKeyDictionary()
+
+
+@torch.no_grad()
+def decode_weights(dec: Decoder) -> dict:
+    """The kernel's weight operands, made once and kept while nothing they
+    were made from changes: the weight-dtype matrices one row per output,
+    the LSTMs' as ``[w_ih | w_hh]`` with the gate rows interleaved
+    (:func:`gate_interleave`), the heads' with the gate row first, each
+    then laid out tile-major (:func:`tile_major`); the fp32 biases (the
+    LSTMs' in PyTorch's gate order, the heads' gate first), ``v``, ``[v
+    bias, energy scale]`` and the composed (2K, A) location matrix.
+
+    The key is each of the decoder's parameters' address, version counter,
+    dtype and device, and its storage, held by weak reference (as
+    ``ops/convbn_kernel.py::folded_weights`` keys the conv fold): an
+    in-place write or a new tensor makes them again.  A write through
+    ``.data`` bumps no version and is not seen; inference tensors carry no
+    version, so their operands are made on every call."""
+    tensors = list(dec.parameters())
+    if any(t.is_inference() for t in tensors):
+        return _relaid(dec)
+    key = tuple((t.data_ptr(), t._version, t.dtype, t.device)
+                for t in tensors)
+    plan = _PLANS.get(dec)
+    if plan is None or plan[0] != key or any(
+            ref() is not t.untyped_storage()
+            for t, ref in zip(tensors, plan[1])):
+        plan = (key, tuple(weakref.ref(t.untyped_storage())
+                           for t in tensors), _relaid(dec))
+        _PLANS[dec] = plan
+    return plan[2]
+
+
+def check_launch(dec: Decoder, memory: torch.Tensor, max_steps: int,
+                 mask: Optional[torch.Tensor], stop_mode: str) -> None:
+    """Raise on what the kernel does not take: another stop mode, widths
+    that are not multiples of 8 (16-byte vector loads), a memory width or
+    attention rnn dim other than the config's, a weight dtype other than
+    fp32 or bf16, ``max_steps`` < 1, weights and memory on different
+    devices, a mask that is not a bool (B, T_enc) tensor on the memory's
+    device."""
     if stop_mode not in ("any", "all"):
         raise ValueError(f"stop_mode must be 'any' or 'all', got {stop_mode}")
     cfg = dec.cfg
@@ -131,19 +214,46 @@ def decoder_infer_mega(dec: Decoder, memory: torch.Tensor, max_steps: int,
         raise TypeError(f"decoder_infer_mega: weight dtype {cdt}")
     if max_steps < 1:
         raise ValueError("decoder_infer_mega: max_steps must be >= 1")
-    dev = memory.device
-    if dec.attention_lstm.weight_ih.device != dev:
+    if dec.attention_lstm.weight_ih.device != memory.device:
         raise ValueError("decoder_infer_mega: weights and memory on "
                          "different devices")
-    ops = _weights(dec)
+    if mask is not None and (mask.shape != (b, t_enc)
+                             or mask.device != memory.device
+                             or mask.dtype != torch.bool):
+        raise ValueError("decoder_infer_mega: mask must be a bool (B, T_enc) "
+                         "tensor on the memory's device")
+
+
+def decoder_infer_mega(dec: Decoder, memory: torch.Tensor, max_steps: int,
+                       gate_threshold: float, drop_first_frame: bool = True,
+                       mask: Optional[torch.Tensor] = None,
+                       stop_mode: str = "any",
+                       forced_stop_at: Optional[int] = None):
+    """Same signature and returns as ``models.decoder.decoder_infer``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise).  ``decoder_infer_mega.launches`` counts launches.
+    """
+    if memory.device.type == "cpu":
+        return decoder_infer_mega_reference(
+            dec, memory, max_steps, gate_threshold, drop_first_frame, mask,
+            stop_mode, forced_stop_at)
+    if memory.device.type != "cuda":
+        raise ValueError(f"decoder_infer_mega: unsupported device "
+                         f"{memory.device}")
+    check_launch(dec, memory, max_steps, mask, stop_mode)
+    cfg = dec.cfg
+    b, t_enc, _ = memory.shape
+    dims = dict(H=cfg.decoder_rnn_dim, P=cfg.prenet_dim,
+                E=cfg.encoder_embedding_dim, A=cfg.attention_dim,
+                M=cfg.n_mels)
+    cdt = dec.attention_lstm.weight_ih.dtype
+    dev = memory.device
+    ops = dict(decode_weights(dec))
     ops["mem"] = memory.detach().to(cdt).contiguous()
     ops["pm"] = dec.attention.memory_layer(memory).contiguous()
     if mask is None:
         mask = torch.zeros(b, t_enc, dtype=torch.bool, device=dev)
-    if (mask.shape != (b, t_enc) or mask.device != dev
-            or mask.dtype != torch.bool):
-        raise ValueError("decoder_infer_mega: mask must be a bool (B, T_enc) "
-                         "tensor on the memory's device")
     ops["mask"] = mask.contiguous().view(torch.uint8)
 
     H, M, s = dims["H"], dims["M"], max_steps
@@ -152,14 +262,14 @@ def decoder_infer_mega(dec: Decoder, memory: torch.Tensor, max_steps: int,
                aligns=z(b, s, t_enc),
                ends=torch.zeros(b, dtype=torch.int32, device=dev),
                n_frames=torch.zeros(1, dtype=torch.int32, device=dev))
+    zw = lambda *shape: torch.zeros(*shape, dtype=cdt, device=dev)
     scratch = dict(
-        h_att=z(2, b, H), c_att=z(b, H), h_dec=z(2, b, H), c_dec=z(b, H),
-        ctx=z(b, dims["E"]), prev=z(b, t_enc), cum=z(b, t_enc), mel=z(b, M),
-        p1=z(b, dims["P"]), p2=z(b, dims["P"]), pq=z(b, dims["A"]),
-        energy=z(b, t_enc),
-        done=torch.zeros(b, dtype=torch.int32, device=dev),
-        item_end=torch.full((b,), s, dtype=torch.int32, device=dev),
-        flags=torch.zeros(2, dtype=torch.int32, device=dev))
+        mel_w=zw(b, M), p1_w=zw(b, dims["P"]), p2_w=zw(b, dims["P"]),
+        ctx_w=zw(b, dims["E"]), h_att_w=zw(2, b, H), h_dec_w=zw(2, b, H),
+        c_att=z(b, H), c_dec=z(b, H), prev=z(b, t_enc), cum=z(b, t_enc),
+        pq=z(b, dims["A"]), energy=z(b, t_enc),
+        flags=torch.zeros(2, dtype=torch.int32, device=dev),
+        bar=torch.zeros(1, dtype=torch.int32, device=dev))
     tensors = {**ops, **out, **scratch}
     args = _Args(**{k: v.data_ptr() for k, v in tensors.items()},
                  B=b, T=t_enc, K=cfg.location_kernel_size, max_steps=s,

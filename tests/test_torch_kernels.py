@@ -194,6 +194,83 @@ def test_cuda_decode_natural_gate_fire():
     assert got[4].tolist() == [2, 2]
 
 
+def decode_pair(args):
+    """The kernel's and the plain step loop's returns on the same inputs,
+    held to each other as test_cuda_decode_matches_plain holds them."""
+    dtype = args[0].attention_lstm.weight_ih.dtype
+    before = decoder_infer_mega.launches
+    with torch.no_grad():
+        got = decoder_infer_mega(*args)
+        ref = decoder_infer_mega_reference(*args)
+    torch.cuda.synchronize()
+    assert decoder_infer_mega.launches == before + 1
+    assert int(got[3]) == int(ref[3])
+    assert torch.equal(got[4], ref[4])
+    n = int(ref[3])
+    for name, g, r in zip(DEC_OUTPUTS, got[:3], ref[:3]):
+        torch.testing.assert_close(g[:, :n], r[:, :n],
+                                   atol=DEC_TOL[dtype][name], rtol=0,
+                                   msg=lambda m: f"{name}: {m}")
+        assert torch.equal(g[:, n:], r[:, n:])
+    return got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [9, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_batch_in_passes(dtype, b):
+    """More than kDecMTile (8) batch rows: every product runs in passes."""
+    dev = cuda_device()
+    dec = small_decoder(dev, dtype)[0]
+    rng = np.random.default_rng(b)
+    memory = torch.from_numpy((rng.standard_normal(
+        (b, T_ENC, SMALL["encoder_embedding_dim"])) * 0.5).astype(
+            np.float32)).to(dev)
+    lens = torch.tensor([T_ENC - 3 * (i % 3) for i in range(b)])
+    mask = make_pad_mask(lens, T_ENC).to(dev)
+    for stop_mode, force in (("all", None), ("any", 6)):
+        decode_pair((dec, memory, MAX, 0.5, True, mask, stop_mode, force))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop_mode", ["any", "all"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_gate_fired_stops(dtype, stop_mode):
+    """Rows stopped by the gate itself at different frames: chip_smoke.py's
+    gate-bias offset, picked from the plain loop's logits at four times the
+    kernel's own gate error on the undisturbed decode (at least 1e-5) from
+    the threshold; frame_ends exactly the plain loop's.  Four rows, memory
+    at scale 2: the small model's logits move enough for that margin."""
+    from chip_smoke import expected_ends, gate_stop_offset
+    dev = cuda_device()
+    dec = small_decoder(dev, dtype)[0]
+    b = 4
+    mask = make_pad_mask(torch.tensor([T_ENC - 3 * (i % 3) for i in range(b)]),
+                         T_ENC).to(dev)
+
+    def candidates():
+        for seed in range(80):
+            rng = np.random.default_rng(seed)
+            yield torch.from_numpy((rng.standard_normal((b, T_ENC, 32)) * 2.0)
+                                   .astype(np.float32)).to(dev), mask
+
+    steps = 40
+    memory0 = next(candidates())[0]
+    got, ref = decode_pair((dec, memory0, steps, 0.5, False, mask, "all",
+                            None))
+    margin = max(1e-5, 4 * float((got[1] - ref[1]).abs().max()))
+    picked = gate_stop_offset(dec, candidates(), steps, 0.5, margin, 30,
+                              drop_first=False)
+    assert picked is not None, f"no offset {margin:.1e} from the threshold"
+    i, _, hot, stops = picked
+    assert len({s for s in stops if 0 < s <= 30}) >= 2
+    memory = list(candidates())[i][0]
+    got, _ = decode_pair((hot, memory, steps, 0.5, False, mask, stop_mode,
+                          None))
+    n, ends = expected_ends(stops, stop_mode, steps)
+    assert int(got[3]) == n and got[4].tolist() == ends
+
+
 # --------------------------------------------------------------------------
 # the training pair: decoder_fwd_train_mega, decoder_bwd_chain_mega
 # --------------------------------------------------------------------------

@@ -51,6 +51,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -60,54 +61,72 @@ PHASES = ("A", "B", "C1", "C2", "C3", "D", "E", "empty barrier")
 MODULES = ("config", "models.tacotron2", "ops.decoder_bptt",
            "ops.decoder_bwd_kernel", "ops.decoder_train_kernel", "ops._build",
            "data.dataset", "train.step", "train.optim", "train.state")
-_PROBE_HEAD = """
-__device__ unsigned long long g_probe[9];
-#define PROBE(i) if (blockIdx.x == 0 && threadIdx.x == 0) { \\
-  const long long now_ = clock64(); g_probe[i] += now_ - last_; last_ = now_; }
-"""
-_PROBE_READ = """
-extern "C" int t2_probe_read(unsigned long long* host) {
-  cudaError_t e = cudaMemcpyFromSymbol(host, g_probe, sizeof(g_probe));
-  if (e != cudaSuccess) return e;
-  unsigned long long z[9] = {};
-  return cudaMemcpyToSymbol(g_probe, z, sizeof(z));
-}
-"""
 
 
-def load_package(pkg_dir: Path, name: str) -> dict:
-    """Import the package at ``pkg_dir`` as ``name``; its modules."""
+def load_package(pkg_dir: Path, name: str, modules=MODULES) -> dict:
+    """Import the package at ``pkg_dir`` as ``name``; its ``modules``."""
     spec = importlib.util.spec_from_file_location(
         name, pkg_dir / "__init__.py",
         submodule_search_locations=[str(pkg_dir)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return {m: importlib.import_module(f"{name}.{m}") for m in MODULES}
+    return {m: importlib.import_module(f"{name}.{m}") for m in modules}
 
 
-def instrument(src: str) -> str:
-    """The kernel source with a clock64 counter after every grid barrier
-    (phases A, B, C1, C2, C3, D), a barrier and a counter after phase E,
-    and an empty barrier with its counter, per step."""
-    src = src.replace('#include "decoder_common.cuh"\n',
-                      '#include "decoder_common.cuh"\n' + _PROBE_HEAD, 1)
-    loop = re.search(r"\n  for \(int t = S - 1; t >= 0; --t\) \{\n", src)
-    src = (src[:loop.start()] + "\n  long long last_ = clock64();"
-           "\n  const long long start_ = last_;" + src[loop.start():])
-    parts = src.split("    grid.sync();\n")
-    if len(parts) != 7:
-        raise RuntimeError(f"expected six barriers a step, found "
+def _probe_head(n: int) -> str:
+    return f"""
+__device__ unsigned long long g_probe[{n}];
+#define PROBE(i) if (blockIdx.x == 0 && threadIdx.x == 0) {{ \\
+  const long long now_ = clock64(); g_probe[i] += now_ - last_; last_ = now_; }}
+"""
+
+
+def _probe_read(n: int) -> str:
+    return f"""
+extern "C" int t2_probe_read(unsigned long long* host) {{
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_probe, sizeof(g_probe));
+  if (e != cudaSuccess) return e;
+  unsigned long long z[{n}] = {{}};
+  return cudaMemcpyToSymbol(g_probe, z, sizeof(z));
+}}
+"""
+
+
+def instrument(src: str, loop: str = r"for \(int t = S - 1; t >= 0; --t\)",
+               n_barriers: Optional[int] = 6) -> str:
+    """A kernel source with a clock64 counter read by block 0 after every
+    grid barrier of its time loop (the ``grid.sync()`` lines at the loop
+    body's own indent; the loop's head matches the regex ``loop``, and the
+    body must hold ``n_barriers`` of them, or any number if None), then at
+    the body's end a barrier and a counter after the last phase, and an
+    empty barrier with its counter (its cost); the total over the loop goes
+    to the last of the barriers' count + 3 counters, which
+    ``t2_probe_read`` reads and clears.  The defaults fit the reverse
+    chain (``csrc/decoder_train_bwd.cu``)."""
+    head = re.search(r"\n  " + loop + r" \{\n", src)
+    if head is None:
+        raise RuntimeError("time loop not found")
+    depth, i = 1, head.end()
+    while depth:                       # the loop's closing brace
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        i += 1
+    parts = src[head.end():i - 1].split("    grid.sync();\n")
+    if n_barriers is not None and len(parts) != n_barriers + 1:
+        raise RuntimeError(f"expected {n_barriers} barriers a step, found "
                            f"{len(parts) - 1}")
-    src = parts[0] + "".join(f"    grid.sync();\n    PROBE({i})\n" + p
-                             for i, p in enumerate(parts[1:]))
-    end = src.index("smem_bytes(const TrainBwdArgs")
-    close = src.rindex("\n  }\n}\n", 0, end)
-    src = (src[:close] + "\n    grid.sync();\n    PROBE(6)\n    grid.sync();"
-           "\n    PROBE(7)\n  }\n  if (blockIdx.x == 0 && threadIdx.x == 0) "
-           "g_probe[8] += clock64() - start_;\n}\n"
-           + src[close + len("\n  }\n}\n"):])
-    return src + _PROBE_READ
+    k = len(parts) - 1
+    body = parts[0] + "".join(f"    grid.sync();\n    PROBE({j})\n" + p
+                              for j, p in enumerate(parts[1:])).rstrip(" ")
+    src = (src[:head.start()] + "\n  long long last_ = clock64();"
+           "\n  const long long start_ = last_;" + src[head.start():head.end()]
+           + body + f"    grid.sync();\n    PROBE({k})\n    grid.sync();\n"
+           f"    PROBE({k + 1})\n  }}\n  if (blockIdx.x == 0 && "
+           f"threadIdx.x == 0) g_probe[{k + 2}] += clock64() - start_;"
+           + src[i:])
+    return (src.replace('#include "decoder_common.cuh"\n',
+                        '#include "decoder_common.cuh"\n'
+                        + _probe_head(k + 3), 1) + _probe_read(k + 3))
 
 
 def probe_library(pkg: dict, tag: str) -> ctypes.CDLL:
@@ -196,10 +215,12 @@ def phase_split(pkg: dict, lib: ctypes.CDLL, args, t_dec: int) -> dict:
 
 
 def _with_args(lib, real):
-    """The instrumented library with the real one's ctypes signatures."""
-    for fn in ("t2_decoder_train_bwd", "t2_decoder_train_bwd_args_size"):
-        getattr(lib, fn).argtypes = getattr(real, fn).argtypes
-        getattr(lib, fn).restype = getattr(real, fn).restype
+    """The instrumented library with the ctypes signatures that the real
+    one's wrapper has set."""
+    for name, fn in vars(real).items():
+        if isinstance(fn, ctypes._CFuncPtr):
+            getattr(lib, name).argtypes = fn.argtypes
+            getattr(lib, name).restype = fn.restype
     return lib
 
 
