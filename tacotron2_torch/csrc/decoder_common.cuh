@@ -1,7 +1,10 @@
 // Device code shared by the three persistent decoder kernels
 // (decoder_infer.cu, decoder_train_fwd.cu, decoder_train_bwd.cu): one
-// cooperative launch each, the time loop inside the kernel, grid.sync()
-// between dependent phases.
+// cooperative launch each, the time loop inside the kernel, a grid
+// barrier between dependent phases (GridBarrier in the decode and the
+// forward, cg::grid_group::sync in the reverse chain).  The decode and the
+// forward share their product path (product_tile) and their attention
+// phases; the reverse chain takes staged_product.
 //
 // Conventions: weights are in the weight dtype W (float or __nv_bfloat16),
 // one contiguous row per output; products round their other operand to W
@@ -47,13 +50,6 @@ template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
 __device__ __forceinline__ void st_w(float* p, float x) { *p = x; }
 __device__ __forceinline__ void st_w(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
-}
-
-// Load a weight-dtype value that this kernel wrote, through L2.
-__device__ __forceinline__ float ldcg_f(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ldcg_f(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldcg(reinterpret_cast<const unsigned short*>(p))));
 }
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -112,30 +108,6 @@ __device__ __forceinline__ void warp_dot(float (&acc)[R][kNB],
       }
     }
   }
-}
-
-// Sum each lane's partial dot products over the warp (after the last
-// warp_dot into acc); every lane gets the totals.
-template <int R>
-__device__ __forceinline__ void warp_reduce(float (&acc)[R][kNB]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int b = 0; b < kNB; ++b) acc[r][b] = warp_sum(acc[r][b]);
-}
-
-// Lane b's column of the reduced accumulators: out[r] = acc[r][lane]
-// (lane < kNB), without dynamic indexing of registers.
-template <int R>
-__device__ __forceinline__ void pick_row(const float (&acc)[R][kNB], int lane,
-                                         float (&out)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) out[r] = 0.f;
-#pragma unroll
-  for (int b = 0; b < kNB; ++b)
-    if (b == lane)
-#pragma unroll
-      for (int r = 0; r < R; ++r) out[r] = acc[r][b];
 }
 
 // One warp's dot product of a single weight row with up to kNB batch rows
@@ -307,29 +279,395 @@ __device__ void staged_product(const W* x, int B, const W* w, int K,
   }
 }
 
-// Pre-activation LSTM gates of hidden unit j for batch rows b0..b0+nb-1:
-// acc[g][b] = [x1 | x2][b] . wi[g*H + j] + h_old[b] . wh[g*H + j], gate
-// order i, f, g, o, reduced over the warp (no bias).
-template <typename W>
-__device__ __forceinline__ void lstm_gates(float (&acc)[4][kNB], const W* wi,
-                                           const W* wh, const float* x1,
-                                           int k1, const float* x2, int k2,
-                                           const float* h_old, int H, int j,
-                                           int b0, int nb, int lane) {
-  const int kin = k1 + k2;
-  const W* r1[4];
-  const W* r2[4];
-  const W* rh[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    r1[g] = wi + (size_t)(g * H + j) * kin;
-    r2[g] = r1[g] + k1;
-    rh[g] = wh + (size_t)(g * H + j) * H;
+// ---------------------------------------------------------------------
+// Segmented staged product (the decode kernel and the teacher-forced
+// forward).  y[b][i] = sum_s x_s[b] . w[i][seg s] for an operand given as
+// up to three segments x_s (B, k_s) in W, row-contiguous, against weight
+// rows that are the segments' widths laid end to end.  The wrapper lays
+// each weight matrix out tile-major, (tiles, chunks, kWarps * R rows, 32N
+// elements), each segment zero-padded to whole chunks and the rows to
+// whole tiles, so that a block's chunk of weights is one contiguous
+// kWarps * R * 512 bytes: one bulk copy (the Tensor Memory Accelerator's
+// 1-D form) by one thread into a ring stage; the batch rows' pieces are
+// 16-byte cp.async copies spread over the block.  Both complete the
+// stage's mbarrier (every thread arrives through cp.async's own
+// arrive-on, the weights' bytes through the barrier's transaction count).
+// The batch goes in passes of MT rows (the kernel's batch tile: 8 for the
+// decode, 16 for the forward, so that a forward of up to 16 rows copies
+// and widens each chunk of weights once a step).  The ring has
+// kRingStages<R> stages: 2 of 16 weight rows (the LSTMs), 3 of 8, in
+// ring_bytes<MT>().  (Deeper rings ran no faster on an H100: PERF.md.)
+// ---------------------------------------------------------------------
+__host__ __device__ constexpr int up16(int x) { return (x + 15) / 16 * 16; }
+
+template <int R> constexpr int kRingStages = R == 1 ? 3 : 2;
+constexpr int kRingMaxStages = 3;
+template <int MT> __host__ __device__ constexpr int ring_bytes() {
+  return (2 * (2 * kWarps + MT) > 3 * (kWarps + MT) ? 2 * (2 * kWarps + MT)
+                                                    : 3 * (kWarps + MT)) *
+         kChunkBytes;
+}
+template <int MT> __host__ __device__ constexpr int res_bytes() {
+  return MT * 2 * kWarps * (int)sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes the barrier's current phase waits for, without arriving
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// this thread's arrival, once its cp.async copies so far have landed
+__device__ __forceinline__ void mbar_arrive_after_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// global -> shared, `bytes` (a multiple of 16) completing `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <typename W> struct Operand {
+  const W* x[3];
+  int k[3];
+  int n;
+};
+
+// A product: its operand, its tile-major weights (kWarps * R rows a tile)
+// and its row count.
+template <typename W, int R> struct Product {
+  Operand<W> op;
+  const W* w;
+  int n_rows;
+};
+
+// The ring of stages and their barriers; par bit s is the parity that
+// stage s's next completion has.  Block-uniform: every thread waits on
+// every stage that it reads.
+struct Ring {
+  char* buf;
+  uint64_t* full;
+  uint32_t par;
+};
+
+// The block's ring barriers, initialised by the whole block at the
+// kernel's start.
+__device__ __forceinline__ void ring_init(Ring& ring) {
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kRingMaxStages; ++st)
+      mbar_init(&ring.full[st], kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  warp_dot<W, 4>(acc, r1, x1 + (size_t)b0 * k1, k1, k1, nb, lane);
-  warp_dot<W, 4>(acc, r2, x2 + (size_t)b0 * k2, k2, k2, nb, lane);
-  warp_dot<W, 4>(acc, rh, h_old + (size_t)b0 * H, H, H, nb, lane);
-  warp_reduce<4>(acc);
+}
+
+// Chunk ch of an operand whose segments have cs0, cs1 chunks: its segment
+// s and its chunk c within it (no dynamic indexing of registers).
+__device__ __forceinline__ void locate(int ch, int cs0, int cs1, int& s,
+                                       int& c) {
+  s = 0;
+  c = ch;
+  if (c >= cs0) {
+    c -= cs0;
+    s = 1;
+    if (c >= cs1) {
+      c -= cs1;
+      s = 2;
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T pick3(int s, T a, T b, T c) {
+  return s == 0 ? a : (s == 1 ? b : c);
+}
+
+// A product's chunk walk: per-segment widths and chunk counts.
+template <typename W, int R, int MT> struct Walk {
+  static constexpr int V = Vec<W>::N;
+  static constexpr int CE = 32 * V;          // elements of a chunk
+  static constexpr int TR = kWarps * R;      // weight rows of a tile
+  static constexpr uint32_t kWBytes = TR * kChunkBytes;
+  static constexpr int kStageBytes = (TR + MT) * kChunkBytes;
+  static constexpr int kStages = kRingStages<R>;
+  static_assert(kStages * kStageBytes <= ring_bytes<MT>(), "ring");
+  int k0, k1, k2, cs0, cs1, n;
+  __device__ explicit Walk(const Operand<W>& op)
+      : k0(op.k[0]), k1(op.n > 1 ? op.k[1] : 0), k2(op.n > 2 ? op.k[2] : 0),
+        cs0((k0 + CE - 1) / CE), cs1((k1 + CE - 1) / CE),
+        n(cs0 + cs1 + (k2 + CE - 1) / CE) {}
+  // chunk ch's segment width, its first element in the segment
+  __device__ void at(int ch, int& ks, int& e0, int& s) const {
+    int c;
+    locate(ch, cs0, cs1, s, c);
+    ks = pick3(s, k0, k1, k2);
+    e0 = c * CE;
+  }
+};
+
+// The FMAs of batch rows m0 .. m0 + G - 1 of a chunk, loaded and summed
+// together so that their sums interleave: acc[r][m] += x[m] . w[r] over the
+// lane's piece, in element order.  row_group takes the rows G0 .. G0 +
+// kMGroup - 1: in bf16 those that there are (mrows), so that no row past B
+// is summed; in fp32 all four once one is (rows past B add into sums that
+// are never read), which ran faster there on an H100 (PERF.md).
+template <typename W, int R, int MT, int G, int m0>
+__device__ __forceinline__ void fma_rows(float (&acc)[R][MT],
+                                         const float (&wv)[R][Vec<W>::N],
+                                         const char* xp) {
+  constexpr int V = Vec<W>::N;
+  float xv[G][V];
+#pragma unroll
+  for (int mm = 0; mm < G; ++mm)
+    load_piece<W>(xp + (m0 + mm) * kChunkBytes, xv[mm]);
+#pragma unroll
+  for (int mm = 0; mm < G; ++mm)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        acc[r][m0 + mm] = fmaf(xv[mm][i], wv[r][i], acc[r][m0 + mm]);
+}
+
+template <typename W, int R, int MT, int G0>
+__device__ __forceinline__ void row_group(float (&acc)[R][MT],
+                                          const float (&wv)[R][Vec<W>::N],
+                                          const char* xp, int mrows) {
+  static_assert(kMGroup == 4 && G0 + kMGroup <= MT, "row groups");
+  const int left = mrows - G0;
+  if constexpr (sizeof(W) == 4) {
+    if (left > 0) fma_rows<W, R, MT, 4, G0>(acc, wv, xp);
+  } else if (left >= 4)
+    fma_rows<W, R, MT, 4, G0>(acc, wv, xp);
+  else if (left == 3)
+    fma_rows<W, R, MT, 3, G0>(acc, wv, xp);
+  else if (left == 2)
+    fma_rows<W, R, MT, 2, G0>(acc, wv, xp);
+  else if (left == 1)
+    fma_rows<W, R, MT, 1, G0>(acc, wv, xp);
+}
+
+// Every row group of a pass, G0 = 0, kMGroup, ... < MT.
+template <typename W, int R, int MT, int G0 = 0>
+__device__ __forceinline__ void row_groups(float (&acc)[R][MT],
+                                           const float (&wv)[R][Vec<W>::N],
+                                           const char* xp, int mrows) {
+  row_group<W, R, MT, G0>(acc, wv, xp, mrows);
+  if constexpr (G0 + kMGroup < MT)
+    row_groups<W, R, MT, G0 + kMGroup>(acc, wv, xp, mrows);
+}
+
+// Thread 0: tile's weights of chunk ch into stage st.
+template <typename W, int R, int MT>
+__device__ __forceinline__ void issue_weights(const Product<W, R>& pr,
+                                              const Walk<W, R, MT>& wk,
+                                              int tile, int ch, int st,
+                                              Ring& ring) {
+  mbar_expect(&ring.full[st], wk.kWBytes);
+  bulk_copy(ring.buf + st * wk.kStageBytes,
+            pr.w + (size_t)(tile * wk.n + ch) * wk.TR * wk.CE, wk.kWBytes,
+            &ring.full[st]);
+}
+
+// Every thread: its pieces of batch rows m0 .. m0 + mrows - 1 of chunk ch
+// into stage st, then its arrival on the stage once they have landed.
+template <typename W, int R, int MT>
+__device__ __forceinline__ void issue_x(const Product<W, R>& pr,
+                                        const Walk<W, R, MT>& wk, int ch,
+                                        int m0, int mrows, int st,
+                                        Ring& ring) {
+  int ks, e0, s;
+  wk.at(ch, ks, e0, s);
+  const W* xs = pick3(s, pr.op.x[0], pr.op.x[1], pr.op.x[2]) +
+                (size_t)m0 * ks + e0;
+  const int pieces = min(wk.CE, ks - e0) / wk.V;
+  char* dst = ring.buf + st * wk.kStageBytes + wk.TR * kChunkBytes;
+  for (int p = threadIdx.x; p < mrows * 32; p += kThreads) {
+    const int m = p >> 5, q = p & 31;
+    if (q < pieces)
+      cp_async16(dst + m * kChunkBytes + q * 16,
+                 xs + (size_t)m * ks + q * wk.V);
+  }
+  mbar_arrive_after_copies(&ring.full[st]);
+}
+
+// Before a grid barrier: the first chunks of weights of tile `tile` of the
+// next product, which depend on nothing the barrier orders.  Returns
+// whether it issued them (block-uniform).
+template <int MT, typename W, int R>
+__device__ bool prefetch_tile(const Product<W, R>& pr, Ring& ring,
+                              int tile) {
+  const Walk<W, R, MT> wk(pr.op);
+  if (tile < 0 || tile >= (pr.n_rows + wk.TR - 1) / wk.TR) return false;
+  if (threadIdx.x == 0)
+    for (int ch = 0; ch < min(wk.kStages - 1, wk.n); ++ch)
+      issue_weights(pr, wk, tile, ch, ch, ring);
+  return true;
+}
+
+// The same for the block's first tile of the product.
+template <int MT, typename W, int R>
+__device__ __forceinline__ bool prefetch(const Product<W, R>& pr,
+                                         Ring& ring) {
+  return prefetch_tile<MT>(pr, ring, blockIdx.x);
+}
+
+// A prefetch that no product takes (the decode stopped): let its stages
+// complete before the block exits.
+template <int MT, typename W, int R>
+__device__ void drain(const Product<W, R>& pr, Ring& ring) {
+  const Walk<W, R, MT> wk(pr.op);
+  const int n = min(wk.kStages - 1, wk.n);
+  for (int st = 0; st < n; ++st) mbar_arrive(&ring.full[st]);
+  for (int st = 0; st < n; ++st) {
+    mbar_wait(&ring.full[st], (ring.par >> st) & 1u);
+    ring.par ^= 1u << st;
+  }
+}
+
+// The block's product for weight rows [tile * kWarps * R, + kWarps * R)
+// (warp w on rows w * R .. w * R + R - 1 of the tile), all B batch rows in
+// passes of MT; after each pass the sums are in res[m * kWarps * R + row
+// in tile] and epi(m0, mrows, row0, res) runs on the whole block.  Called
+// by the whole block; `prefetched`: prefetch() issued this tile's first
+// weights.  Each sum is warp_dot's over the segments in order: chunk c of
+// segment s is elements [c * 32N, (c + 1) * 32N) of it, lane l its N
+// elements at l * N (lanes past a ragged end add nothing), FMA in k order;
+// then warp_sum.  Every k_s is a multiple of N and every pointer 16-byte
+// aligned (the wrapper checks the widths).  x is state that this kernel
+// wrote before the last grid barrier: cp.async.cg reads it from L2.
+template <int MT, typename W, int R, typename Epi>
+__device__ void product_tile(const Product<W, R>& pr, int B, int tile,
+                             bool prefetched, Ring& ring, float* res,
+                             Epi epi) {
+  constexpr int V = Vec<W>::N;
+  const Walk<W, R, MT> wk(pr.op);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = tile * wk.TR;
+  for (int m0 = 0; m0 < B; m0 += MT) {
+    const int mrows = min(MT, B - m0);
+    const bool pre = prefetched && m0 == 0;
+    // chunk ch, weights and batch rows, into stage ch % kStages
+    auto issue = [&](int ch, bool weights) {
+      const int st = ch % wk.kStages;
+      if (weights && threadIdx.x == 0)
+        issue_weights(pr, wk, tile, ch, st, ring);
+      issue_x(pr, wk, ch, m0, mrows, st, ring);
+    };
+    for (int ch = 0; ch < min(wk.kStages - 1, wk.n); ++ch) issue(ch, !pre);
+    float acc[R][MT];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) acc[r][m] = 0.f;
+    for (int ch = 0; ch < wk.n; ++ch) {
+      if (ch > 0) __syncthreads();      // stage (ch - 1) % kStages is free
+      if (ch + wk.kStages - 1 < wk.n) issue(ch + wk.kStages - 1, true);
+      const int st = ch % wk.kStages;
+      mbar_wait(&ring.full[st], (ring.par >> st) & 1u);
+      ring.par ^= 1u << st;
+      int ks, e0, s;
+      wk.at(ch, ks, e0, s);
+      if (lane * V < ks - e0) {
+        const char* sp = ring.buf + st * wk.kStageBytes + lane * 16;
+        float wv[R][V];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          load_piece<W>(sp + (warp * R + r) * kChunkBytes, wv[r]);
+        row_groups<W, R, MT>(acc, wv, sp + wk.TR * kChunkBytes, mrows);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m < mrows) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float v = warp_sum(acc[r][m]);
+          if (lane == 0) res[m * wk.TR + warp * R + r] = v;
+        }
+      }
+    }
+    __syncthreads();
+    epi(m0, mrows, row0, static_cast<const float*>(res));
+    __syncthreads();   // the ring and res are reused by the next pass
+  }
+}
+
+// Every tile of a product, tiles dealt over `count` blocks from block
+// `first` on (count 0: the whole grid): block first + i takes tile i, i +
+// count, ...; blocks outside take none.
+template <int MT, typename W, int R, typename Epi>
+__device__ __forceinline__ void product_phase(const Product<W, R>& pr, int B,
+                                              bool prefetched, Ring& ring,
+                                              float* res, Epi epi,
+                                              int first = 0, int count = 0) {
+  const int n_tiles = (pr.n_rows + kWarps * R - 1) / (kWarps * R);
+  const int grid = gridDim.x, step = count > 0 ? count : grid;
+  const int mine = ((int)blockIdx.x - first + grid) % grid;
+  if (mine >= step) return;
+  for (int tile = mine; tile < n_tiles; tile += step)
+    product_tile<MT>(pr, B, tile, prefetched && tile == mine, ring, res,
+                     epi);
+}
+
+// out[b][j] = x[b] . w[j] (+ bias[j] where bias is not null) for j <
+// n_rows (RELU: clamped at 0), in O at out + b * ldo + j; tiles dealt as
+// product_phase deals them.
+template <int MT, bool RELU, typename W, typename O>
+__device__ void matvec_phase(const Product<W, 1>& pr, O* out, int ldo,
+                             const float* bias, int B, bool prefetched,
+                             Ring& ring, float* res, int first = 0,
+                             int count = 0) {
+  const int n_out = pr.n_rows;
+  product_phase<MT>(pr, B, prefetched, ring, res,
+                    [&](int m0, int mrows, int row0, const float* sums) {
+    for (int idx = threadIdx.x; idx < mrows * kWarps; idx += kThreads) {
+      const int m = idx / kWarps, j = row0 + idx % kWarps;
+      if (j < n_out) {
+        float y = sums[m * kWarps + idx % kWarps];
+        if (bias) y += bias[j];
+        st_w(out + (size_t)(m0 + m) * ldo + j, RELU ? fmaxf(y, 0.f) : y);
+      }
+    }
+  }, first, count);
 }
 
 // Block-wide reduction; every thread gets the result.
@@ -347,69 +685,6 @@ __device__ inline float block_reduce(float v, float* red, bool is_max) {
   v = red[kWarps];
   __syncthreads();
   return v;
-}
-
-// out[b][j] = rnd(x[b]) . w[j] for j < n_out (RELU: clamped at 0): one
-// warp per j.
-template <typename W, bool RELU>
-__device__ inline void matvec(const W* w, const float* x, float* out, int K,
-                              int n_out, int B, int gw, int nw, int lane) {
-  for (int j = gw; j < n_out; j += nw) {
-    for (int b0 = 0; b0 < B; b0 += kNB) {
-      const int nb = min(kNB, B - b0);
-      float acc[1][kNB] = {};
-      row_dot<W>(acc, w + (size_t)j * K, x + (size_t)b0 * K, K, K, nb, lane);
-      warp_reduce<1>(acc);
-      if (lane == 0)
-        for (int b = 0; b < nb; ++b)
-          out[(size_t)(b0 + b) * n_out + j] =
-              RELU ? fmaxf(acc[0][b], 0.f) : acc[0][b];
-    }
-  }
-}
-
-// Location-sensitive energies, one warp per (b, t_enc):
-//   q = rnd(pq[b] + pm[b, t] + [prev | cum] window . wloc)
-//   energy[b, t] = mask ? -1e9 : (tanh(q) . v + v_b) * escale
-// wloc is the composed (2K, A) location conv + dense matrix.  qsum_out,
-// where not null, receives q in W as (B, T, A).  win_all: kWarps * 2K
-// floats of shared memory.
-template <typename W>
-__device__ inline void energy_phase(const W* wloc, const float* prev,
-                                    const float* cum, const float* pq,
-                                    const float* pm, const float* v,
-                                    const uint8_t* mask, float v_b,
-                                    float escale, float* energy, W* qsum_out,
-                                    float* win_all, int B, int T, int A, int K,
-                                    int gw, int nw, int lane, int warp) {
-  const int pad = (K - 1) / 2;
-  float* win = win_all + warp * 2 * K;
-  for (int idx = gw; idx < B * T; idx += nw) {
-    const int b = idx / T, tt = idx % T;
-    for (int i = lane; i < 2 * K; i += 32) {
-      const int c = i / K, k = i % K, src = tt + k - pad;
-      const float* in = c == 0 ? prev : cum;
-      win[i] = (src >= 0 && src < T)
-                   ? rnd<W>(__ldcg(in + (size_t)b * T + src)) : 0.f;
-    }
-    __syncwarp();
-    float e = 0.f;
-    for (int j = lane; j < A; j += 32) {
-      float loc = 0.f;
-      for (int i = 0; i < 2 * K; ++i)
-        loc = fmaf(win[i], to_f(wloc[(size_t)i * A + j]), loc);
-      const float q = rnd<W>(__ldcg(pq + (size_t)b * A + j) +
-                             pm[((size_t)b * T + tt) * A + j] + loc);
-      if (qsum_out) st_w(qsum_out + ((size_t)b * T + tt) * A + j, q);
-      e = fmaf(tanhf(q), v[j], e);
-    }
-    e = warp_sum(e);
-    if (lane == 0) {
-      e = (e + v_b) * escale;
-      energy[(size_t)b * T + tt] = mask[(size_t)b * T + tt] ? -1e9f : e;
-    }
-    __syncwarp();
-  }
 }
 
 // Softmax over T and context, one block per (b, kCtxCols-column chunk of
@@ -467,6 +742,101 @@ __device__ inline void softmax_context_phase(const float* energy, const W* mem,
     __syncthreads();
   }
 }
+
+// Location-sensitive energies, one warp per (b, t_enc):
+//   q = rnd(pq[b] + pm[b, t] + [prev | cum] window . wloc)
+//   energy[b, t] = mask ? -1e9 : (tanh(q) . v + v_b) * escale
+// wl: the composed (2K, A) matrix in shared memory; a lane sums its
+// columns j = lane + 32q four at a time, each over the window in tap
+// order, and tanh(q) . v in column order.  qsum_out, where not null,
+// receives q in W as (B, T, A), written once and coalesced over A.
+// win_all: kWarps * 2K floats of shared memory.
+template <typename W>
+__device__ void energies_resident(const W* wl, const float* prev,
+                                  const float* cum, const float* pq,
+                                  const float* pm, const float* v,
+                                  const uint8_t* mask, float v_b,
+                                  float escale, float* energy, W* qsum_out,
+                                  float* win_all,
+                                  int B, int T, int A, int K, int gw, int nw,
+                                  int lane, int warp) {
+  const int pad = (K - 1) / 2;
+  float* win = win_all + warp * 2 * K;
+  for (int idx = gw; idx < B * T; idx += nw) {
+    const int b = idx / T, tt = idx % T;
+    for (int i = lane; i < 2 * K; i += 32) {
+      const int c = i / K, k = i % K, src = tt + k - pad;
+      const float* in = c == 0 ? prev : cum;
+      win[i] = (src >= 0 && src < T)
+                   ? rnd<W>(__ldcg(in + (size_t)b * T + src)) : 0.f;
+    }
+    __syncwarp();
+    float e = 0.f;
+    for (int j0 = lane; j0 < A; j0 += 4 * 32) {
+      float loc[4] = {0.f, 0.f, 0.f, 0.f};
+      float base[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + 32 * q;
+        base[q] = j < A ? __ldcg(pq + (size_t)b * A + j) +
+                              pm[((size_t)b * T + tt) * A + j]
+                        : 0.f;
+      }
+      for (int i = 0; i < 2 * K; ++i) {
+        const float x = win[i];
+        const W* row = wl + (size_t)i * A + j0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j0 + 32 * q < A) loc[q] = fmaf(x, to_f(row[32 * q]), loc[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + 32 * q;
+        if (j < A) {
+          const float qv = rnd<W>(base[q] + loc[q]);
+          if (qsum_out) st_w(qsum_out + ((size_t)b * T + tt) * A + j, qv);
+          e = fmaf(tanhf(qv), v[j], e);
+        }
+      }
+    }
+    e = warp_sum(e);
+    if (lane == 0) {
+      e = (e + v_b) * escale;
+      energy[(size_t)b * T + tt] = mask[(size_t)b * T + tt] ? -1e9f : e;
+    }
+    __syncwarp();
+  }
+}
+
+// The grid barrier: every block's thread 0 adds one to a counter that only
+// grows (zeroed by the caller) with release semantics, after the block's
+// __syncthreads, and waits with acquire loads until it holds gridDim.x
+// arrivals for every barrier so far; then the block's __syncthreads.  The
+// cooperative launch keeps every block resident.  (cg::grid_group::sync
+// fences with __threadfence on both sides; release and acquire are enough
+// here, and cost less: PERF.md has the times.)
+struct GridBarrier {
+  unsigned int* count;
+  unsigned int n, target;
+  __device__ void sync() {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      target += n;
+      unsigned int old, cur;
+      asm volatile("atom.add.release.gpu.global.u32 %0, [%1], 1;\n"
+                   : "=r"(old)
+                   : "l"(count)
+                   : "memory");
+      do {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                     : "=r"(cur)
+                     : "l"(count)
+                     : "memory");
+      } while ((int)(cur - target) < 0);
+    }
+    __syncthreads();
+  }
+};
 
 // Cooperative launch of `kern(const Args)` on `stream`: the grid is the
 // kernel's occupancy (at most kMaxBlocksPerSM blocks per SM) times the SM

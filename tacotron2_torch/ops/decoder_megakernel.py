@@ -123,11 +123,13 @@ def tile_major(w: torch.Tensor, widths, rows: int) -> torch.Tensor:
     whole tiles, and a tile's chunk made contiguous, as the kernel copies
     it."""
     ce = CHUNK_BYTES // w.element_size()
-    segs = [torch.nn.functional.pad(x, (0, -x.shape[1] % ce))
-            for x in w.split(list(widths), 1)]
-    wp = torch.cat(segs, 1)
-    wp = torch.nn.functional.pad(wp, (0, 0, 0, -wp.shape[0] % rows))
-    return (wp.reshape(wp.shape[0] // rows, rows, wp.shape[1] // ce, ce)
+    pad = torch.nn.functional.pad
+    if any(k % ce for k in widths):      # (copies only where it pads)
+        w = torch.cat([pad(x, (0, -x.shape[1] % ce))
+                       for x in w.split(list(widths), 1)], 1)
+    if w.shape[0] % rows:
+        w = pad(w, (0, 0, 0, -w.shape[0] % rows))
+    return (w.reshape(w.shape[0] // rows, rows, w.shape[1] // ce, ce)
             .transpose(1, 2).contiguous())
 
 

@@ -4,9 +4,12 @@ Replaces the Pallas kernel ``tacotron2_tpu/ops/decoder_train_kernel.py::
 decoder_fwd_train_mega``.  The CUDA C++ kernel (``csrc/decoder_train_fwd.cu``)
 is a persistent cooperative kernel whose time loop runs on the card; its
 source note describes the phases and its bound (the decoder weights read
-once per step plus the stored series, over the card's memory rate).  The
-plain version, :func:`decoder_fwd_train_reference`, is a Python loop over
-the steps that does the kernel's arithmetic with the same roundings.
+once per step plus the stored series, over the card's memory rate).  It
+reads its weights in the layout :func:`train_weights` makes from
+:func:`kernel_operands` on every call (the weights change at every
+optimizer step).  The plain version, :func:`decoder_fwd_train_reference`,
+is a Python loop over the steps that does the kernel's arithmetic with the
+same roundings.
 
 Per step, from the prenetted frame: attention LSTM, dropout by a 0/1 mask
 (``(x / keep) * m``, skipped when ``keep == 1``), location-sensitive
@@ -36,6 +39,8 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from . import _build
 from .attention_kernel import attention_tail_reference
+from .decoder_megakernel import (LSTM_TILE_ROWS, TILE_ROWS, gate_interleave,
+                                 tile_major)
 
 # Decoder parameters that the kernel pair reads, by their names under
 # ``models.decoder.Decoder`` (the prenet and the memory layer act outside).
@@ -170,14 +175,41 @@ def decoder_fwd_train_reference(
     return tuple(torch.stack(lst) for lst in outs)
 
 
+def train_segments(dims: Dict[str, int]) -> Dict[str, Tuple[int, ...]]:
+    """Each re-laid weight matrix's operand segments, in the kernel's
+    order (``dims`` as :func:`check_pair_inputs` returns them)."""
+    h, e, p = dims["H"], dims["E"], dims["P"]
+    return dict(w_att=(p, e, h), w_dec=(h, e, h), wq=(h,), w_heads=(h, e))
+
+
+def train_weights(ops: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The forward kernel's weights from :func:`kernel_operands`' ``ops``:
+    each LSTM's ``[w_ih | w_hh]`` with its gate rows interleaved
+    (``ops/decoder_megakernel.py::gate_interleave``), laid out tile-major
+    (``tile_major``) in tiles of 16 rows, ``wq`` and ``w_heads`` in tiles
+    of 8; the rest as they are.  Made on every call: the weights change at
+    every optimizer step."""
+    h = ops["wh_a"].shape[1]
+    e = ops["wi_d"].shape[1] - h
+    seg = train_segments(dict(H=h, E=e, P=ops["wi_a"].shape[1] - e))
+    out = {n: ops[n] for n in ("wloc", "b_a", "b_d", "b_heads", "v", "scal")}
+    for name, (wi, wh) in dict(w_att=("wi_a", "wh_a"),
+                               w_dec=("wi_d", "wh_d")).items():
+        out[name] = tile_major(gate_interleave(torch.cat(
+            [ops[wi], ops[wh]], 1)), seg[name], LSTM_TILE_ROWS)
+    for name in ("wq", "w_heads"):
+        out[name] = tile_major(ops[name], seg[name], TILE_ROWS)
+    return out
+
+
 class _Args(ctypes.Structure):
     """Mirror of ``struct TrainFwdArgs`` in csrc/decoder_train_fwd.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "wi_a", "wh_a", "wi_d", "wh_d", "wq", "wloc", "w_heads", "b_a",
-        "b_d", "b_heads", "v", "scal", "mem", "pm", "mask", "pre", "mka",
-        "mkd", "frames", "attn_s", "ha_s", "ca_s", "hd_s", "cd_s", "qsum_s",
-        "aa_s", "ad_s", "h_att", "h_dec", "ctx", "prev", "cum", "pq",
-        "energy")]
+        "w_att", "w_dec", "wq", "wloc", "w_heads", "b_a", "b_d", "b_heads",
+        "v", "scal", "mem", "pm", "mask", "pre", "mka", "mkd", "frames",
+        "attn_s", "ha_s", "ca_s", "hd_s", "cd_s", "qsum_s", "aa_s", "ad_s",
+        "ctx_w", "h_att_w", "h_dec_w", "prev", "cum", "pq", "energy",
+        "bar")]
         + [(n, ctypes.c_int) for n in (
             "B", "T", "H", "P", "E", "A", "M", "K", "S")]
         + [("keep_a", ctypes.c_float), ("keep_d", ctypes.c_float),
@@ -191,6 +223,13 @@ def _lib() -> ctypes.CDLL:
     lib.t2_decoder_train_fwd.restype = ctypes.c_int
     lib.t2_decoder_train_fwd_args_size.argtypes = []
     lib.t2_decoder_train_fwd_args_size.restype = ctypes.c_int
+    lib.t2_decoder_train_fwd_tile_rows.argtypes = [ctypes.c_int]
+    lib.t2_decoder_train_fwd_tile_rows.restype = ctypes.c_int
+    if (lib.t2_decoder_train_fwd_tile_rows(0),
+            lib.t2_decoder_train_fwd_tile_rows(1)) != (TILE_ROWS,
+                                                       LSTM_TILE_ROWS):
+        raise RuntimeError("weight tile rows differ between csrc/"
+                           "decoder_train_fwd.cu and ops/decoder_megakernel.py")
     if lib.t2_decoder_train_fwd_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError("TrainFwdArgs layout differs between csrc/"
                            "decoder_train_fwd.cu and "
@@ -269,7 +308,8 @@ def decoder_fwd_train_mega(
     keep_d = 1.0 - cfg.p_decoder_dropout
     e = lambda *shape, dtype=torch.float32: torch.empty(*shape, device=dev,
                                                         dtype=dtype)
-    z = lambda *shape: torch.zeros(*shape, device=dev)
+    z = lambda *shape, dtype=torch.float32: torch.zeros(*shape, device=dev,
+                                                        dtype=dtype)
     out = dict(frames=e(t_dec, b, M + 1), attn_s=e(t_dec, b, t_enc),
                ha_s=e(t_dec, b, H, dtype=cdt), ca_s=e(t_dec, b, H),
                hd_s=e(t_dec, b, H, dtype=cdt), cd_s=e(t_dec, b, H),
@@ -280,15 +320,17 @@ def decoder_fwd_train_mega(
         mem=memory.detach().to(cdt).contiguous(),
         pm=pm.detach().float().contiguous(),
         mask=mask.contiguous().view(torch.uint8),
-        pre=prenet_tbd.detach().float().contiguous())
+        pre=prenet_tbd.detach().to(cdt).contiguous())
     ins["mka"] = check_keep_mask(name, mka_s, keep_a, (t_dec, b, H),
                                  ins["mask"])
     ins["mkd"] = check_keep_mask(name, mkd_s, keep_d, (t_dec, b, H),
                                  ins["mask"])
-    scratch = dict(h_att=z(2, b, H), h_dec=z(2, b, H), ctx=z(b, dims["E"]),
-                   prev=z(b, t_enc), cum=z(b, t_enc), pq=e(b, A),
-                   energy=e(b, t_enc))
-    tensors = {**ops, **ins, **out, **scratch}
+    scratch = dict(ctx_w=z(2, b, dims["E"], dtype=cdt),
+                   h_att_w=z(2, b, H, dtype=cdt),
+                   h_dec_w=z(2, b, H, dtype=cdt), prev=z(b, t_enc),
+                   cum=z(b, t_enc), pq=e(b, A), energy=e(b, t_enc),
+                   bar=z(1, dtype=torch.int32))
+    tensors = {**train_weights(ops), **ins, **out, **scratch}
     args = _Args(**{k: v.data_ptr() for k, v in tensors.items()},
                  B=b, T=t_enc, K=cfg.location_kernel_size, S=t_dec,
                  keep_a=keep_a, keep_d=keep_d, **dims)

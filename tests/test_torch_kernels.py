@@ -369,6 +369,26 @@ def test_cuda_train_forward_matches_plain(dtype, b, t_enc, dropout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [True, False])
+@pytest.mark.parametrize("b", [16, 9, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_forward_batch_tile(dtype, b, dropout):
+    """One pass of the forward's 16-row batch tile (B=16), a part of one
+    (B=9) and two passes (B=24), against the plain version; two launches
+    bit for bit."""
+    _, args, _ = train_inputs(cuda_device(), dtype, dropout, b, 24)
+    before = decoder_fwd_train_mega.launches
+    got = decoder_fwd_train_mega(*args)
+    again = decoder_fwd_train_mega(*args)
+    torch.cuda.synchronize()
+    assert decoder_fwd_train_mega.launches == before + 2
+    assert_outputs_close(FWD_OUT, got, decoder_fwd_train_reference(*args),
+                         PAIR_TOL[dtype])
+    for name, x, y in zip(FWD_OUT, got, again):
+        assert torch.equal(x, y), f"{name}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [True, False])
 @pytest.mark.parametrize("b,t_enc", [(1, 13), (2, 12), (3, 13), (5, 13),
                                      (9, 24), (16, 37), (24, 37)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -129,20 +129,22 @@ def instrument(src: str, loop: str = r"for \(int t = S - 1; t >= 0; --t\)",
                         + _probe_head(k + 3), 1) + _probe_read(k + 3))
 
 
-def probe_library(pkg: dict, tag: str) -> ctypes.CDLL:
-    """Build the instrumented copy of a package's reverse-chain kernel."""
+def probe_library(pkg: dict, tag: str, source: str = "decoder_train_bwd",
+                  transform=instrument) -> ctypes.CDLL:
+    """Build the instrumented copy (``transform`` of its text) of a
+    package's kernel ``csrc/<source>.cu``; by default the reverse chain."""
     build = pkg["ops._build"]
-    out = ROOT / "tacotron2_torch" / "_build" / "probe" / tag
+    out = ROOT / "tacotron2_torch" / "_build" / "probe" / f"{source}_{tag}"
     if out.exists():
         shutil.rmtree(out)
     out.mkdir(parents=True)
     for f in build.CSRC.glob("*.cuh"):
         shutil.copy(f, out / f.name)
-    (out / "decoder_train_bwd.cu").write_text(
-        instrument((build.CSRC / "decoder_train_bwd.cu").read_text()))
+    (out / f"{source}.cu").write_text(
+        transform((build.CSRC / f"{source}.cu").read_text()))
     lib = out / "libprobe.so"
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(out / "decoder_train_bwd.cu")], check=True,
+                    str(out / f"{source}.cu")], check=True,
                    capture_output=True)
     return ctypes.CDLL(str(lib))
 

@@ -20,7 +20,8 @@ the reverse chain's nine at one shape each (bf16, B=16, T_enc=128,
 T_dec=64, dropout 0.1).
 
 ``--variants FILE`` names a JSON object {label: [[old, new], ...]}: text
-edits of this tree's ``csrc/decoder_infer.cu``, each variant built under
+edits of this tree's ``csrc/decoder_infer.cu`` or the shared header
+``csrc/decoder_common.cuh``, each variant built under
 ``tacotron2_torch/_build/probe/`` and timed (and held bit for bit) beside
 the packages, launched through this tree's wrapper.
 ``tools/decode_variants.json`` holds the design's alternatives.
@@ -69,9 +70,10 @@ FWD_OUT = ("frames", "attn", "ha_s", "ca_s", "hd_s", "cd_s", "qsum_s",
            "aa_s", "ad_s")
 
 
-def phase_names(src: str) -> list:
-    """The intervals' names, from the code between the loop's barriers."""
-    head = re.search(r"\n  " + LOOP + r" \{\n", src)
+def phase_names(src: str, loop: str = LOOP) -> list:
+    """The intervals' names, from the code between the barriers of the
+    time loop whose head matches ``loop``."""
+    head = re.search(r"\n  " + loop + r" \{\n", src)
     parts = src[head.end():].split("\n  }\n", 1)[0].split(
         "    grid.sync();\n")
     marks = [re.search(r"// phase: (.+)", p) for p in parts]
@@ -103,36 +105,45 @@ def probe_library(pkg: dict, tag: str):
     return ctypes.CDLL(str(lib)), phase_names(src)
 
 
-def variant_library(pkg: dict, label: str, edits) -> ctypes.CDLL:
-    """This package's decode kernel with ``edits`` (pairs of old and new
-    text, each old text present), built apart."""
+def variant_library(pkg: dict, label: str, edits,
+                    source: str = "decoder_infer",
+                    transform=lambda src: src) -> ctypes.CDLL:
+    """This package's kernel ``csrc/<source>.cu`` (by default the decode
+    kernel) with ``edits`` (pairs of old and new text, each old text
+    present in the source or in a shared header), then ``transform`` of
+    the source's text, built apart."""
     build = pkg["ops._build"]
     out = ROOT / "tacotron2_torch" / "_build" / "probe" / f"variant_{label}"
     if out.exists():
         shutil.rmtree(out)
     out.mkdir(parents=True)
-    for f in build.CSRC.glob("*.cuh"):
-        shutil.copy(f, out / f.name)
-    src = (build.CSRC / "decoder_infer.cu").read_text()
+    files = {f.name: f.read_text() for f in build.CSRC.glob("*.cuh")}
+    files[f"{source}.cu"] = (build.CSRC / f"{source}.cu").read_text()
     for old, new in edits:
-        if old not in src:
-            raise ValueError(f"variant {label}: {old!r} not in the source")
-        src = src.replace(old, new)
-    (out / "decoder_infer.cu").write_text(src)
+        hits = [n for n, text in files.items() if old in text]
+        if not hits:
+            raise ValueError(f"variant {label}: {old!r} not in the sources")
+        for n in hits:
+            files[n] = files[n].replace(old, new)
+    files[f"{source}.cu"] = transform(files[f"{source}.cu"])
+    for name, text in files.items():
+        (out / name).write_text(text)
     lib = out / "libvariant.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                    str(out / "decoder_infer.cu")], check=True,
-                   capture_output=True)
+    done = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                           str(out / f"{source}.cu")], check=True,
+                          capture_output=True, text=True)
+    (out / "nvcc.log").write_text(done.stdout + done.stderr)
     return ctypes.CDLL(str(lib))
 
 
-def with_library(mod, lib):
-    """``mod.decoder_infer_mega`` launching ``lib`` in place of its own."""
+def with_library(mod, lib, fn: str = "decoder_infer_mega"):
+    """``mod.<fn>`` (by default the decode kernel's wrapper) launching
+    ``lib`` in place of its own."""
     def run(*args):
         real = mod._lib
         mod._lib = lambda: _with_args(lib, real())
         try:
-            return mod.decoder_infer_mega(*args)
+            return getattr(mod, fn)(*args)
         finally:
             mod._lib = real
     return run
