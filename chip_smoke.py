@@ -8,12 +8,14 @@ it fails:
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. turn TF32 off for matrix products and convolutions;
-3. build the kernels from ``tacotron2_torch/csrc`` (nvcc into
-   ``tacotron2_torch/_build/``; the Triton kernel compiles at its first
-   launch);
-4. the Triton ``attention_tail`` against its plain version at full width
-   (A=128, D=512, T_enc in {37, 128, 200}, B in {1, 16, 64}, fp32 and bf16
-   ``qsum``);
+3. build the kernels from ``tacotron2_torch/csrc`` (one nvcc a source,
+   all started together, into ``tacotron2_torch/_build/``), with each
+   kernel's registers and the attention tail's shared memory a block;
+4. the CUDA ``attention_tail`` against its plain version at full width
+   (A=128, D=512, T_enc in {37, 128, 200, 600}, B in {1, 16, 64}, fp32 and
+   bf16 ``qsum``), each with its plan (cluster split, rows a block, rows
+   a tile), its device time from a CUDA graph of 20 calls and its time a
+   call;
 5. the CUDA ``decoder_infer_mega`` against the plain step loop at the full
    ``ModelConfig()`` width on seeded weights (fp32 and bf16 weights,
    B in {1, 8}, T_enc=128 with a ragged mask, both stop modes, first frame
@@ -64,7 +66,8 @@ it fails:
     zeroed before and read after; before it, on the same batch and masks,
     the first step's gradients by the kernel route against the plain
     route, and both kernels against their plain versions on that step's
-    own inputs;
+    own inputs; after the counted run, ``attention_tail`` against its
+    plain version on the inputs of every step of one more ``eval_step``;
 11. the CUDA ``conv_bn_act`` (eval Conv1d + BatchNorm + activation, folded)
     against its plain version at full width: (C_in, C_out) in {(512, 512),
     (80, 512), (512, 80)}, K=5, T in {1, 37, 128, 1000}, B in {1, 4, 16},
@@ -672,8 +675,9 @@ def train_kernel_phases(dev, base, cfg):
 
 
 def train_main_path(dev):
-    """Phase 10.  Returns the kernels-line entries of the two training
-    kernels and attention_tail's launches on this path."""
+    """Phase 10.  Returns attention_tail's launches on this path and its
+    largest error on eval_step's inputs, and the kernels-line entries of
+    the two training kernels."""
     from tacotron2_torch.config import Config
     from tacotron2_torch.data.dataset import Example, collate
     from tacotron2_torch.models.encoder import encoder_apply
@@ -682,7 +686,7 @@ def train_main_path(dev):
     from tacotron2_torch.models.tacotron2 import (cast_params_bf16,
                                                   init_projection_bias,
                                                   replace_config)
-    from tacotron2_torch.ops import decoder_bptt
+    from tacotron2_torch.ops import attention_kernel, decoder_bptt
     from tacotron2_torch.ops.attention_kernel import attention_tail
     from tacotron2_torch.ops.decoder_bwd_kernel import (
         decoder_bwd_chain_mega, decoder_bwd_chain_reference)
@@ -915,6 +919,31 @@ def train_main_path(dev):
           flush=True)
     check(launches == (5, 5, t_dec), f"training main path launched "
           f"{launches}, expected 5, 5 and {t_dec}")
+
+    # attention_tail on the inputs of every step of one more eval_step: the
+    # kernel's outputs carry the loop on, the plain version runs beside it
+    launch_tail = attention_kernel._forward
+    step_errs = []
+
+    def checked_tail(*ins):
+        out = launch_tail(*ins)
+        step_errs.append(max_err(
+            out, attention_kernel.attention_tail_reference(*ins)))
+        return out
+
+    attention_kernel._forward = checked_tail
+    try:
+        train.eval_step(state, batch, cfg=cfg, sigma_warmup_steps=warm)
+    finally:
+        attention_kernel._forward = launch_tail
+    eval_tail_err = max(step_errs)
+    print(f"[train eval_step attention_tail] on the inputs of "
+          f"{len(step_errs)} steps: max err {eval_tail_err:.3e} (tol "
+          f"{TAIL_TOL})", flush=True)
+    check(len(step_errs) == t_dec, f"eval_step ran the tail "
+          f"{len(step_errs)} times, expected {t_dec}")
+    check(eval_tail_err <= TAIL_TOL, f"eval_step: attention_tail error "
+          f"{eval_tail_err} > {TAIL_TOL}")
     for n, p in model.named_parameters():
         check(bool(torch.isfinite(p).all()), f"parameter {n} not finite")
         check(p.dtype == torch.float32, f"master {n} is {p.dtype}")
@@ -931,7 +960,7 @@ def train_main_path(dev):
     shape = f"B={b} T_enc={t_enc} T_dec={t_dec} weights bf16"
     mean = lambda xs: (None if any(x is None for x in xs)
                        else sum(xs) / len(xs))
-    return launches[2], [
+    return (launches[2], eval_tail_err), [
         dict(name="decoder_fwd_train_mega", route="cuda",
              source="tacotron2_torch/csrc/decoder_train_fwd.cu",
              replaces="tacotron2_tpu/ops/decoder_train_kernel.py:281",
@@ -1571,7 +1600,7 @@ def main() -> int:
         make_pad_mask, replace_config)
     from tacotron2_torch.ops import _build
     from tacotron2_torch.ops.attention_kernel import (
-        attention_tail, attention_tail_reference)
+        attention_tail, attention_tail_reference, tail_plan)
     from tacotron2_torch.ops.convbn_kernel import conv_bn_act
     from tacotron2_torch.ops.decoder_megakernel import (
         decoder_infer_mega, decoder_infer_mega_reference, weight_bytes)
@@ -1596,6 +1625,13 @@ def main() -> int:
     for name, log in _build.build().items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"built {name}: {'; '.join(regs)}")
+    plans = {t: tail_plan(4, t, 128, 512, torch.float32)
+             for t in (32, 112, 128, 600)}
+    print("[build] attention_tail shared memory a block (fp32 memory, "
+          "A=128, D=512): " + ", ".join(
+              f"T_enc={t} {p.smem_bytes} bytes (split {p.split}, "
+              f"{p.rows} rows, tiles of {p.tile_rows})"
+              for t, p in plans.items()))
     gen = torch.Generator().manual_seed(SEED)
     q = torch.randn(2, 37, 128, generator=gen).to(dev)
     attention_tail(q, q[0, 0], q[0, 0, 0], q[0, 0, 1],
@@ -1618,21 +1654,24 @@ def main() -> int:
 
     tail_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for t in (37, 128, 200):
+        for t in (37, 128, 200, 600):
             for b in (1, 16, 64):
                 ins = tail_inputs(b, t, dtype, seed=b * 1000 + t)
-                got = attention_tail(*ins)
-                ref = attention_tail_reference(*ins)
-                err = max_err(got, ref)
-                tail_err = max(tail_err, err)
-                ms = time_ms(lambda: attention_tail(*ins), 200)
-                dev_ms = device_ms(lambda: attention_tail(*ins), 50,
-                                   "attention_tail_kernel")
-                plain = time_ms(lambda: attention_tail_reference(*ins), 50)
+                with torch.no_grad():
+                    got = attention_tail(*ins)
+                    ref = attention_tail_reference(*ins)
+                    err = max_err(got, ref)
+                    tail_err = max(tail_err, err)
+                    ms = time_ms(lambda: attention_tail(*ins), 200)
+                    dev_ms = graph_ms(lambda: attention_tail(*ins), 20)
+                    plain = time_ms(lambda: attention_tail_reference(*ins),
+                                    50)
+                plan = tail_plan(b, t, 128, 512, ins[5].dtype)
                 print(f"[attention_tail] {str(dtype)[6:]:8s} B={b:2d} "
-                      f"T_enc={t:3d}: max err {err:.3e}, kernel {ms:.4f} ms "
-                      f"per call (device {fmt_ms(dev_ms)}), plain "
-                      f"{plain:.4f} ms",
+                      f"T_enc={t:3d}: split {plan.split} x {plan.rows} rows "
+                      f"(tiles of {plan.tile_rows}), max err {err:.3e}, "
+                      f"device {dev_ms * 1e3:.2f} us (graph), "
+                      f"{ms * 1e3:.2f} us a call, plain {plain:.4f} ms",
                       flush=True)
                 check(err <= TAIL_TOL, f"attention_tail error {err} > "
                       f"{TAIL_TOL} at B={b} T={t} {dtype}")
@@ -1860,10 +1899,14 @@ def main() -> int:
         2 * macs_step * n_steps, cdt)
 
     qsum = tail_args[0]     # a middle step's own, from the check above
-    tail_ms = time_ms(lambda: attention_tail(*tail_args), 500)
-    tail_dev_ms = device_ms(lambda: attention_tail(*tail_args), 100,
-                            "attention_tail_kernel")
-    tail_plain_ms = time_ms(lambda: attention_tail_reference(*tail_args), 100)
+    with torch.no_grad():
+        tail_ms = time_ms(lambda: attention_tail(*tail_args), 500)
+        tail_graph_ms = graph_ms(lambda: attention_tail(*tail_args), 20)
+        tail_prof_ms = device_ms(lambda: attention_tail(*tail_args), 100,
+                                 "attention_tail_kernel")
+        tail_plain_ms = time_ms(lambda: attention_tail_reference(*tail_args),
+                                100)
+    tail_plan_main = tail_plan(b, t_enc, a, e, tail_args[5].dtype)
     tail_bound = bound(
         qsum.numel() * qsum.element_size() + memory.numel() * 4
         + b * t_enc * (1 + 4) + a * 4 + b * e * 4,
@@ -1873,14 +1916,15 @@ def main() -> int:
           f"(weights {wbytes / 1e6:.1f} MB, re-read every step: "
           f"{n_steps * wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
     kernels = [
-        dict(name="attention_tail", route="triton",
-             source="tacotron2_torch/csrc/attention_tail.py",
+        dict(name="attention_tail", route="cuda",
+             source="tacotron2_torch/csrc/attention_tail.cu",
              replaces="tacotron2_tpu/ops/attention_kernel.py:166",
              launches=launches[False][1], max_abs_err=main_tail_err,
              sweep_max_abs_err=tail_err,
              ms=tail_ms, plain_ms=tail_plain_ms, bound_ms=tail_bound[0],
              bound_by=tail_bound[1], library_ms=None,
-             device_ms=tail_dev_ms,
+             device_ms=tail_graph_ms, profiler_device_ms=tail_prof_ms,
+             plan=tail_plan_main._asdict(),
              shape=f"B={b} T_enc={t_enc} A={a} D={e} qsum {str(cdt)[6:]}"),
         dict(name="decoder_infer_mega", route="cuda",
              source="tacotron2_torch/csrc/decoder_infer.cu",
@@ -1910,7 +1954,9 @@ def main() -> int:
     # 8, 9. the training kernels against their plain versions
     sweep = train_kernel_phases(dev, base, cfg)
     # 10. the training main path
-    kernels[0]["train_path_launches"], train_kernels = train_main_path(dev)
+    ((kernels[0]["train_path_launches"],
+      kernels[0]["train_path_max_abs_err"]),
+     train_kernels) = train_main_path(dev)
     train_kernels[0]["sweep_max_abs_err"] = sweep["fwd"]
     train_kernels[1]["sweep_max_abs_err"] = sweep["bwd"]
     kernels += train_kernels + [conv_kernel]

@@ -95,7 +95,7 @@ class ModelConfig:
     # (ops/decoder_megakernel.py) when serving, the teacher-forced forward
     # and reverse-chain kernels (ops/decoder_train_kernel.py,
     # ops/decoder_bwd_kernel.py) when training.  False runs the step loops,
-    # whose attention tail is the Triton kernel (ops/attention_kernel.py).
+    # whose attention tail is a CUDA kernel (ops/attention_kernel.py).
     decoder_megakernel: bool = True
 
     # Serve the encoder's and the postnet's conv layers through the fused

@@ -6,7 +6,7 @@ head, with dropout on the prenet and on both LSTM hidden states when
 training.  :func:`decoder_infer` is the gate-stopped autoregressive decode;
 on CUDA tensors with ``cfg.decoder_megakernel`` it runs as one persistent
 kernel (``ops/decoder_megakernel.py``), otherwise as the step loop here,
-whose attention tail is the Triton kernel.  :func:`decoder_teacher_forced`
+whose attention tail is a CUDA kernel.  :func:`decoder_teacher_forced`
 is the training forward: all frames through the prenet at once, then
 ``ops/decoder_bptt.py::decoder_scan_bptt``.
 """

@@ -15,7 +15,7 @@ differentiated by hand, split into its two structurally different parts:
 :func:`decoder_scan_bptt` is a ``torch.autograd.Function`` around the pair.
 On CUDA tensors with ``cfg.decoder_megakernel`` both halves run as the
 persistent CUDA kernels; otherwise the forward is the step loop of
-``decoder_fwd_train_reference`` with the Triton ``attention_tail`` and the
+``decoder_fwd_train_reference`` with the CUDA ``attention_tail`` and the
 reverse chain is the plain loop; on CPU tensors always the plain versions.
 The residuals are those of the JAX package's kernel route: the hidden
 states after dropout in the compute dtype, the fp32 cell states, the

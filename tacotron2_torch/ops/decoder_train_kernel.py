@@ -125,7 +125,7 @@ def decoder_fwd_train_reference(
         tail: Callable = attention_tail_reference) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version: a loop over the steps with the kernel's
     arithmetic and roundings.  ``tail`` maps the rounded qsum to (attn,
-    ctx); the step-loop route passes the Triton ``attention_tail``.
+    ctx); the step-loop route passes the CUDA ``attention_tail``.
 
     ``ops`` from :func:`kernel_operands`; ``prenet_tbd`` (T, B, P);
     ``memory`` (B, T_enc, E); ``pm`` (B, T_enc, A); ``mask`` (B, T_enc)

@@ -2,8 +2,9 @@
 
 On the CPU the port's ``attention_tail`` takes its plain version; it is
 held against JAX's plain ``attention_tail_reference`` and against the
-Pallas kernel, which runs in interpret mode on the CPU.  The Triton kernel
-against the plain version is in ``test_torch_kernels.py``.
+Pallas kernel, which runs in interpret mode on the CPU.  The CUDA kernel
+against the plain version is in ``test_torch_kernels.py``; its launch plan
+and its split order are in ``test_torch_tail_plan.py``.
 """
 
 import numpy as np

@@ -1,6 +1,6 @@
 """The port's kernels against their plain versions, without JAX.
 
-The tests marked ``cuda`` launch the Triton ``attention_tail`` and the CUDA
+The tests marked ``cuda`` launch the CUDA ``attention_tail``,
 ``decoder_infer_mega``, ``decoder_fwd_train_mega``,
 ``decoder_bwd_chain_mega`` and ``conv_bn_act``; they skip where there is no
 card.  This file
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tacotron2_torch.config import ModelConfig
+from tacotron2_torch.models.decoder import decoder_infer_steps
 from tacotron2_torch.models.encoder import encoder_apply
 from tacotron2_torch.models.layers import BatchNorm, Conv1d
 from tacotron2_torch.models.postnet import postnet_apply
@@ -31,8 +32,10 @@ from tacotron2_torch.ops import _build
 from tacotron2_torch.ops.convbn_kernel import (_launch, conv_bn_act,
                                                conv_bn_act_reference,
                                                folded_weights)
-from tacotron2_torch.ops.attention_kernel import (attention_tail,
-                                                  attention_tail_reference)
+from tacotron2_torch.ops.attention_kernel import (_lib as _tail_lib,
+                                                  attention_tail,
+                                                  attention_tail_reference,
+                                                  tail_plan)
 from tacotron2_torch.ops.decoder_bptt import core_params, decoder_scan_bptt
 from tacotron2_torch.ops.decoder_bwd_kernel import (
     _Args, _lib, chain_plan, decoder_bwd_chain_mega,
@@ -146,10 +149,19 @@ def test_weight_bytes_full_width():
     assert 36.3e6 < bf16 < 36.5e6
 
 
+# chip_smoke.py's TAIL_TOL: fp32 sums in another order over <= 600 positions
+TAIL_TOL = 1e-5
+# tools/attention_tail_probe.py's five shapes, then B=1 and B=64 at others
+TAIL_SHAPES = [(torch.bfloat16, 1, 32), (torch.bfloat16, 4, 112),
+               (torch.float32, 16, 128), (torch.bfloat16, 64, 200),
+               (torch.float32, 4, 600), (torch.float32, 1, 37),
+               (torch.bfloat16, 1, 1000), (torch.float32, 64, 7),
+               (torch.bfloat16, 64, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t", [(1, 37), (3, 128), (5, 200)])
-def test_triton_tail_matches_plain(dtype, b, t):
+@pytest.mark.parametrize("dtype,b,t", TAIL_SHAPES)
+def test_cuda_tail_matches_plain(dtype, b, t):
     dev = cuda_device()
     ins = tail_inputs(b, t, 128, 512, seed=b + t, device=dev, dtype=dtype)
     before = attention_tail.launches
@@ -158,7 +170,93 @@ def test_triton_tail_matches_plain(dtype, b, t):
     torch.cuda.synchronize()
     assert attention_tail.launches == before + 1
     for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+        torch.testing.assert_close(g, r, atol=TAIL_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tail_padded_chunk_and_row(dtype):
+    """Item 1's last block holds padding only; item 2 is padded all
+    through, so its attention is uniform, as the reference's."""
+    dev = cuda_device()
+    b, t = 3, 128
+    ins = list(tail_inputs(b, t, 128, 512, seed=3, device=dev, dtype=dtype))
+    plan = tail_plan(b, t, 128, 512, torch.float32)
+    assert plan.split > 1
+    lens = torch.tensor([t, (plan.split - 1) * plan.rows, 0])
+    ins[4] = make_pad_mask(lens, t).to(dev)
+    got = attention_tail(*ins)
+    ref = attention_tail_reference(*ins)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=TAIL_TOL, rtol=0)
+    assert torch.all(got[0][1, lens[1]:] == 0.0)
+    torch.testing.assert_close(got[0][2], torch.full((t,), 1.0 / t,
+                                                     device=dev),
+                               atol=1e-7, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tail_is_repeatable(dtype):
+    """No atomics: two launches give the same bits (several tiles a
+    block at T_enc=1000)."""
+    dev = cuda_device()
+    ins = tail_inputs(16, 1000, 128, 512, seed=8, device=dev, dtype=dtype)
+    first = attention_tail(*ins)
+    second = attention_tail(*ins)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mem_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 7, 112, 600, 1000])
+def test_cuda_tail_plan_matches_the_kernel(t, mem_dtype):
+    """The plan's shared memory is the kernel's own layout's."""
+    cuda_device()
+    plan = tail_plan(4, t, 128, 512, mem_dtype)
+    assert _tail_lib().t2_attention_tail_smem(
+        512, plan.split, plan.rows, plan.tile_rows,
+        int(mem_dtype == torch.bfloat16)) == plan.smem_bytes
+
+
+@pytest.mark.cuda
+def test_cuda_tail_refuses():
+    """What the kernel cannot take raises, and nothing is launched."""
+    dev = cuda_device()
+    ins = tail_inputs(2, 9, 16, 24, seed=0, device=dev)
+    before = attention_tail.launches
+    with pytest.raises(TypeError, match="dtypes"):
+        attention_tail(ins[0].half(), *ins[1:])
+    with pytest.raises(TypeError, match="dtypes"):
+        attention_tail(*ins[:4], ins[4].to(torch.uint8), ins[5])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        attention_tail(*ins[:5], ins[5][..., :20].contiguous().to(
+            torch.bfloat16))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        attention_tail(*ins[:5], ins[5][:, :8].contiguous())
+    with pytest.raises(ValueError, match="different devices"):
+        attention_tail(*ins[:5], ins[5].cpu())
+    assert attention_tail.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_step_loop_with_the_tail(dtype):
+    """The step loop with the kernel's tail against the plain loop:
+    the same frame_ends, the outputs within the decode's limits."""
+    dec, memory, mask = small_decoder(cuda_device(), dtype)
+    args = (dec, memory, MAX, 0.5, True, mask, "all", 9)
+    before = attention_tail.launches
+    with torch.no_grad():
+        got = decoder_infer_steps(*args, tail=attention_tail)
+        ref = decoder_infer_steps(*args, tail=attention_tail_reference)
+    torch.cuda.synchronize()
+    assert attention_tail.launches > before
+    assert torch.equal(got[4], ref[4]) and int(got[3]) == int(ref[3])
+    for name, g, r in zip(DEC_OUTPUTS, got[:3], ref[:3]):
+        torch.testing.assert_close(g, r, atol=DEC_TOL[dtype][name], rtol=0)
 
 
 @pytest.mark.cuda
@@ -552,7 +650,7 @@ def test_cuda_train_backward_full_width_matches_plain(b):
 @pytest.mark.parametrize("megakernel", [True, False])
 def test_cuda_scan_bptt_routes(megakernel):
     """On CUDA tensors ``decoder_scan_bptt`` launches the pair when the
-    config asks for it, else neither (the step loop launches the Triton
+    config asks for it, else neither (the step loop launches the attention
     tail); both routes give the same gradients (fp32, 1e-4 relative)."""
     dev = cuda_device()
     dec, args, _ = train_inputs(dev)
