@@ -108,8 +108,33 @@ it fails:
     (cuDNN, TF32 off) route for the whole request (``frame_ends`` and
     mels).
 
-Phases 11-13 run after phase 7, before the training phases.  The
-``kernels`` line has five entries.  The last line is
+14. trained weights: ``checkpoints/r4_synth_bf16`` read by
+    ``load_model`` without JAX (the zstd decompressor it used and the
+    load's time printed), cast to bf16; the four sentences of
+    ``TRAINED_FRAME_ENDS`` decoded one at a time, ``max_steps=256``, by
+    ``decoder_infer_mega`` and by the plain step loop, with no forced stop
+    and no gate offset: the gate fires by itself in both, within
+    ``STOP_SLACK`` frames of the JAX package's stop and of each other, the
+    mels and alignments over the shared frames within ``DEC_TOL`` /
+    ``DEC_ALIGN_SHARE``, and the alignment's argmax path ends within
+    ``STOP_SLACK`` of the last token; wall time and real-time factor per
+    sentence; one ``synthesize(text, checkpoint directory)`` to a WAV;
+15. the training loop: a corpus of 24 + 8 utterances written here from
+    a seed (``data/synth_corpus.py``), ``train()`` at the full
+    ``ModelConfig()`` width in bf16 over fp32 masters, batch 8, for two
+    epochs with validation and ``save_every_steps=2``; then one epoch,
+    and a resume from ``tacotron2_epoch_1`` for the second, which must end
+    equal to the unbroken run bit for bit (weights, BatchNorm statistics,
+    moments, counters, the dropout generator); the launches of the
+    teacher-forced forward and the reverse chain equal the steps, and
+    validation launches the attention tail; ``best_model`` is a full
+    checkpoint; a resume from ``checkpoints/r4_synth_bf16`` starts at epoch
+    0 with fresh moments and finite losses; then the mean step time
+    (``StepTimer``), one step's device busy share and a full checkpoint's
+    save and restore times.
+
+Phases 11-14 run after phase 7, before the training phases, and phase 15
+after phase 10.  The ``kernels`` line has five entries.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``tacotron2_tpu``, and reads no weights file from the repository.
 """
@@ -211,6 +236,30 @@ SMOKE_TEXTS = {
         6, 69, 67, 11, 53, 18, 42, 4, 41, 54, 37, 6, 44, 69, 65, 7, 32, 69,
         54, 35, 45, 67],
 }
+# phase 14: the trained checkpoint and the gate stops the JAX package
+# gives on it for SMOKE_TEXTS (bf16 serving cast, one sentence at a time,
+# max_steps 256; tests/test_torch_synth.py::SMOKE_FRAME_ENDS pins the same)
+TRAINED_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "checkpoints", "r4_synth_bf16")
+TRAINED_FRAME_ENDS = {"The quick brown fox.": 131,
+                      "Speech synthesis on one card.": 220,
+                      "It costs 42 dollars.": 174,
+                      "A zorblaxian wug sings.": 171}
+TRAINED_MAX_STEPS = 256
+STOP_SLACK = 3          # frames: stops against the pin and each other, and
+#                         the alignment path's end against the last token
+# bf16 decodes on trained weights: the kernel and the step loop round in
+# other places, and sharp attention carries a rounding on, so they part
+# by far more than DEC_TOL while they stop at the same frame and align
+# alike.  The plain loop run on the card and on the CPU parts as far
+# (tools/trained_decode_gap.py on an H100: mel max 1.48 vs the kernel's
+# 2.13 over the first sentence; mean 2.8e-2 vs 4.4e-2).  bf16 is held to
+# the limits tests/test_torch_synth.py::test_smoke_sentences_full_width
+# sets two bf16 decodes of this checkpoint (the port's and the JAX
+# package's), here on the decoder's mels: the largest difference over the
+# first ten frames and the mean difference.  fp32 is held to DEC_TOL.
+TRAINED_FIRST_TOL = 0.2
+TRAINED_MEAN_TOL = 0.1
 SPEAK_BUCKET = 256      # what 17-25 tokens pick: 7 frames a token + 40
 SPEAK_FORCED_STOP = 200  # inside that bucket
 MAX_STEPS = 400
@@ -1584,6 +1633,300 @@ def text_to_pcm_main_path(dev, base, mels_requests):
                             speak_path_max_abs_err=speak_dec_err)
 
 
+def trained_weights_phase(dev, smi: str):
+    """Phase 14.  ``checkpoints/r4_synth_bf16`` read by ``load_model`` (no
+    JAX); each sentence of ``TRAINED_FRAME_ENDS`` decoded alone by the
+    decode kernel and by the plain step loop (whose attention tail is the
+    kernel), with no forced stop, in fp32 as loaded and in bf16 as the
+    smoke serves; then one ``synthesize`` to a WAV.  Returns the
+    kernels-line additions of the decode kernel and the attention tail's
+    launches."""
+    from tacotron2_torch.config import AudioConfig
+    from tacotron2_torch.dsp.wav import load_audio
+    from tacotron2_torch.infer.synthesize import (load_model, synthesize,
+                                                  synthesize_mels)
+    from tacotron2_torch.models.decoder import decoder_infer_steps
+    from tacotron2_torch.models.encoder import encoder_apply
+    from tacotron2_torch.models.tacotron2 import (
+        _condition_memory, cast_params_bf16, make_pad_mask)
+    from tacotron2_torch.ops.attention_kernel import attention_tail
+    from tacotron2_torch.ops.decoder_megakernel import decoder_infer_mega
+    from tacotron2_torch.text import pad_sequences, text_to_sequence
+    import tacotron2_torch.utils.orbax_reader as reader
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model32 = load_model(TRAINED_CKPT, device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t1) * 1e3
+    model = cast_params_bf16(model32)
+    cfg = model.cfg
+    print(f"[trained] load_model({os.path.relpath(TRAINED_CKPT)}) without "
+          f"JAX: {load_ms:.1f} ms, zstd by {reader.DECOMPRESSOR} "
+          f"({smi})", flush=True)
+    decoder_infer_mega.launches = 0
+    attention_tail.launches = 0
+    worst = 0.0
+    for m in (model32, model):
+        dec = m.decoder
+        cdt = dec.attention_lstm.weight_ih.dtype
+        for text, want in TRAINED_FRAME_ENDS.items():
+            tokens, lengths = pad_sequences([text_to_sequence(text)],
+                                            pad_multiple=16)
+            n_tok = int(lengths[0])
+            with torch.no_grad():
+                tok = torch.from_numpy(tokens).long().to(dev)
+                memory = _condition_memory(
+                    m, encoder_apply(m.encoder, tok), None)
+                mask = make_pad_mask(torch.from_numpy(lengths).to(dev),
+                                     tok.shape[1])
+                args = (dec, memory, TRAINED_MAX_STEPS, cfg.gate_threshold,
+                        True, mask, "any", None)
+                runs = {"kernel": decoder_infer_mega(*args),
+                        "step loop": decoder_infer_steps(*args)}
+            torch.cuda.synchronize()
+            where = f"trained {str(cdt)[6:]} {text!r}"
+            stops, paths = {}, {}
+            for path, out in runs.items():
+                n = int(out[3])
+                stops[path] = n
+                paths[path] = out[2][0, :n].float().argmax(-1)
+                check(n < TRAINED_MAX_STEPS and int(out[4][0]) == n,
+                      f"{where} {path}: the gate did not fire ({n} frames, "
+                      f"frame_ends {out[4].tolist()})")
+                check(abs(n - want) <= STOP_SLACK,
+                      f"{where} {path}: stop at {n}, pinned {want}")
+                check(int(paths[path][-1]) >= n_tok - 1 - STOP_SLACK,
+                      f"{where} {path}: the alignment ends at token "
+                      f"{int(paths[path][-1])} of {n_tok}")
+            k = min(stops.values())
+            check(max(stops.values()) - k <= STOP_SLACK,
+                  f"{where}: stops {stops} differ")
+            got, ref = runs["kernel"], runs["step loop"]
+            diff = (got[0][0, :k] - ref[0][0, :k]).abs()
+            gate_err = float((got[1][0, :k] - ref[1][0, :k]).abs().max())
+            al_err = float((got[2][0, :k] - ref[2][0, :k]).abs().max())
+            path_gap = int((paths["kernel"][:k]
+                            - paths["step loop"][:k]).abs().max())
+            line = (f"[{where}] gate stops: kernel {stops['kernel']}, step "
+                    f"loop {stops['step loop']} (pinned {want}); alignment "
+                    f"ends at token {int(paths['kernel'][-1])} / "
+                    f"{int(paths['step loop'][-1])} of {n_tok}, paths "
+                    f"{path_gap} apart; over {k} shared frames mels max "
+                    f"{float(diff.max()):.3e} (first ten frames "
+                    f"{float(diff[:10].max()):.3e}, mean "
+                    f"{float(diff.mean()):.3e}), gates {gate_err:.3e}, "
+                    f"alignments {al_err:.3e}")
+            if cdt == torch.float32:
+                al_tol = DEC_ALIGN_SHARE[cdt] * float(
+                    ref[2][0, :k].abs().mean())
+                tol = dict(mels=DEC_TOL[cdt]["mels"],
+                           gates=DEC_TOL[cdt]["gates"], aligns=al_tol)
+                print(line + f" (tol {tol})", flush=True)
+                for name, err in (("mels", float(diff.max())),
+                                  ("gates", gate_err), ("aligns", al_err)):
+                    check(err <= tol[name],
+                          f"{where}: {name} differ by {err}")
+                worst = max(worst, float(diff.max()))
+            else:
+                print(line + f" (tol first ten {TRAINED_FIRST_TOL}, mean "
+                      f"{TRAINED_MEAN_TOL}, paths {STOP_SLACK})", flush=True)
+                check(float(diff[:10].max()) <= TRAINED_FIRST_TOL
+                      and float(diff.mean()) <= TRAINED_MEAN_TOL
+                      and path_gap <= STOP_SLACK,
+                      f"{where}: the decodes part beyond the limits")
+    launches = (decoder_infer_mega.launches, attention_tail.launches)
+    check(launches[0] == 2 * len(TRAINED_FRAME_ENDS) and launches[1] > 0,
+          f"phase 14 launched decoder_infer_mega, attention_tail {launches}")
+
+    # text -> mels a sentence, on the host clock, each after a warm-up run
+    hop, sr = AudioConfig().hop_length, AudioConfig().sampling_rate
+    for text in TRAINED_FRAME_ENDS:
+        synthesize_mels(model, [text], max_steps=TRAINED_MAX_STEPS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mels, _ = synthesize_mels(model, [text], max_steps=TRAINED_MAX_STEPS)
+        wall = time.perf_counter() - t1
+        audio_s = mels[0].shape[0] * hop / sr
+        print(f"[trained text->mels] {text!r}: {mels[0].shape[0]} frames in "
+              f"{wall * 1e3:.2f} ms wall, real-time factor "
+              f"{wall / audio_s:.4f} (bf16, decode kernel; {smi})",
+              flush=True)
+
+    # one WAV through the entry point, from the checkpoint directory
+    text = next(iter(TRAINED_FRAME_ENDS))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path = synthesize(text, TRAINED_CKPT, tmp)
+        wall = time.perf_counter() - t1
+        wav, rate = load_audio(path)
+    frames = len(wav) // hop
+    check(rate == sr and len(wav) % hop == 0
+          and abs(frames - TRAINED_FRAME_ENDS[text]) <= STOP_SLACK
+          and bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 0,
+          f"synthesize wrote {len(wav)} samples at {rate} Hz")
+    print(f"[trained synthesize] {text!r} -> {os.path.basename(path)}: "
+          f"{frames} frames ({len(wav)} samples), {wall * 1e3:.1f} ms wall "
+          f"with the checkpoint's load, real-time factor "
+          f"{wall / (len(wav) / sr):.4f} (fp32 as load_model serves; {smi})",
+          flush=True)
+    del model, model32
+    return {"trained_path_launches": launches[0],
+            "trained_fp32_max_abs_err": worst}, launches[1]
+
+
+def training_loop_phase(dev, smi: str):
+    """Phase 15.  ``train()`` at the full ``ModelConfig()`` width (bf16 over
+    fp32 masters, batch 8) on a corpus written here: two epochs with
+    validation; one epoch, then a resume from its epoch checkpoint for the
+    second; then a resume from ``checkpoints/r4_synth_bf16``.  Returns the
+    launches of attention_tail, decoder_fwd_train_mega and
+    decoder_bwd_chain_mega in the first run."""
+    import shutil
+
+    from tacotron2_torch.config import Config, TrainConfig
+    from tacotron2_torch.data.dataset import BatchLoader, TextMelDataset
+    from tacotron2_torch.data.synth_corpus import write_corpus
+    from tacotron2_torch.ops.attention_kernel import attention_tail
+    from tacotron2_torch.ops.decoder_bwd_kernel import decoder_bwd_chain_mega
+    from tacotron2_torch.ops.decoder_train_kernel import decoder_fwd_train_mega
+    from tacotron2_torch.train import loop
+    from tacotron2_torch.train.checkpoint import (checkpoint_kind,
+                                                  restore_checkpoint,
+                                                  save_checkpoint)
+    from tacotron2_torch.train.optim import make_optimizer
+    from tacotron2_torch.train.state import create_train_state
+    from tacotron2_torch.utils.profiling import StepTimer
+
+    tmp = tempfile.mkdtemp()
+    try:
+        t1 = time.perf_counter()
+        train_csv, val_csv = write_corpus(os.path.join(tmp, "corpus"), 32,
+                                          seed=SEED, n_val=8, device=dev)
+        print(f"[loop] corpus of 24 + 8 utterances written in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        cfg = Config(train=TrainConfig(batch_size=8, save_every_steps=2))
+        check(cfg.train.precision == "bfloat16", "precision is not bf16")
+
+        # every train_step the loop takes: its total loss and the timer
+        timer = StepTimer(device=dev)
+        losses, step_ms = [], []
+        plain_step = loop.train_step
+
+        def recorded_step(*a, **k):
+            t2 = time.perf_counter()
+            out = plain_step(*a, **k)
+            losses.append(float(out[1].total))     # waits for the card
+            step_ms.append((time.perf_counter() - t2) * 1e3)
+            timer.tick()
+            return out
+
+        loop.train_step = recorded_step
+
+        def run(name, **kw):
+            nonlocal timer
+            losses.clear()
+            step_ms.clear()
+            timer = StepTimer(device=dev)
+            t2 = time.perf_counter()
+            state = loop.train(train_csv, os.path.join(tmp, name), cfg=cfg,
+                               val_metadata=val_csv, **kw)
+            print(f"[loop] {name}: {kw}: {state.step} steps, loss_step "
+                  f"{state.loss_step}, {time.perf_counter() - t2:.1f} s wall,"
+                  f" losses {[round(x, 4) for x in losses]}", flush=True)
+            check(all(np.isfinite(losses)), f"{name}: non-finite loss")
+            return state
+
+        try:
+            decoder_fwd_train_mega.launches = 0
+            decoder_bwd_chain_mega.launches = 0
+            attention_tail.launches = 0
+            whole = run("unbroken", epochs=2)
+            counts = (attention_tail.launches, decoder_fwd_train_mega.launches,
+                      decoder_bwd_chain_mega.launches)
+            print(f"[loop] launches attention_tail={counts[0]} "
+                  f"decoder_fwd_train_mega={counts[1]} "
+                  f"decoder_bwd_chain_mega={counts[2]} over {whole.step} "
+                  f"steps and two validations", flush=True)
+            check(counts[1] == counts[2] == whole.step == 6 and counts[0] > 0,
+                  f"phase 15 launches {counts} over {whole.step} steps")
+            best = os.path.join(tmp, "unbroken", "best_model")
+            check(checkpoint_kind(best) == "full",
+                  f"best_model is {checkpoint_kind(best)}")
+            # step to step, as the loop's own timer reads it: the cadence
+            # saves (every second step and at each epoch's end) included
+            mean_step_ms = timer.mean_step_time * 1e3
+            call_ms = sorted(step_ms)
+
+            run("resumed", epochs=1)
+            resumed = run("resumed", epochs=2, resume=os.path.join(
+                tmp, "resumed", "tacotron2_epoch_1"))
+            same = {
+                "weights and statistics": all(
+                    torch.equal(a, b) for a, b in zip(
+                        whole.model.state_dict().values(),
+                        resumed.model.state_dict().values())),
+                "moments": all(
+                    torch.equal(whole.opt_state[m][n], resumed.opt_state[m][n])
+                    for m in ("mu", "nu") for n in whole.opt_state[m]),
+                "counters": (whole.step, whole.loss_step,
+                             whole.opt_state["count"]) == (
+                    resumed.step, resumed.loss_step,
+                    resumed.opt_state["count"]),
+                "dropout generator": torch.equal(
+                    whole.generator.get_state(),
+                    resumed.generator.get_state())}
+            print(f"[loop] two epochs unbroken vs one + resumed one, bit for "
+                  f"bit: {same}", flush=True)
+            check(all(same.values()), f"resumed run differs: {same}")
+
+            from_jax = run("from_r4", epochs=1, resume=TRAINED_CKPT)
+            check(from_jax.step == 3 and from_jax.opt_state["count"] == 3,
+                  f"resume from the Orbax checkpoint took {from_jax.step} "
+                  "steps: it did not start at epoch 0 with fresh moments")
+        finally:
+            loop.train_step = plain_step
+
+        # one step under the profiler, and a checkpoint's save and restore
+        state = whole
+        batch = next(iter(BatchLoader(TextMelDataset(train_csv), 8,
+                                      seed=SEED)))
+        tx = make_optimizer(cfg.train)
+        warm = cfg.guided_attention.sigma_warmup_steps
+
+        def step():
+            return plain_step(state, batch, cfg=cfg, tx=tx, use_postnet=True,
+                              sigma_warmup_steps=warm)
+
+        step()
+        _, wall_ms, _, busy_ms = profile_step(step)
+        path = os.path.join(tmp, "timed")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        save_checkpoint(path, state, 2, 1.0)
+        save_ms = (time.perf_counter() - t1) * 1e3
+        template = create_train_state(cfg, seed=SEED + 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        restore_checkpoint(path, template)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t1) * 1e3
+        mb = os.path.getsize(os.path.join(path, "train_state.pt")) / 1e6
+        print(f"[loop] mean step (StepTimer over the unbroken run, saves "
+              f"included, B=8): {mean_step_ms:.1f} ms; train_step calls "
+              f"alone {[round(x, 1) for x in call_ms]} ms; one step "
+              f"(T_dec={batch['mel'].shape[2]})"
+              f" under the profiler: wall "
+              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (busy share "
+              f"{busy_ms / wall_ms:.3f}); full checkpoint of {mb:.1f} MB: "
+              f"save {save_ms:.1f} ms, restore {restore_ms:.1f} ms ({smi})",
+              flush=True)
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels run "
@@ -1918,7 +2261,7 @@ def main() -> int:
     kernels = [
         dict(name="attention_tail", route="cuda",
              source="tacotron2_torch/csrc/attention_tail.cu",
-             replaces="tacotron2_tpu/ops/attention_kernel.py:166",
+             replaces="tacotron2_tpu/ops/attention_kernel.py:167",
              launches=launches[False][1], max_abs_err=main_tail_err,
              sweep_max_abs_err=tail_err,
              ms=tail_ms, plain_ms=tail_plain_ms, bound_ms=tail_bound[0],
@@ -1950,6 +2293,10 @@ def main() -> int:
     kernels[1].update(speak_decode)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
                                     speak_decode["speak_path_max_abs_err"])
+    # 14. trained weights
+    trained, kernels[0]["trained_path_launches"] = trained_weights_phase(
+        dev, smi)
+    kernels[1].update(trained)
 
     # 8, 9. the training kernels against their plain versions
     sweep = train_kernel_phases(dev, base, cfg)
@@ -1959,6 +2306,9 @@ def main() -> int:
      train_kernels) = train_main_path(dev)
     train_kernels[0]["sweep_max_abs_err"] = sweep["fwd"]
     train_kernels[1]["sweep_max_abs_err"] = sweep["bwd"]
+    # 15. the training loop
+    (kernels[0]["loop_launches"], train_kernels[0]["loop_launches"],
+     train_kernels[1]["loop_launches"]) = training_loop_phase(dev, smi)
     kernels += train_kernels + [conv_kernel]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -40,27 +40,28 @@ def print_mel_stats(mel, tag: str) -> None:
 
 def load_model(checkpoint_path: str, cfg: Optional[Config] = None,
                device: Device = "cuda") -> Tacotron2:
-    """Load a model on ``device`` from the port's weights file: the model's
-    ``state_dict`` written by ``torch.save`` (parameters and BatchNorm
-    statistics; ``tools/export_torch_weights.py`` writes one from a
-    checkpoint of the JAX package).  Every floating tensor is upcast to fp32
-    on load, as the JAX package restores a bf16 checkpoint into its fp32
-    template (``tacotron2_tpu/train/checkpoint.py::restore_params_only``):
-    the model serves in fp32.  For bf16 serving cast it with
+    """Load a model on ``device`` from a checkpoint: an Orbax checkpoint
+    directory of the JAX package (params-only or full; read without JAX by
+    ``utils/orbax_reader.py`` and mapped by ``utils/weights.py::
+    load_jax_params``), a directory the port's trainer wrote
+    (``train/checkpoint.py``), or the port's weights file (the model's
+    ``state_dict`` written by ``torch.save``; ``tools/export_torch_weights.py``
+    writes one from a checkpoint of the JAX package).  Every floating
+    tensor is upcast to fp32 on load, as the JAX package restores a bf16
+    checkpoint into its fp32 template
+    (``tacotron2_tpu/train/checkpoint.py::restore_params_only``): the model
+    serves in fp32.  For bf16 serving cast it with
     ``models/tacotron2.py::cast_params_bf16``.
 
-    ``cfg`` must match the file's architecture (a multi-speaker file needs
-    ``cfg.model.n_speakers`` set).  An Orbax checkpoint directory of the
-    JAX package cannot be read here: export it first."""
+    ``cfg`` must match the checkpoint's architecture (a multi-speaker
+    checkpoint needs ``cfg.model.n_speakers`` set to its table's rows)."""
     cfg = cfg or Config()
     device = resolve_device(device)
     if not os.path.exists(checkpoint_path):
         raise FileNotFoundError(f"checkpoint not found: {checkpoint_path}")
     if os.path.isdir(checkpoint_path):
-        raise ValueError(
-            f"{checkpoint_path!r} is a directory: the port reads a weights "
-            "file written by torch.save, not an Orbax checkpoint of the JAX "
-            "package; export one with tools/export_torch_weights.py")
+        from ..train.checkpoint import load_weights
+        return load_weights(checkpoint_path, Tacotron2(cfg.model)).to(device)
     sd = torch.load(checkpoint_path, weights_only=True, map_location=device)
     sd = {k: v.float() if v.is_floating_point() else v for k, v in sd.items()}
     model = Tacotron2(cfg.model)

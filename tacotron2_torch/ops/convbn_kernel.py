@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from ..models.layers import BatchNorm, Conv1d
 from . import _build
+from .routes import refuse
 
 ACTS = {"none": 0, "relu": 1, "tanh": 2}
 TILE = 64          # output channels (and time steps) of the kernel's tile
@@ -219,6 +220,26 @@ def conv_bn_act_reference(x: torch.Tensor, conv: Conv1d, bn: BatchNorm,
     return _activate(y + h, act).transpose(1, 2)
 
 
+def conv_kernel_takes(conv: Conv1d) -> bool:
+    """Does the kernel take this layer?  It takes odd kernel sizes ('same'
+    padding) up to ``MAX_TAPS_BF16`` taps with bf16 weights and
+    ``MAX_TAPS`` with fp32 weights; for other layers the encoder and the
+    postnet run the unfused conv, BatchNorm and activation, as the JAX
+    package runs XLA's conv, with a notice once.  Weights of a dtype other
+    than a float raise."""
+    wdtype = conv.weight.dtype
+    if not wdtype.is_floating_point:
+        raise TypeError(f"conv_bn_act: weight dtype {wdtype}")
+    if wdtype not in (torch.float32, torch.bfloat16):
+        return refuse("conv_bn_act", f"{wdtype} weights")
+    k = conv.weight.shape[2]
+    max_k = MAX_TAPS_BF16 if wdtype == torch.bfloat16 else MAX_TAPS
+    if k % 2 == 0 or k > max_k:
+        return refuse("conv_bn_act", f"a kernel size of {k} with {wdtype} "
+                      f"weights (odd sizes up to {max_k} only)")
+    return True
+
+
 @torch.no_grad()
 def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
                 act: str) -> torch.Tensor:
@@ -228,7 +249,8 @@ def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
     raise): one launch a call once the layer's fold is made.  Odd kernel
-    sizes only ('same' padding).  ``conv_bn_act.launches`` counts
+    sizes only ('same' padding); the callers route other layers
+    (:func:`conv_kernel_takes`).  ``conv_bn_act.launches`` counts
     launches."""
     if x.device.type == "cpu":
         return conv_bn_act_reference(x, conv, bn, eps, act)

@@ -178,6 +178,21 @@ class ChainPlan(NamedTuple):
     smem_bytes: int        # dynamic shared memory of a block
 
 
+def chain_smem_bytes(a: int, taps: int) -> int:
+    """A block's dynamic shared memory at attention width ``a`` and a
+    location conv of ``taps`` taps: phase C2's partials, C3's staged rows
+    and location matrix (as fp32), the products' ring; one region, used in
+    turn."""
+    return max(4 * (2 * _POSITIONS_PER_BLOCK * a + 2 * _POSITIONS_PER_BLOCK),
+               4 * (_POSITIONS_PER_BLOCK + 3 * taps - 1) * a,
+               _PRODUCT_SMEM_BYTES)
+
+
+def chain_fits(a: int, taps: int) -> bool:
+    """Whether two blocks of the reverse chain fit an SM at these widths."""
+    return chain_smem_bytes(a, taps) <= _SMEM_PER_BLOCK
+
+
 def chain_plan(dims: Dict[str, int], b: int, t_enc: int, taps: int,
                cdt: torch.dtype) -> ChainPlan:
     """The plan of one launch at widths ``dims`` (H, P, E, A, M), batch
@@ -190,11 +205,7 @@ def chain_plan(dims: Dict[str, int], b: int, t_enc: int, taps: int,
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decoder_bwd_chain_mega: weight dtype {cdt}")
     h, a, m = dims["H"], dims["A"], dims["M"]
-    # phase C2's partials, C3's staged rows and location matrix (as fp32),
-    # the products' ring: one region, used in turn
-    smem = max(4 * (2 * _POSITIONS_PER_BLOCK * a + 2 * _POSITIONS_PER_BLOCK),
-               4 * (_POSITIONS_PER_BLOCK + 3 * taps - 1) * a,
-               _PRODUCT_SMEM_BYTES)
+    smem = chain_smem_bytes(a, taps)
     if smem > _SMEM_PER_BLOCK:
         raise ValueError(f"decoder_bwd_chain_mega: {smem} bytes of shared "
                          "memory a block leave no room for two an SM")

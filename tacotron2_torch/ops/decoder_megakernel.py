@@ -21,6 +21,7 @@ import torch
 
 from ..models.decoder import Decoder
 from . import _build
+from .routes import refuse
 
 
 class _Args(ctypes.Structure):
@@ -190,6 +191,35 @@ def decode_weights(dec: Decoder) -> dict:
     return plan[2]
 
 
+def _widths(cfg) -> dict:
+    return dict(H=cfg.decoder_rnn_dim, P=cfg.prenet_dim,
+                E=cfg.encoder_embedding_dim, A=cfg.attention_dim,
+                M=cfg.n_mels)
+
+
+def infer_kernel_takes(cfg, memory: torch.Tensor) -> bool:
+    """Does the kernel take this config and this (B, T_enc, E) memory?
+    It does not take widths that are not multiples of 8 (16-byte vector
+    loads) or an attention rnn dim other than the decoder's: for those the
+    caller runs the plain step loop, as the JAX package serves its
+    ``while_loop`` (``megakernel_enabled``), with a notice once.  A memory
+    of another width than the config's raises."""
+    if memory.ndim != 3 or memory.shape[2] != cfg.encoder_embedding_dim:
+        raise ValueError(f"decoder_infer_mega: memory {tuple(memory.shape)} "
+                         f"does not match encoder_embedding_dim "
+                         f"{cfg.encoder_embedding_dim}")
+    dims = _widths(cfg)
+    if cfg.attention_rnn_dim != dims["H"]:
+        return refuse("decoder_infer_mega",
+                      f"attention_rnn_dim {cfg.attention_rnn_dim} other than "
+                      f"decoder_rnn_dim {dims['H']}")
+    odd = {k: v for k, v in dims.items() if v % 8}
+    if odd:
+        return refuse("decoder_infer_mega", f"widths {odd} that are not "
+                      "multiples of 8 (16-byte vector loads)")
+    return True
+
+
 def check_launch(dec: Decoder, memory: torch.Tensor, max_steps: int,
                  mask: Optional[torch.Tensor], stop_mode: str) -> None:
     """Raise on what the kernel does not take: another stop mode, widths
@@ -202,9 +232,7 @@ def check_launch(dec: Decoder, memory: torch.Tensor, max_steps: int,
         raise ValueError(f"stop_mode must be 'any' or 'all', got {stop_mode}")
     cfg = dec.cfg
     b, t_enc, e = memory.shape
-    dims = dict(H=cfg.decoder_rnn_dim, P=cfg.prenet_dim,
-                E=cfg.encoder_embedding_dim, A=cfg.attention_dim,
-                M=cfg.n_mels)
+    dims = _widths(cfg)
     if e != dims["E"] or cfg.attention_rnn_dim != dims["H"]:
         raise ValueError("decoder_infer_mega: memory width or attention "
                          "rnn dim does not match the config")
@@ -234,7 +262,9 @@ def decoder_infer_mega(dec: Decoder, memory: torch.Tensor, max_steps: int,
     """Same signature and returns as ``models.decoder.decoder_infer``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise).  ``decoder_infer_mega.launches`` counts launches.
+    raise: ``models/decoder.py::decoder_infer`` routes a config that
+    :func:`infer_kernel_takes` refuses to the step loop instead).
+    ``decoder_infer_mega.launches`` counts launches.
     """
     if memory.device.type == "cpu":
         return decoder_infer_mega_reference(
@@ -246,9 +276,7 @@ def decoder_infer_mega(dec: Decoder, memory: torch.Tensor, max_steps: int,
     check_launch(dec, memory, max_steps, mask, stop_mode)
     cfg = dec.cfg
     b, t_enc, _ = memory.shape
-    dims = dict(H=cfg.decoder_rnn_dim, P=cfg.prenet_dim,
-                E=cfg.encoder_embedding_dim, A=cfg.attention_dim,
-                M=cfg.n_mels)
+    dims = _widths(cfg)
     cdt = dec.attention_lstm.weight_ih.dtype
     dev = memory.device
     ops = dict(decode_weights(dec))

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from . import _build
+from .routes import refuse
 from .attention_kernel import attention_tail_reference
 from .decoder_megakernel import (LSTM_TILE_ROWS, TILE_ROWS, gate_interleave,
                                  tile_major)
@@ -235,6 +236,40 @@ def _lib() -> ctypes.CDLL:
                            "decoder_train_fwd.cu and "
                            "ops/decoder_train_kernel.py")
     return lib
+
+
+def train_kernel_takes(cfg: ModelConfig, memory: torch.Tensor) -> bool:
+    """Does the kernel pair (this forward and the reverse chain of
+    ``ops/decoder_bwd_kernel.py``) take this config and this (B, T_enc, E)
+    memory?  It does not take widths that are not multiples of 8 (16-byte
+    vector loads), an attention rnn dim other than the decoder's, or an
+    attention width and location conv whose staged rows leave the reverse
+    chain no room for two blocks an SM: for those ``ops/decoder_bptt.py``
+    runs the plain pair, as the JAX package falls back to its scan
+    (``train_megakernel_enabled``), with a notice once.  A memory of
+    another width than the config's raises."""
+    from .decoder_bwd_kernel import chain_fits
+    if memory.ndim != 3 or memory.shape[2] != cfg.encoder_embedding_dim:
+        raise ValueError(f"decoder_fwd_train_mega: memory "
+                         f"{tuple(memory.shape)} does not match "
+                         f"encoder_embedding_dim {cfg.encoder_embedding_dim}")
+    name = "decoder_fwd_train_mega/decoder_bwd_chain_mega"
+    dims = dict(H=cfg.decoder_rnn_dim, P=cfg.prenet_dim,
+                E=cfg.encoder_embedding_dim, A=cfg.attention_dim,
+                M=cfg.n_mels)
+    if cfg.attention_rnn_dim != dims["H"]:
+        return refuse(name, f"attention_rnn_dim {cfg.attention_rnn_dim} "
+                      f"other than decoder_rnn_dim {dims['H']}")
+    odd = {k: v for k, v in dims.items() if v % 8}
+    if odd:
+        return refuse(name, f"widths {odd} that are not multiples of 8 "
+                      "(16-byte vector loads)")
+    if not chain_fits(dims["A"], cfg.location_kernel_size):
+        return refuse(name, f"attention_dim {dims['A']} with a "
+                      f"{cfg.location_kernel_size}-tap location conv (the "
+                      "reverse chain's staged rows leave no room for two "
+                      "blocks an SM)")
+    return True
 
 
 def check_pair_inputs(name: str, cfg: ModelConfig,

@@ -25,10 +25,18 @@ from tacotron2_torch.models.decoder import decoder_infer_steps
 from tacotron2_torch.models.encoder import encoder_apply
 from tacotron2_torch.models.layers import BatchNorm, Conv1d
 from tacotron2_torch.models.postnet import postnet_apply
+from tacotron2_torch.config import Config, TrainConfig
+from tacotron2_torch.data.dataset import Example, collate
+from tacotron2_torch.models.decoder import decoder_infer
 from tacotron2_torch.models.tacotron2 import (Tacotron2, cast_params_bf16,
+                                              init_projection_bias,
                                               init_weights, make_pad_mask,
-                                              replace_config)
-from tacotron2_torch.ops import _build
+                                              replace_config,
+                                              tacotron2_infer)
+from tacotron2_torch.train.optim import make_optimizer
+from tacotron2_torch.train.state import create_train_state
+from tacotron2_torch.train.step import train_step
+from tacotron2_torch.ops import _build, routes
 from tacotron2_torch.ops.convbn_kernel import (_launch, conv_bn_act,
                                                conv_bn_act_reference,
                                                folded_weights)
@@ -222,18 +230,25 @@ def test_cuda_tail_plan_matches_the_kernel(t, mem_dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_tail_refuses():
-    """What the kernel cannot take raises, and nothing is launched."""
+def test_cuda_tail_refuses(monkeypatch, capsys):
+    """Bad inputs raise; shapes the kernel does not take (a bf16 memory
+    row of 40 bytes) run the plain version, with a notice once; nothing
+    is launched."""
     dev = cuda_device()
+    monkeypatch.setattr(routes, "NOTICED", set())
     ins = tail_inputs(2, 9, 16, 24, seed=0, device=dev)
     before = attention_tail.launches
     with pytest.raises(TypeError, match="dtypes"):
         attention_tail(ins[0].half(), *ins[1:])
     with pytest.raises(TypeError, match="dtypes"):
         attention_tail(*ins[:4], ins[4].to(torch.uint8), ins[5])
-    with pytest.raises(ValueError, match="multiple of 16"):
-        attention_tail(*ins[:5], ins[5][..., :20].contiguous().to(
-            torch.bfloat16))
+    row40 = (*ins[:5], ins[5][..., :20].contiguous().to(torch.bfloat16))
+    for _ in range(2):
+        got = attention_tail(*row40)
+        ref = attention_tail_reference(*row40)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert capsys.readouterr().out.count(
+        "[attention_tail] the kernel does not take") == 1
     with pytest.raises(ValueError, match="shape mismatch"):
         attention_tail(*ins[:5], ins[5][:, :8].contiguous())
     with pytest.raises(ValueError, match="different devices"):
@@ -875,3 +890,134 @@ def test_cuda_encoder_postnet_fused_route(dtype):
         assert f.dtype == torch.float32 and f.shape == u.shape
         assert float((f - u).abs().max()) <= tol * max(
             1.0, float(u.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# configs the kernels do not take run the plain versions on the card
+# ---------------------------------------------------------------------------
+# prenet_dim 12 is no multiple of 8: neither decoder kernel takes it; the
+# attention tail (A=16) and the conv layers (K=5) still launch their kernels
+REFUSED = dict(SMALL, prenet_dim=12)
+
+
+def relative_errors(got, ref):
+    """Per tensor, max |got - ref| over (max |ref| + 1e-3 x the largest
+    value of all), the rule of test_cuda_scan_bptt_routes."""
+    scale = max(float(r.abs().max()) for r in ref.values())
+    return {n: float((got[n].detach().float().cpu() - r).abs().max())
+            / (float(r.abs().max()) + 1e-3 * scale) for n, r in ref.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_refused_config_serves_the_step_loop(monkeypatch, capsys):
+    """``tacotron2_infer`` at prenet_dim 12 on the card runs the step loop
+    (the decode kernel launches no time; one notice) and agrees with the
+    plain version: the decoder's outputs on the card at the decode's
+    limits, the whole request with the CPU's at 1e-4 relative."""
+    dev = cuda_device()
+    monkeypatch.setattr(routes, "NOTICED", set())
+    model = init_weights(Tacotron2(ModelConfig(**REFUSED)), seed=0)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, 72, (2, 11), generator=g)
+    lengths = torch.tensor([11, 8])
+    ref = tacotron2_infer(model, tokens, max_steps=MAX,
+                          text_lengths=lengths, forced_stop_at=9,
+                          device="cpu")
+    model = model.to(dev)
+    before = (decoder_infer_mega.launches, attention_tail.launches)
+    for _ in range(2):
+        got = tacotron2_infer(model, tokens, max_steps=MAX,
+                              text_lengths=lengths, forced_stop_at=9,
+                              device=dev)
+    torch.cuda.synchronize()
+    assert decoder_infer_mega.launches == before[0]
+    assert attention_tail.launches > before[1]
+    assert capsys.readouterr().out.count(
+        "[decoder_infer_mega] the kernel does not take") == 1
+    n = int(ref[1])
+    assert int(got[1]) == n and torch.equal(got[2].cpu(), ref[2])
+    errs = relative_errors({k: v[:, :n] for k, v in got[0]._asdict().items()},
+                           {k: v[:, :n] for k, v in ref[0]._asdict().items()})
+    assert max(errs.values()) < 1e-4, errs
+
+    _, memory, mask = small_decoder(dev)
+    dec = model.decoder
+    args = (dec, memory, MAX, 0.5, True, mask, "all", 9)
+    with torch.no_grad():
+        got = decoder_infer(*args)
+        ref = decoder_infer_mega_reference(*args)
+    assert decoder_infer_mega.launches == before[0]
+    assert torch.equal(got[4], ref[4]) and int(got[3]) == int(ref[3])
+    for name, g_, r in zip(DEC_OUTPUTS, got[:3], ref[:3]):
+        torch.testing.assert_close(g_, r, atol=DEC_TOL[torch.float32][name],
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_refused_config_trains_the_plain_pair(monkeypatch, capsys):
+    """At prenet_dim 12 on the card, ``decoder_scan_bptt`` runs the plain
+    pair (neither training kernel launches; one notice) and its gradients
+    match the plain pair's on the CPU to 1e-4 relative (the rule of
+    test_cuda_scan_bptt_routes); one ``train_step`` runs the same route
+    and matches the same step on the CPU in its losses to 1e-4 relative
+    and its BatchNorm statistics to 3e-4 (fp32, dropout off)."""
+    dev = cuda_device()
+    monkeypatch.setattr(routes, "NOTICED", set())
+    mc = ModelConfig(**dict(REFUSED, p_attention_dropout=0.0,
+                            p_decoder_dropout=0.0, p_prenet_dropout=0.0,
+                            p_postnet_dropout=0.0))
+    counts = (decoder_fwd_train_mega.launches,
+              decoder_bwd_chain_mega.launches, attention_tail.launches)
+    dec = init_weights(Tacotron2(mc), seed=0).decoder
+    rng = np.random.default_rng(2)
+    pre = torch.from_numpy(np.abs(rng.standard_normal(
+        (T_DEC, B, mc.prenet_dim))).astype(np.float32) * 0.3)
+    memory = torch.from_numpy((rng.standard_normal(
+        (B, T_ENC, mc.encoder_embedding_dim)) * 0.5).astype(np.float32))
+    mask = make_pad_mask(torch.tensor([T_ENC, T_ENC - 3]), T_ENC)
+    grads = {}
+    for where in ("cpu", dev):
+        d = dec.to(where)
+        p = {n: x.detach().clone().requires_grad_(True)
+             for n, x in core_params(d).items()}
+        m = memory.to(where)
+        with torch.no_grad():
+            pm = d.attention.memory_layer(m)
+        out = decoder_scan_bptt(mc, p, pre.to(where), m, pm, mask.to(where),
+                                None, None)
+        ((out[0] ** 2).sum() + (out[1] ** 2).sum()).backward()
+        grads[str(where)] = {n: x.grad.cpu() for n, x in p.items()}
+    torch.cuda.synchronize()
+    errs = relative_errors(grads[str(dev)], grads["cpu"])
+    assert max(errs.values()) < 1e-4, errs
+
+    cfg = Config(model=mc, train=TrainConfig(precision="float32"))
+    batch = collate([Example(
+        text=rng.integers(0, mc.n_symbols, n).astype(np.int32),
+        mel=(rng.standard_normal((mc.n_mels, m)) - 4.0).astype(np.float32))
+        for n, m in ((13, 40), (9, 33))])
+    tx = make_optimizer(cfg.train)
+    states = {}
+    for where in ("cpu", dev):
+        state = create_train_state(cfg, seed=0, tx=tx, device=where)
+        init_projection_bias(state.model, batch["mel"])
+        states[str(where)] = train_step(state, batch, cfg=cfg, tx=tx,
+                                        use_postnet=True,
+                                        sigma_warmup_steps=100)[:2]
+    torch.cuda.synchronize()
+    assert (decoder_fwd_train_mega.launches,
+            decoder_bwd_chain_mega.launches) == counts[:2]
+    assert attention_tail.launches > counts[2]
+    assert capsys.readouterr().out.count(
+        "the kernel does not take widths") == 1
+    (ref, ref_losses), (got, got_losses) = states["cpu"], states[str(dev)]
+    for name in ref_losses._fields:
+        np.testing.assert_allclose(float(getattr(got_losses, name)),
+                                   float(getattr(ref_losses, name)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    params = dict(got.model.named_parameters())
+    for name, r in ref.model.state_dict().items():
+        if name not in params:
+            g = got.model.state_dict()[name].cpu()
+            assert float((g - r).abs().max()) <= 3e-4 * max(
+                1.0, float(r.abs().max())), name
