@@ -131,10 +131,20 @@ it fails:
     checkpoint; a resume from ``checkpoints/r4_synth_bf16`` starts at epoch
     0 with fresh moments and finite losses; then the mean step time
     (``StepTimer``), one step's device busy share and a full checkpoint's
-    save and restore times.
+    save and restore times;
+16. widths the kernels were not written for: a seeded model whose every
+    decoder width is no multiple of 8 (the decoder kernels run it
+    zero-padded to multiples of 8), with an attention width of 14 and a
+    120-byte memory row for the attention tail and even conv kernel sizes
+    (6 in the encoder, 4 in the postnet): ``tacotron2_infer`` on the card
+    against the CPU's plain request, ``decoder_scan_bptt``'s gradients on
+    the card against the CPU's plain pair, and ``attention_tail`` at A=14,
+    D=30 (and with a ``memory`` one element past a 16-byte boundary)
+    against its plain version; the decode, conv and training kernels must
+    each launch.
 
-Phases 11-14 run after phase 7, before the training phases, and phase 15
-after phase 10.  The ``kernels`` line has five entries.  The last line is
+Phases 11-14 run after phase 7, before the training phases, and phases 15
+and 16 after phase 10.  The ``kernels`` line has five entries.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``tacotron2_tpu``, and reads no weights file from the repository.
 """
@@ -1662,7 +1672,7 @@ def trained_weights_phase(dev, smi: str):
     model = cast_params_bf16(model32)
     cfg = model.cfg
     print(f"[trained] load_model({os.path.relpath(TRAINED_CKPT)}) without "
-          f"JAX: {load_ms:.1f} ms, zstd by {reader.DECOMPRESSOR} "
+          f"JAX: {load_ms:.1f} ms, zstd by {reader.ZSTD_LIBRARY} (ctypes) "
           f"({smi})", flush=True)
     decoder_infer_mega.launches = 0
     attention_tail.launches = 0
@@ -1925,6 +1935,123 @@ def training_loop_phase(dev, smi: str):
         return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 16: every decoder width padded, A % 4 = 2, D = 30, even conv sizes
+ODD_WIDTHS = dict(n_mels=9, prenet_dim=13, symbols_embedding_dim=30,
+                  encoder_embedding_dim=30, decoder_rnn_dim=60,
+                  attention_rnn_dim=60, attention_dim=14,
+                  location_n_filters=4, location_kernel_size=7,
+                  postnet_embedding_dim=32, encoder_kernel_size=6,
+                  postnet_kernel_size=4)
+ODD_TOL = 1e-4          # fp32, relative to max |plain| + 1e-3 of the largest
+
+
+def odd_widths_phase(dev) -> None:
+    """Phase 16.  A config whose widths no kernel was written for runs the
+    kernels on the card and agrees with the plain versions on the CPU."""
+    from tacotron2_torch.config import ModelConfig
+    from tacotron2_torch.models.tacotron2 import (Tacotron2, init_weights,
+                                                  make_pad_mask,
+                                                  tacotron2_infer)
+    from tacotron2_torch.ops.attention_kernel import (
+        attention_tail, attention_tail_reference)
+    from tacotron2_torch.ops.convbn_kernel import conv_bn_act
+    from tacotron2_torch.ops.decoder_bptt import core_params, decoder_scan_bptt
+    from tacotron2_torch.ops.decoder_bwd_kernel import decoder_bwd_chain_mega
+    from tacotron2_torch.ops.decoder_megakernel import (decoder_infer_mega,
+                                                        kernel_widths)
+    from tacotron2_torch.ops.decoder_train_kernel import decoder_fwd_train_mega
+
+    def rel(got, ref):
+        scale = max(float(r.abs().max()) for r in ref.values())
+        return max(float((got[n].detach().float().cpu() - r).abs().max())
+                   / (float(r.abs().max()) + 1e-3 * scale)
+                   for n, r in ref.items())
+
+    mc = ModelConfig(**ODD_WIDTHS, p_attention_dropout=0.0,
+                     p_decoder_dropout=0.0, p_prenet_dropout=0.0,
+                     p_postnet_dropout=0.0)
+    model = init_weights(Tacotron2(mc), seed=SEED)
+    g = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, 72, (2, 11), generator=g)
+    lengths = torch.tensor([11, 8])
+    kw = dict(max_steps=14, text_lengths=lengths, forced_stop_at=9)
+    ref = tacotron2_infer(model, tokens, device="cpu", **kw)
+    model = model.to(dev)
+    decoder_infer_mega.launches = conv_bn_act.launches = 0
+    got = tacotron2_infer(model, tokens, device=dev, **kw)
+    torch.cuda.synchronize()
+    n = int(ref[1])
+    err = rel({k: v[:, :n] for k, v in got[0]._asdict().items()},
+              {k: v[:, :n] for k, v in ref[0]._asdict().items()})
+    print(f"[odd widths] {ODD_WIDTHS} -> the decoder kernels at "
+          f"{kernel_widths(mc)}: tacotron2_infer on the card vs the CPU's "
+          f"plain request {err:.2e} (limit {ODD_TOL:g}), launches "
+          f"decoder_infer_mega={decoder_infer_mega.launches} "
+          f"conv_bn_act={conv_bn_act.launches}", flush=True)
+    check(decoder_infer_mega.launches == 1 and conv_bn_act.launches == 8,
+          "phase 16: the decode and conv kernels did not launch")
+    check(int(got[1]) == n and torch.equal(got[2].cpu(), ref[2]),
+          "phase 16: frame counts differ")
+    check(err < ODD_TOL, f"phase 16: request error {err:.2e}")
+
+    rng = np.random.default_rng(SEED)
+    t_dec, b, t_enc = 10, 2, 12
+    pre = torch.from_numpy(np.abs(rng.standard_normal(
+        (t_dec, b, mc.prenet_dim))).astype(np.float32) * 0.3)
+    memory = torch.from_numpy((rng.standard_normal(
+        (b, t_enc, mc.encoder_embedding_dim)) * 0.5).astype(np.float32))
+    mask = make_pad_mask(torch.tensor([t_enc, t_enc - 3]), t_enc)
+    grads = {}
+    decoder_fwd_train_mega.launches = decoder_bwd_chain_mega.launches = 0
+    for where in ("cpu", dev):
+        d = model.decoder.to(where)
+        p = {k: x.detach().clone().requires_grad_(True)
+             for k, x in core_params(d).items()}
+        m = memory.to(where)
+        with torch.no_grad():
+            pm = d.attention.memory_layer(m)
+        out = decoder_scan_bptt(mc, p, pre.to(where), m, pm, mask.to(where),
+                                None, None)
+        ((out[0] ** 2).sum() + (out[1] ** 2).sum()).backward()
+        grads[str(where)] = {k: x.grad.cpu() for k, x in p.items()}
+    torch.cuda.synchronize()
+    err = rel(grads[str(dev)], grads["cpu"])
+    print(f"[odd widths] decoder_scan_bptt gradients, kernel pair on the "
+          f"card vs plain pair on the CPU: {err:.2e} (limit {ODD_TOL:g}), "
+          f"launches decoder_fwd_train_mega="
+          f"{decoder_fwd_train_mega.launches} decoder_bwd_chain_mega="
+          f"{decoder_bwd_chain_mega.launches}", flush=True)
+    check(decoder_fwd_train_mega.launches == 1
+          and decoder_bwd_chain_mega.launches == 1,
+          "phase 16: the training kernels did not launch")
+    check(err < ODD_TOL, f"phase 16: gradient error {err:.2e}")
+
+    for mem_dtype in (torch.float32, torch.bfloat16):
+        for offset in (False, True):
+            f = lambda *shape: torch.from_numpy(rng.standard_normal(
+                shape).astype(np.float32)).to(dev)
+            mem = f(4, 37, 30).to(mem_dtype)
+            if offset:      # one element past a 16-byte boundary
+                buf = torch.empty(mem.numel() + 1, dtype=mem_dtype,
+                                  device=dev)
+                mem = buf[1:].view(mem.shape).copy_(mem)
+            ins = (f(4, 37, 14), f(14) * 0.3, f(),
+                   torch.tensor(1.2, device=dev),
+                   make_pad_mask(torch.tensor([37, 30, 9, 37]), 37).to(dev),
+                   mem)
+            attention_tail.launches = 0
+            got = attention_tail(*ins)
+            tail_ref = attention_tail_reference(*ins)
+            torch.cuda.synchronize()
+            err = max_err(got, tail_ref)
+            print(f"[odd widths] attention_tail A=14 D=30 memory "
+                  f"{str(mem_dtype)[6:]}{' offset' if offset else ''}: "
+                  f"{err:.2e} (limit {TAIL_TOL:g}), launches "
+                  f"{attention_tail.launches}", flush=True)
+            check(attention_tail.launches == 1 and err <= TAIL_TOL,
+                  "phase 16: attention_tail at A=14 D=30")
 
 
 def main() -> int:
@@ -2309,6 +2436,8 @@ def main() -> int:
     # 15. the training loop
     (kernels[0]["loop_launches"], train_kernels[0]["loop_launches"],
      train_kernels[1]["loop_launches"]) = training_loop_phase(dev, smi)
+    # 16. widths the kernels were not written for
+    odd_widths_phase(dev)
     kernels += train_kernels + [conv_kernel]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

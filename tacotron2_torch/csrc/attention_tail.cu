@@ -28,9 +28,16 @@
 //   1. At entry one thread starts 1-D bulk copies (the Tensor Memory
 //      Accelerator) of the block's first two tiles of memory rows into a
 //      two-stage ring in shared memory; they run under the energies.
+//      Where a memory row is no multiple of 16 bytes (or the tensor not
+//      16-byte aligned) no bulk copy can take it: a second build of the
+//      kernel copies each tile with plain loads when it needs it, into
+//      rows padded with zeros to 16 bytes.
 //   2. Tile by tile (one tile unless the rows do not fit a stage): the
 //      energies, one warp a row and two rows in flight a warp, a lane
-//      four consecutive values of each (one 8- or 16-byte load), v_w, v_b
+//      four consecutive values of each (one 8- or 16-byte load; the
+//      second build, which also serves an A no multiple of 4 or qsum and
+//      v_w not aligned for it, makes four loads, zero past A, which add
+//      nothing), v_w, v_b
 //      and the scale loaded once at entry, tanh by a rational function
 //      with one reciprocal, the dot summed by warp shuffles; the tile's
 //      max joins the block's running max m, p = exp(e - m), the
@@ -80,6 +87,7 @@ constexpr int ROWS_IN_FLIGHT = 2;     // energies: rows a warp sums at once
 constexpr int COPIER = THREADS - 32;  // starts the copies: the last warp,
                                       // which has the fewest rows
 constexpr int MAX_SPLIT = 8;          // portable cluster size
+constexpr int MAX_ITEMS = 65535;      // batch items a launch: grid rows
 constexpr long long SMEM_LIMIT = 232448;
 // shared memory head: the ring's two mbarriers and the exchange's (0),
 // each warp's max (32) and sum (64) of the tile, every block's (m, s)
@@ -110,18 +118,25 @@ __host__ __device__ constexpr long long up16(long long x) {
   return (x + 15) / 16 * 16;
 }
 
-// Byte offsets of the dynamic shared memory (ops/attention_kernel.py::
-// tail_plan computes the same total).
+// Byte offsets of the dynamic shared memory.
 struct Layout {
   long long stage, partial, slices, e, p, total;
 };
 
-__host__ __device__ inline Layout layout(int D, int split, int rows,
+// The ring's row stride in elements: D padded to 16 bytes (D itself where
+// a row is a multiple of 16 bytes, as the bulk copy needs).
+__host__ __device__ constexpr int row_stride(int D, int mem_bytes) {
+  return (int)(up16((long long)D * mem_bytes) / mem_bytes);
+}
+
+// Byte offsets of the dynamic shared memory (ops/attention_kernel.py::
+// tail_plan computes the same total); ld: the ring's row stride
+__host__ __device__ inline Layout layout(int D, int ld, int split, int rows,
                                          int tile_rows, int mem_bytes) {
   Layout l;
   const int stages = rows > tile_rows ? 2 : 1;
   const long long cols = (D + split - 1) / split;
-  l.stage = (long long)tile_rows * D * mem_bytes;
+  l.stage = (long long)tile_rows * ld * mem_bytes;
   l.partial = HEAD_BYTES + stages * l.stage;
   l.slices = l.partial + up16(4LL * D);
   l.e = l.slices + up16(4LL * split * cols);
@@ -231,6 +246,20 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+// values c0 .. c0 + 3 of a row of n: one vector load (kFast), else four
+// loads with zeros past n
+template <bool kFast, typename T>
+__device__ __forceinline__ float4 load4_at(const T* row, int c0, int n) {
+  if constexpr (kFast) {
+    return load4(row + c0);
+  } else {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = c0 + u < n ? widen(row[c0 + u]) : 0.f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
 // tanh(x) by the rational approximation Eigen and XLA use (odd degree 13
 // over even degree 6, x clamped to |x| <= 7.905): one reciprocal on the
 // special-function unit and FMAs, where tanhf or 1 - 2 / (exp(2x) + 1)
@@ -272,7 +301,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename TQ, typename TM>
+// kFast: qsum and v_w by 4-value vector loads and memory by bulk copy (A
+// a multiple of 4, memory rows a multiple of 16 bytes, the pointers
+// aligned for both); else four loads a lane and memory by plain loads.
+// Two builds, so that the fast one carries none of the other's code: the
+// registers it takes decide how many blocks an SM holds at B=64.
+template <typename TQ, typename TM, bool kFast>
 __global__ void __launch_bounds__(THREADS, 1)
     attention_tail_kernel(const TailArgs a) {
   // memory rounded to bf16 in registers, as the plain version's
@@ -285,7 +319,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const Layout l = layout(a.D, split, a.rows, a.tile_rows, (int)sizeof(TM));
+  // ring rows: D itself where the bulk copy lays rows back to back
+  const int ld = kFast ? a.D : row_stride(a.D, (int)sizeof(TM));
+  const Layout l = layout(a.D, ld, split, a.rows, a.tile_rows,
+                          (int)sizeof(TM));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);   // ring 0, 1; [2]
   float* warp_m = reinterpret_cast<float*>(smem + 32);
   float* warp_s = reinterpret_cast<float*>(smem + 64);
@@ -299,7 +336,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int r0 = rank * a.rows;
   const int n = max(0, min(a.rows, a.T - r0));   // this block's rows
   const int n_tiles = (n + a.tile_rows - 1) / a.tile_rows;
-  const long long stage_elems = (long long)a.tile_rows * a.D;
+  const long long stage_elems = (long long)a.tile_rows * ld;
   const TM* mem = static_cast<const TM*>(a.memory) +
                   ((long long)b * a.T + r0) * a.D;
   const auto tile_n = [&](int k) { return min(a.tile_rows,
@@ -310,13 +347,26 @@ __global__ void __launch_bounds__(THREADS, 1)
     bulk_copy(ring + (k & 1) * stage_elems,
               mem + (long long)k * a.tile_rows * a.D, bytes, &bars[k & 1]);
   };
+  // the same tile by every thread of the block, by plain loads, its rows
+  // padded with zeros to ld
+  const auto copy_tile = [&](int k) {
+    TM* dst = ring + (k & 1) * stage_elems;
+    const TM* src = mem + (long long)k * a.tile_rows * a.D;
+    const int count = tile_n(k) * ld;
+    for (int i = tid; i < count; i += THREADS) {
+      const int row = i / ld, c = i - row * ld;
+      dst[i] = c < a.D ? src[(long long)row * a.D + c] : TM(0.f);
+    }
+  };
 
   // the energies' operands that do not change: a lane's first four
   // values of v_w, v_b and the scale, loaded before anything waits
   const int vw_bf16 = a.flags & VW_BF16;
   const auto v_w_at = [&](int c0) {
-    return vw_bf16 ? load4(static_cast<const __nv_bfloat16*>(a.v_w) + c0)
-                   : load4(static_cast<const float*>(a.v_w) + c0);
+    return vw_bf16 ? load4_at<kFast>(
+                         static_cast<const __nv_bfloat16*>(a.v_w), c0, a.A)
+                   : load4_at<kFast>(static_cast<const float*>(a.v_w), c0,
+                                     a.A);
   };
   const float4 w_first =
       4 * lane < a.A ? v_w_at(4 * lane) : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -333,7 +383,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_init(&bars[2], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    for (int k = 0; k < 2 && k < n_tiles; ++k) start_tile(k);
+    if constexpr (kFast) {
+      for (int k = 0; k < 2 && k < n_tiles; ++k) start_tile(k);
+    }
     // the exchange brings every block's (m, s) and its partial's slice
     const int my_cols = max(0, min(cols, a.D - rank * cols));
     mbar_arrive_expect(&bars[2], (uint32_t)(split * (2 + my_cols) * 4));
@@ -367,7 +419,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int u = 0; u < ROWS_IN_FLIGHT; ++u) {
           const int i = base + u * WARPS;
-          x[u] = i < nk ? load4(q + (long long)(t0 + i) * a.A + c0)
+          x[u] = i < nk ? load4_at<kFast>(q + (long long)(t0 + i) * a.A,
+                                          c0, a.A)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
@@ -412,12 +465,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     s = warp_sum(s);
     if (lane == 0) warp_s[warp] = warp_s[warp] * alpha + s;
     // phase: softmax
-    mbar_wait(&bars[k & 1], (k >> 1) & 1);
+    if constexpr (kFast) {
+      mbar_wait(&bars[k & 1], (k >> 1) & 1);
+    } else {
+      copy_tile(k);
+    }
     // phase: copy landed
     __syncthreads();   // p_tile, and the tile's memory rows have landed
     // phase: second barrier
     const TM* tile = ring + (k & 1) * stage_elems;
-    for (int c = 2 * tid; c < a.D; c += 2 * THREADS) {   // two columns
+    // two columns: c + 1 = D for an odd D reads a zero of the ring's
+    // padding and writes partial[D], in the partial's padding to 16 bytes
+    for (int c = 2 * tid; c < a.D; c += 2 * THREADS) {
       float acc0 = 0.f, acc1 = 0.f;
       int i = 0;
       for (; i + 4 <= nk; i += 4) {   // four rows' loads, then their sums
@@ -425,7 +484,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         float p[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          m[u] = pair_at<kRound>(tile + (long long)(i + u) * a.D + c);
+          m[u] = pair_at<kRound>(tile + (long long)(i + u) * ld + c);
           p[u] = p_tile[i + u];
         }
 #pragma unroll
@@ -435,7 +494,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       for (; i < nk; ++i) {
-        const float2 m = pair_at<kRound>(tile + (long long)i * a.D + c);
+        const float2 m = pair_at<kRound>(tile + (long long)i * ld + c);
         acc0 = fmaf(p_tile[i], m.x, acc0);
         acc1 = fmaf(p_tile[i], m.y, acc1);
       }
@@ -450,7 +509,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     // phase: context
     if (k + 1 < n_tiles) {
       __syncthreads();   // the stage, e_tile and p_tile are free again
-      if (tid == COPIER && k + 2 < n_tiles) start_tile(k + 2);
+      if constexpr (kFast) {
+        if (tid == COPIER && k + 2 < n_tiles) start_tile(k + 2);
+      }
     }
   }
   // No plan makes a block without rows (the host refuses one), so this
@@ -474,7 +535,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   for (int c = 2 * tid; c < a.D; c += 2 * THREADS) {   // this thread's own
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < 2 && (kFast || c + h < a.D); ++h) {
       const int owner = (c + h) / cols;
       store_remote(
           cluster_addr(slices + rank * cols + c + h - owner * cols, owner),
@@ -515,23 +576,28 @@ __global__ void __launch_bounds__(THREADS, 1)
   // phase: attn written
 }
 
+template <bool kFast>
 const void* kernel_for(int flags) {
   using bf16 = __nv_bfloat16;
   if (flags & Q_BF16) {
-    return flags & MEM_BF16 ? (const void*)attention_tail_kernel<bf16, bf16>
-                            : (const void*)attention_tail_kernel<bf16, float>;
+    return flags & MEM_BF16
+               ? (const void*)attention_tail_kernel<bf16, bf16, kFast>
+               : (const void*)attention_tail_kernel<bf16, float, kFast>;
   }
-  return flags & MEM_BF16 ? (const void*)attention_tail_kernel<float, bf16>
-                          : (const void*)attention_tail_kernel<float, float>;
+  return flags & MEM_BF16
+             ? (const void*)attention_tail_kernel<float, bf16, kFast>
+             : (const void*)attention_tail_kernel<float, float, kFast>;
 }
+
+constexpr int N_KERNELS = 8;
 
 // Allow a kernel `smem` bytes of dynamic shared memory (once per kernel
 // and size: setting the attribute costs a CUDA API call).
 cudaError_t allow_smem(const void* kernel, size_t smem) {
-  static const void* kernels[4];
-  static size_t sizes[4];
+  static const void* kernels[N_KERNELS];
+  static size_t sizes[N_KERNELS];
   int slot = 0;
-  for (; slot < 4; ++slot) {
+  for (; slot < N_KERNELS; ++slot) {
     if (kernels[slot] == kernel) {
       if (sizes[slot] >= smem) return cudaSuccess;
       break;
@@ -551,7 +617,10 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
 // Shared memory bytes a block takes for the plan (split, rows, tile_rows).
 extern "C" long long t2_attention_tail_smem(int D, int split, int rows,
                                             int tile_rows, int mem_bf16) {
-  return layout(D, split, rows, tile_rows, mem_bf16 ? 2 : 4).total;
+  const int mem_bytes = mem_bf16 ? 2 : 4;
+  return layout(D, row_stride(D, mem_bytes), split, rows, tile_rows,
+                mem_bytes)
+      .total;
 }
 
 // qsum (B, T, A), v_w (A,), v_b and scale (one value each), mask (B, T)
@@ -559,8 +628,11 @@ extern "C" long long t2_attention_tail_smem(int D, int split, int rows,
 // outputs.  flags: Q_BF16 | MEM_BF16 | VW_BF16 | VB_BF16 | SCALE_BF16 (bf16
 // where set, else fp32).  split: blocks of an item's cluster (1-8), rows:
 // rows a block takes (every block at least one), tile_rows: memory rows a
-// ring stage holds.  Launches on `stream`, does not synchronise.  Returns
-// the CUDA error code (0 = ok).
+// ring stage holds.  Any A and D: the build (vector loads and bulk copy,
+// or not) is picked here from A, D and the pointers' alignment.  Items
+// past the grid's 65535 rows go in further launches of MAX_ITEMS each
+// (ops/attention_kernel.py counts them).  Launches on `stream`, does not
+// synchronise.  Returns the CUDA error code (0 = ok).
 extern "C" int t2_attention_tail(const void* qsum, const void* v_w,
                                  const void* v_b, const void* scale,
                                  const void* mask, const void* memory,
@@ -568,38 +640,52 @@ extern "C" int t2_attention_tail(const void* qsum, const void* v_w,
                                  int D, int split, int rows, int tile_rows,
                                  int flags, void* stream) {
   const int mem_bytes = flags & MEM_BF16 ? 2 : 4;
-  if (B < 1 || B > 65535 || T < 1 || A < 1 || D < 1 || split < 1 ||
-      split > MAX_SPLIT || rows < 1 || tile_rows < 1 || tile_rows > rows ||
-      (long long)split * rows < T || (long long)(split - 1) * rows >= T ||
-      (D * mem_bytes) % 16 != 0 || A % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(memory) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(qsum) % (flags & Q_BF16 ? 8 : 16) != 0 ||
-      reinterpret_cast<uintptr_t>(v_w) % (flags & VW_BF16 ? 8 : 16) != 0) {
+  if (B < 1 || T < 1 || A < 1 || D < 1 || split < 1 || split > MAX_SPLIT ||
+      rows < 1 || tile_rows < 1 || tile_rows > rows ||
+      (long long)split * rows < T || (long long)(split - 1) * rows >= T) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long smem = layout(D, split, rows, tile_rows, mem_bytes).total;
+  const long long smem =
+      layout(D, row_stride(D, mem_bytes), split, rows, tile_rows, mem_bytes)
+          .total;
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const void* kernel = kernel_for(flags);
-  cudaError_t err = allow_smem(kernel, (size_t)smem);
-  if (err != cudaSuccess) return (int)err;
-  TailArgs args{qsum, v_w, v_b, scale,
-                static_cast<const unsigned char*>(mask), memory,
-                static_cast<float*>(attn), static_cast<float*>(ctx),
-                T, A, D, rows, tile_rows, flags};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, B, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  void* kargs[] = {&args};
-  err = cudaLaunchKernelExC(&cfg, kernel, kargs);
-  if (err != cudaSuccess) return (int)err;
+  const auto aligned = [](const void* p, int n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  const int q_bytes = flags & Q_BF16 ? 2 : 4;
+  for (int b0 = 0; b0 < B; b0 += MAX_ITEMS) {
+    const int n = B - b0 < MAX_ITEMS ? B - b0 : MAX_ITEMS;
+    const long long rows0 = (long long)b0 * T;
+    const void* q = static_cast<const char*>(qsum) + rows0 * A * q_bytes;
+    const void* mem =
+        static_cast<const char*>(memory) + rows0 * D * mem_bytes;
+    const bool fast = A % 4 == 0 && (D * mem_bytes) % 16 == 0 &&
+                      aligned(mem, 16) && aligned(q, 4 * q_bytes) &&
+                      aligned(v_w, flags & VW_BF16 ? 8 : 16);
+    const void* kernel =
+        fast ? kernel_for<true>(flags) : kernel_for<false>(flags);
+    cudaError_t err = allow_smem(kernel, (size_t)smem);
+    if (err != cudaSuccess) return (int)err;
+    TailArgs args{q, v_w, v_b, scale,
+                  static_cast<const unsigned char*>(mask) + rows0, mem,
+                  static_cast<float*>(attn) + rows0,
+                  static_cast<float*>(ctx) + (long long)b0 * D,
+                  T, A, D, rows, tile_rows, flags};
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(split, n, 1);
+    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    void* kargs[] = {&args};
+    err = cudaLaunchKernelExC(&cfg, kernel, kargs);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@
 //                          + h[co] )
 //
 // with x rounded to the weight dtype, the sum kept in fp32, zeros outside
-// [0, T) ('same' padding, pad = (K - 1) / 2) and one fp32 write.
+// [0, T) ('same' padding, pad = (K - 1) / 2 before and K / 2 after, for
+// odd and even K) and one fp32 write.  K up to 2 HALO + 1 = 9 taps: the
+// input is staged with HALO steps on either side of a tile.
 //
 // What bounds it on an H100: at the serving shapes (K = 5, 512 channels)
 // a layer is 2*B*T*C_in*C_out*K operations over about B*T*(C_in + C_out)*4
@@ -271,7 +273,8 @@ __device__ __forceinline__ void reduce_store(const ConvArgs& a, float* red,
 // shared memory, against ldmatrix reads that cost nothing extra here.
 constexpr int WG_CHUNK = 32;                 // input channels a stage
 constexpr int WG_STAGES = 3;
-constexpr int WG_MAX_K = 7;                  // taps held in registers
+constexpr int WG_MAX_K = 7;   // taps held in registers by the build that
+                              // serves K <= 7; a second build holds MAX_K
 constexpr int WG_XS = WG_CHUNK + 8;          // 80-byte rows: ldmatrix 16 B
 constexpr int WG_TAP_BYTES = CO_TILE * WG_CHUNK * 2;   // 4 KB, 64 B rows
 
@@ -391,7 +394,7 @@ __host__ __device__ inline WgLayout wg_layout(int K, int x_bytes) {
   return l;
 }
 
-template <typename TIn>
+template <typename TIn, int kMaxK>
 __global__ void __launch_bounds__(THREADS)
 conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                          ConvArgs a) {
@@ -456,9 +459,9 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
         8 * (lane >> 4);
     // every tap's A fragments first: a register that a wgmma in flight reads
     // is not written again before the wait
-    uint32_t af[WG_MAX_K][2][4];
+    uint32_t af[kMaxK][2][4];
 #pragma unroll
-    for (int tap = 0; tap < WG_MAX_K; ++tap) {
+    for (int tap = 0; tap < kMaxK; ++tap) {
       if (tap < a.K) {
         ldmatrix_x4(af[tap][0], xrow + tap * WG_XS);
         ldmatrix_x4(af[tap][1], xrow + tap * WG_XS + 16);
@@ -466,7 +469,7 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     }
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int tap = 0; tap < WG_MAX_K; ++tap) {
+    for (int tap = 0; tap < kMaxK; ++tap) {
       if (tap < a.K) {
         wgmma_m64n64k16(acc, af[tap][0], desc_sw64(ws + tap * WG_TAP_BYTES));
         wgmma_m64n64k16(acc, af[tap][1],
@@ -579,10 +582,16 @@ size_t smem_bytes(int is_bf16, int x_bf16, int K) {
   return n > (size_t)RED_BYTES ? n : (size_t)RED_BYTES;
 }
 
-const void* kernel_for(int is_bf16, int x_bf16) {
+template <int kMaxK>
+const void* wgmma_kernel_for(int x_bf16) {
+  return x_bf16 ? (const void*)conv_bn_act_wgmma_kernel<__nv_bfloat16, kMaxK>
+                : (const void*)conv_bn_act_wgmma_kernel<float, kMaxK>;
+}
+
+const void* kernel_for(int is_bf16, int x_bf16, int K) {
   if (!is_bf16) return (const void*)conv_bn_act_fma_kernel;
-  return x_bf16 ? (const void*)conv_bn_act_wgmma_kernel<__nv_bfloat16>
-                : (const void*)conv_bn_act_wgmma_kernel<float>;
+  return K <= WG_MAX_K ? wgmma_kernel_for<WG_MAX_K>(x_bf16)
+                       : wgmma_kernel_for<MAX_K>(x_bf16);
 }
 
 // Allow the kernel `smem` bytes of dynamic shared memory (once per kernel
@@ -622,12 +631,12 @@ extern "C" int t2_conv_bn_act(const void* x, long long sx_b, long long sx_c,
                               int C_out_pad, int C_in_pad, int act,
                               int is_bf16, int split, void* stream) {
   const int tiles = ((T + T_TILE - 1) / T_TILE) * (C_out_pad / CO_TILE);
-  if (B < 1 || C_in < 1 || C_out < 1 || T < 1 || K < 1 || (K % 2) == 0 ||
-      K > MAX_K || B > 65535 || tiles > 65535 || act < 0 || act > 2 ||
+  if (B < 1 || C_in < 1 || C_out < 1 || T < 1 || K < 1 || K > MAX_K ||
+      B > 65535 || tiles > 65535 || act < 0 || act > 2 ||
       C_out_pad < C_out || C_out_pad % CO_TILE != 0 || C_in_pad < C_in ||
       C_in_pad % WG_CHUNK != 0 || split < 1 || split > MAX_SPLIT ||
       (split & (split - 1)) != 0 || (x_bf16 && !is_bf16) ||
-      (is_bf16 && (wmap == nullptr || K > WG_MAX_K))) {
+      (is_bf16 && wmap == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int vec = !x_bf16 && sx_t == 1 && sx_c % 4 == 0 &&
@@ -635,7 +644,7 @@ extern "C" int t2_conv_bn_act(const void* x, long long sx_b, long long sx_c,
                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
   ConvArgs a{x, w, h, out, sx_b, sx_c, sx_t, B, C_in, C_out, T, K,
              C_out_pad, C_in_pad, act, split, vec};
-  const void* kernel = kernel_for(is_bf16, x_bf16);
+  const void* kernel = kernel_for(is_bf16, x_bf16, K);
   const size_t smem = smem_bytes(is_bf16, x_bf16, K);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -712,7 +721,7 @@ extern "C" int t2_conv_bn_act_weight_map(const void* w, int K, int C_out_pad,
 // minus a CUDA error code.
 extern "C" int t2_conv_bn_act_clusters(int is_bf16, int x_bf16, int K,
                                        int split) {
-  const void* kernel = kernel_for(is_bf16, x_bf16);
+  const void* kernel = kernel_for(is_bf16, x_bf16, K);
   const size_t smem = smem_bytes(is_bf16, x_bf16, K);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return -(int)err;

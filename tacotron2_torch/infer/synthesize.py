@@ -19,6 +19,7 @@ from ..dsp.wav import save_wav
 from ..models.tacotron2 import Tacotron2, make_speaker_ids, tacotron2_infer
 from ..text import pad_sequences, text_to_sequence
 from ..utils.device import resolve_device
+from ..utils.weight_files import load_weights
 
 Device = Union[str, torch.device]
 
@@ -60,7 +61,6 @@ def load_model(checkpoint_path: str, cfg: Optional[Config] = None,
     if not os.path.exists(checkpoint_path):
         raise FileNotFoundError(f"checkpoint not found: {checkpoint_path}")
     if os.path.isdir(checkpoint_path):
-        from ..train.checkpoint import load_weights
         return load_weights(checkpoint_path, Tacotron2(cfg.model)).to(device)
     sd = torch.load(checkpoint_path, weights_only=True, map_location=device)
     sd = {k: v.float() if v.is_floating_point() else v for k, v in sd.items()}

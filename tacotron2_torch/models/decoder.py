@@ -5,10 +5,10 @@ attention LSTM -> attention -> decoder LSTM -> fused projection + gate
 head, with dropout on the prenet and on both LSTM hidden states when
 training.  :func:`decoder_infer` is the gate-stopped autoregressive decode;
 on CUDA tensors with ``cfg.decoder_megakernel`` it runs as one persistent
-kernel (``ops/decoder_megakernel.py``) where the kernel takes the config,
-otherwise as the step loop here, whose attention tail is a CUDA kernel.
-:func:`decoder_teacher_forced` is the training forward: all frames through
-the prenet at once, then ``ops/decoder_bptt.py::decoder_scan_bptt``.
+kernel (``ops/decoder_megakernel.py``), otherwise as the step loop here,
+whose attention tail is a CUDA kernel.  :func:`decoder_teacher_forced`
+is the training forward: all frames through the prenet at once, then
+``ops/decoder_bptt.py::decoder_scan_bptt``.
 """
 
 from __future__ import annotations
@@ -199,9 +199,8 @@ def decoder_infer(dec: Decoder, memory: torch.Tensor, max_steps: int,
         raise ValueError(f"stop_mode must be 'any' or 'all', got {stop_mode}")
     args = (dec, memory, max_steps, gate_threshold, drop_first_frame, mask,
             stop_mode, forced_stop_at)
-    from ..ops.decoder_megakernel import (decoder_infer_mega,
-                                          infer_kernel_takes)
-    if dec.cfg.decoder_megakernel and infer_kernel_takes(dec.cfg, memory):
+    if dec.cfg.decoder_megakernel and memory.is_cuda:
+        from ..ops.decoder_megakernel import decoder_infer_mega
         return decoder_infer_mega(*args)
     return decoder_infer_steps(*args, tail=attention_tail)
 

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.convbn_kernel import conv_bn_act, conv_kernel_takes
+from ..ops.convbn_kernel import conv_bn_act
 from .layers import BatchNorm, Conv1d, dropout
 
 
@@ -44,19 +44,18 @@ def postnet_apply(post: Postnet, x: torch.Tensor, train: bool = False,
     low-precision weights the activations between layers stay in the weight
     dtype, while BatchNorm statistics are taken in fp32 and the residual
     comes out fp32.  Eval mode keeps fp32 between layers, and with
-    ``cfg.fused_convbn`` runs each layer that the kernel takes as one
-    folded conv + BatchNorm + tanh (none on the last)
-    (``ops/convbn_kernel.py``).
+    ``cfg.fused_convbn`` runs each layer as one folded conv + BatchNorm +
+    tanh (none on the last) (``ops/convbn_kernel.py``).
     """
     n = len(post.convs)
-    fused_eval = not train and post.cfg.fused_convbn
+    if not train and post.cfg.fused_convbn:
+        for i, (conv, bn) in enumerate(zip(post.convs, post.bns)):
+            x = conv_bn_act(x, conv, bn, post.cfg.batchnorm_eps,
+                            "tanh" if i < n - 1 else "none")
+        return x
     cdt = post.convs[0].weight.dtype
     mid_dtype = cdt if (train and cdt != torch.float32) else None
     for i, (conv, bn) in enumerate(zip(post.convs, post.bns)):
-        if fused_eval and conv_kernel_takes(conv):
-            x = conv_bn_act(x, conv, bn, post.cfg.batchnorm_eps,
-                            "tanh" if i < n - 1 else "none")
-            continue
         x = conv(x)
         if mid_dtype is not None and i < n - 1:
             x = x.to(mid_dtype)

@@ -27,16 +27,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import _build
-from .routes import refuse
 
 THREADS = 256            # the kernel's block
 MAX_SPLIT = 8            # portable cluster size
 MIN_ROWS = 4             # rows a block takes before an item is split further
+MAX_ITEMS = 65535        # batch items a launch (grid rows); more launch again
 STAGE_BYTES = 64 * 1024  # memory rows a ring stage holds, at most
 SMEM_LIMIT = 232448      # shared memory a block may take on an H100
 HEAD_BYTES = 256         # the kernel's barriers and softmax statistics
@@ -61,32 +61,26 @@ def _up16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _check_shapes(b: int, t_enc: int, a: int, d: int,
-                  mem_dtype: torch.dtype) -> None:
-    """Raise on what no kernel could be asked to take."""
+@functools.lru_cache(maxsize=None)
+def tail_plan(b: int, t_enc: int, a: int, d: int,
+              mem_dtype: torch.dtype) -> TailPlan:
+    """The launch plan for qsum (b, t_enc, a) and memory (b, t_enc, d) of
+    ``mem_dtype``.  Splits an item into the most blocks (a power of two up
+    to ``MAX_SPLIT``) that keep ``MIN_ROWS`` rows each and leave no block
+    empty; tiles of memory rows, each padded to 16 bytes, fill at most
+    ``STAGE_BYTES``, evened out.  The kernel takes any A and D; raises on
+    a memory dtype other than fp32 or bf16, an empty shape, and a memory
+    row too wide for a stage or for a block's shared memory."""
     if mem_dtype not in _FLOATS:
         raise TypeError(f"attention_tail: memory dtype {mem_dtype}")
     if min(b, t_enc, a, d) < 1:
         raise ValueError(f"attention_tail: shapes B={b} T_enc={t_enc} "
                          f"A={a} D={d}")
-
-
-@functools.lru_cache(maxsize=None)
-def _plan(b: int, t_enc: int, a: int, d: int, mem_dtype: torch.dtype
-          ) -> Tuple[Optional[TailPlan], str]:
-    """(plan, "") or (None, why the kernel cannot take the shapes)."""
-    if b > 65535:
-        return None, f"shapes B={b} T_enc={t_enc} A={a} D={d} (B > 65535)"
-    if a % 4:
-        return None, (f"A={a}, not a multiple of 4 (a lane loads four "
-                      "consecutive values of qsum)")
-    row_bytes = d * mem_dtype.itemsize
-    if row_bytes % 16:
-        return None, (f"a memory row of D={d} {mem_dtype}: {row_bytes} "
-                      "bytes, not a multiple of 16 (the bulk copy's unit)")
+    row_bytes = _up16(d * mem_dtype.itemsize)
     if row_bytes > STAGE_BYTES:
-        return None, (f"a memory row of D={d}: {row_bytes} bytes, more "
-                      f"than a ring stage's {STAGE_BYTES}")
+        raise ValueError(f"attention_tail: a memory row of D={d} is "
+                         f"{row_bytes} bytes, more than a ring stage's "
+                         f"{STAGE_BYTES}")
     split = 1
     while (split < MAX_SPLIT and 2 * split <= -(-t_enc // MIN_ROWS)
            and (2 * split - 1) * -(-t_enc // (2 * split)) < t_enc):
@@ -99,35 +93,9 @@ def _plan(b: int, t_enc: int, a: int, d: int, mem_dtype: torch.dtype
     smem = (HEAD_BYTES + stages * tile_rows * row_bytes + _up16(4 * d)
             + _up16(4 * split * cols) + 2 * _up16(4 * tile_rows))
     if smem > SMEM_LIMIT:
-        return None, (f"D={d}: {smem} bytes of shared memory a block, more "
-                      f"than {SMEM_LIMIT}")
-    return TailPlan(split, rows, tile_rows, stages, smem), ""
-
-
-def tail_plan(b: int, t_enc: int, a: int, d: int,
-              mem_dtype: torch.dtype) -> TailPlan:
-    """The launch plan for qsum (b, t_enc, a) and memory (b, t_enc, d) of
-    ``mem_dtype``.  Splits an item into the most blocks (a power of two up
-    to ``MAX_SPLIT``) that keep ``MIN_ROWS`` rows each and leave no block
-    empty; tiles of memory rows fill at most ``STAGE_BYTES``, evened out.
-    Raises where the kernel cannot take the shapes."""
-    _check_shapes(b, t_enc, a, d, mem_dtype)
-    plan, why = _plan(b, t_enc, a, d, mem_dtype)
-    if plan is None:
-        raise ValueError(f"attention_tail: {why}")
-    return plan
-
-
-def tail_kernel_takes(b: int, t_enc: int, a: int, d: int,
-                      mem_dtype: torch.dtype) -> bool:
-    """:func:`tail_plan` without the raise: does the kernel take qsum
-    (b, t_enc, a) and memory (b, t_enc, d) of ``mem_dtype``?  Where it
-    does not, :func:`attention_tail` runs the plain version (the JAX
-    package's Pallas tail takes any A and D), with a notice once.  A
-    memory dtype other than fp32 or bf16, or an empty shape, raises."""
-    _check_shapes(b, t_enc, a, d, mem_dtype)
-    plan, why = _plan(b, t_enc, a, d, mem_dtype)
-    return plan is not None or refuse("attention_tail", why)
+        raise ValueError(f"attention_tail: D={d} needs {smem} bytes of "
+                         f"shared memory a block, more than {SMEM_LIMIT}")
+    return TailPlan(split, rows, tile_rows, stages, smem)
 
 
 def attention_tail_reference(qsum: torch.Tensor, v_w: torch.Tensor,
@@ -190,7 +158,7 @@ def _launch(qsum, v_w, v_b, energy_scale, mask, memory, plan: TailPlan
     if err != 0:
         raise RuntimeError(f"attention_tail: launch failed with CUDA error "
                            f"{err}")
-    attention_tail.launches += 1
+    attention_tail.launches += -(-b // MAX_ITEMS)
     return attn, ctx
 
 
@@ -221,12 +189,9 @@ def _forward(qsum: torch.Tensor, v_w: torch.Tensor, v_b: torch.Tensor,
     for x in (v_w, v_b, energy_scale, mask, memory):
         if x.device != dev:
             raise ValueError("attention_tail: tensors on different devices")
-    if not tail_kernel_takes(b, t, a, shape[2], memory.dtype):
-        return attention_tail_reference(qsum, v_w, v_b, energy_scale, mask,
-                                        memory)
     return _launch(qsum.contiguous(), v_w.contiguous(), v_b, energy_scale,
                    mask.contiguous(), memory.contiguous(),
-                   _plan(b, t, a, shape[2], memory.dtype)[0])
+                   tail_plan(b, t, a, shape[2], memory.dtype))
 
 
 class _AttentionTail(torch.autograd.Function):
@@ -273,10 +238,8 @@ def attention_tail(qsum: torch.Tensor, v_w: torch.Tensor, v_b: torch.Tensor,
     ``memory``.
 
     CPU tensors take the plain version; CUDA tensors launch the CUDA
-    kernel where :func:`tail_kernel_takes` says it takes the shapes, else
-    run the plain version; bad inputs raise.  Where no gradient is wanted
-    (serving runs under ``torch.no_grad``) the autograd function is left
-    out.
+    kernel (or raise).  Where no gradient is wanted (serving runs under
+    ``torch.no_grad``) the autograd function is left out.
     ``attention_tail.launches`` counts launches.
     """
     if torch.is_grad_enabled() and (

@@ -38,13 +38,11 @@ import torch.nn.functional as F
 
 from ..models.layers import BatchNorm, Conv1d
 from . import _build
-from .routes import refuse
 
 ACTS = {"none": 0, "relu": 1, "tanh": 2}
 TILE = 64          # output channels (and time steps) of the kernel's tile
 CHUNK = 32         # the folded weights' C_in is padded to whole chunks
 MAX_TAPS = 9       # the kernel stages 4 steps on either side of a tile
-MAX_TAPS_BF16 = 7  # the bf16 kernel holds every tap's operand in registers
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,26 +218,6 @@ def conv_bn_act_reference(x: torch.Tensor, conv: Conv1d, bn: BatchNorm,
     return _activate(y + h, act).transpose(1, 2)
 
 
-def conv_kernel_takes(conv: Conv1d) -> bool:
-    """Does the kernel take this layer?  It takes odd kernel sizes ('same'
-    padding) up to ``MAX_TAPS_BF16`` taps with bf16 weights and
-    ``MAX_TAPS`` with fp32 weights; for other layers the encoder and the
-    postnet run the unfused conv, BatchNorm and activation, as the JAX
-    package runs XLA's conv, with a notice once.  Weights of a dtype other
-    than a float raise."""
-    wdtype = conv.weight.dtype
-    if not wdtype.is_floating_point:
-        raise TypeError(f"conv_bn_act: weight dtype {wdtype}")
-    if wdtype not in (torch.float32, torch.bfloat16):
-        return refuse("conv_bn_act", f"{wdtype} weights")
-    k = conv.weight.shape[2]
-    max_k = MAX_TAPS_BF16 if wdtype == torch.bfloat16 else MAX_TAPS
-    if k % 2 == 0 or k > max_k:
-        return refuse("conv_bn_act", f"a kernel size of {k} with {wdtype} "
-                      f"weights (odd sizes up to {max_k} only)")
-    return True
-
-
 @torch.no_grad()
 def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
                 act: str) -> torch.Tensor:
@@ -248,10 +226,10 @@ def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
     T) fp32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise): one launch a call once the layer's fold is made.  Odd kernel
-    sizes only ('same' padding); the callers route other layers
-    (:func:`conv_kernel_takes`).  ``conv_bn_act.launches`` counts
-    launches."""
+    raise): one launch a call once the layer's fold is made.  Kernel
+    sizes up to ``MAX_TAPS``, odd or even, with 'same' padding as
+    ``models/layers.py::conv1d_same`` pads: ``(k - 1) // 2`` steps before,
+    ``k // 2`` after.  ``conv_bn_act.launches`` counts launches."""
     if x.device.type == "cpu":
         return conv_bn_act_reference(x, conv, bn, eps, act)
     if x.device.type != "cuda":
@@ -268,10 +246,10 @@ def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
     if x.dtype not in (torch.float32, wdtype):
         raise TypeError(f"conv_bn_act: input dtype {x.dtype} with "
                         f"{wdtype} weights")
-    max_k = MAX_TAPS_BF16 if wdtype == torch.bfloat16 else MAX_TAPS
-    if k % 2 == 0 or k > max_k:
-        raise ValueError(f"conv_bn_act supports odd kernel sizes only, up "
-                         f"to {max_k} with {wdtype} weights; got {k}")
+    if k > MAX_TAPS:
+        raise ValueError(f"conv_bn_act takes kernel sizes up to {MAX_TAPS} "
+                         f"(the input is staged with 4 steps on either side "
+                         f"of a tile); got {k}")
     if conv.weight.device != x.device or bn.running_var.device != x.device:
         raise ValueError("conv_bn_act: weights and input on different "
                          "devices")

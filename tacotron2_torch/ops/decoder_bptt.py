@@ -14,9 +14,7 @@ differentiated by hand, split into its two structurally different parts:
 
 :func:`decoder_scan_bptt` is a ``torch.autograd.Function`` around the pair.
 On CUDA tensors with ``cfg.decoder_megakernel`` both halves run as the
-persistent CUDA kernels where they take the config
-(``ops/decoder_train_kernel.py::train_kernel_takes``); otherwise the
-forward is the step loop of
+persistent CUDA kernels; otherwise the forward is the step loop of
 ``decoder_fwd_train_reference`` with the CUDA ``attention_tail`` and the
 reverse chain is the plain loop; on CPU tensors always the plain versions.
 The residuals are those of the JAX package's kernel route: the hidden
@@ -45,7 +43,7 @@ from .decoder_bwd_kernel import (decoder_bwd_chain_mega,
 from .decoder_train_kernel import (PARAM_NAMES, acc_dtype,
                                    decoder_fwd_train_mega,
                                    decoder_fwd_train_reference,
-                                   kernel_operands, train_kernel_takes)
+                                   kernel_operands)
 
 
 def step_dropout_masks(cfg: ModelConfig, t_dec: int, b: int,
@@ -158,9 +156,7 @@ class _DecoderScanBPTT(torch.autograd.Function):
                 *params):
         p = dict(zip(PARAM_NAMES, params))
         ops = kernel_operands(p)
-        # the backward runs the same route as the forward
-        ctx.mega = mega = (cfg.decoder_megakernel
-                           and train_kernel_takes(cfg, memory))
+        mega = cfg.decoder_megakernel
         fwd = decoder_fwd_train_mega if mega else functools.partial(
             decoder_fwd_train_reference, tail=attention_tail)
         (frames, attns, ha_s, ca_s, hd_s, cd_s, qsum_s, aa_s,
@@ -190,7 +186,7 @@ class _DecoderScanBPTT(torch.autograd.Function):
         cdt = ops["wi_a"].dtype
         f = acc_dtype(cdt)
         d_out_s = torch.cat([d_mels, d_gates[..., None]], dim=-1).to(f)
-        bwd = (decoder_bwd_chain_mega if ctx.mega
+        bwd = (decoder_bwd_chain_mega if cfg.decoder_megakernel
                else decoder_bwd_chain_reference)
         (g_att_s, g_dec_s, d_ctx_s, d_pre_s, d_qsum_s, d_pq_s, dv, dpm,
          scal) = bwd(cfg, ops, memory, mka_s, mkd_s, aa_s, ad_s, ca_s, cd_s,

@@ -28,7 +28,8 @@ attention-LSTM backward.  Both return, in this order,
     scal (2,) fp32                    [sum d_e * (e_raw + v_b), sum d_e]
 
 from which the weight gradients are time-batched products
-(``ops/decoder_bptt.py``).
+(``ops/decoder_bptt.py``).  The kernel runs at ``kernel_widths``, as the
+forward does (``ops/decoder_train_kernel.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +42,10 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from . import _build
+from .decoder_megakernel import kernel_widths, pad_operands
 from .decoder_train_kernel import (acc_dtype, check_keep_mask,
-                                   check_pair_inputs)
+                                   check_pair_inputs, pad_series,
+                                   unpad_series)
 
 
 def _gate_grads(d_h_drop, keep, mk, pre, c_t, c_prev, d_c, cdt):
@@ -178,34 +181,23 @@ class ChainPlan(NamedTuple):
     smem_bytes: int        # dynamic shared memory of a block
 
 
-def chain_smem_bytes(a: int, taps: int) -> int:
-    """A block's dynamic shared memory at attention width ``a`` and a
-    location conv of ``taps`` taps: phase C2's partials, C3's staged rows
-    and location matrix (as fp32), the products' ring; one region, used in
-    turn."""
-    return max(4 * (2 * _POSITIONS_PER_BLOCK * a + 2 * _POSITIONS_PER_BLOCK),
-               4 * (_POSITIONS_PER_BLOCK + 3 * taps - 1) * a,
-               _PRODUCT_SMEM_BYTES)
-
-
-def chain_fits(a: int, taps: int) -> bool:
-    """Whether two blocks of the reverse chain fit an SM at these widths."""
-    return chain_smem_bytes(a, taps) <= _SMEM_PER_BLOCK
-
-
 def chain_plan(dims: Dict[str, int], b: int, t_enc: int, taps: int,
                cdt: torch.dtype) -> ChainPlan:
-    """The plan of one launch at widths ``dims`` (H, P, E, A, M), batch
-    ``b``, ``t_enc`` encoder steps and a location conv of ``taps`` taps;
-    raises on what the kernel cannot take (the widths' multiples of 8 are
-    ``check_pair_inputs``'s).  Phase A's operand, the output cotangent, is
+    """The plan of one launch at the kernel's widths ``dims`` (H, P, E,
+    A, M, multiples of 8: ``kernel_widths``), batch ``b``, ``t_enc``
+    encoder steps and a location conv of ``taps`` taps; raises on what the
+    kernel cannot take.  Phase A's operand, the output cotangent, is
     zero-padded from M + 1 to 8 columns."""
     if b < 1 or t_enc < 1:
         raise ValueError(f"decoder_bwd_chain_mega: batch {b}, T_enc {t_enc}")
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decoder_bwd_chain_mega: weight dtype {cdt}")
     h, a, m = dims["H"], dims["A"], dims["M"]
-    smem = chain_smem_bytes(a, taps)
+    # phase C2's partials, C3's staged rows and location matrix (as fp32),
+    # the products' ring: one region, used in turn
+    smem = max(4 * (2 * _POSITIONS_PER_BLOCK * a + 2 * _POSITIONS_PER_BLOCK),
+               4 * (_POSITIONS_PER_BLOCK + 3 * taps - 1) * a,
+               _PRODUCT_SMEM_BYTES)
     if smem > _SMEM_PER_BLOCK:
         raise ValueError(f"decoder_bwd_chain_mega: {smem} bytes of shared "
                          "memory a block leave no room for two an SM")
@@ -252,7 +244,8 @@ def decoder_bwd_chain_mega(
     """Same signature and returns as :func:`decoder_bwd_chain_reference`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise).  ``decoder_bwd_chain_mega.launches`` counts launches.
+    raise), at ``kernel_widths``.  ``decoder_bwd_chain_mega.launches``
+    counts launches.
     """
     name = "decoder_bwd_chain_mega"
     args_in = (cfg, ops, memory, mka_s, mkd_s, aa_s, ad_s, ca_s, cd_s, attns,
@@ -264,7 +257,7 @@ def decoder_bwd_chain_mega(
     t_dec, b, _ = aa_s.shape
     t_enc = memory.shape[1]
     dims = check_pair_inputs(name, cfg, ops, memory, t_dec)
-    H, M, A, E, P = (dims[n] for n in "HMAEP")
+    H, M, A = dims["H"], dims["M"], dims["A"]
     dev, cdt = memory.device, ops["wi_a"].dtype
     want = dict(aa_s=((t_dec, b, 4 * H), cdt), ad_s=((t_dec, b, 4 * H), cdt),
                 ca_s=((t_dec, b, H), torch.float32),
@@ -283,7 +276,11 @@ def decoder_bwd_chain_mega(
         raise ValueError(f"{name}: memory batch {memory.shape[0]} != {b}")
     keep_a = 1.0 - cfg.p_attention_dropout
     keep_d = 1.0 - cfg.p_decoder_dropout
-    plan = chain_plan(dims, b, t_enc, cfg.location_kernel_size, cdt)
+    kd = kernel_widths(cfg)
+    pad = lambda x, kind: pad_series(x, kind, dims, kd).contiguous()
+    ops = pad_operands(ops, dims, kd)
+    H, M, A, E, P = (kd[n] for n in "HMAEP")
+    plan = chain_plan(kd, b, t_enc, cfg.location_kernel_size, cdt)
     mp = plan.head_cols
     tr = lambda x: x.t().contiguous()
     e = lambda *shape, dtype=torch.float32: torch.empty(*shape, device=dev,
@@ -295,16 +292,18 @@ def decoder_bwd_chain_mega(
         w_b=w_b, w_e=w_e, wq_t=tr(ops["wq"]),
         w_heads_t=F.pad(tr(ops["w_heads"]), (0, mp - M - 1)).contiguous(),
         wloc=ops["wloc"], v=ops["v"], scal=ops["scal"],
-        mem=memory.detach().to(cdt).contiguous(),
-        aa_s=aa_s.contiguous(), ad_s=ad_s.contiguous(),
-        ca_s=ca_s.contiguous(), cd_s=cd_s.contiguous(),
-        attn_s=attns.contiguous(), qsum_s=qsum_s.contiguous(),
-        d_out=F.pad(d_out_s, (0, mp - M - 1)).to(cdt).contiguous(),
+        mem=pad(memory.detach().to(cdt), "E"),
+        aa_s=pad(aa_s, "4H"), ad_s=pad(ad_s, "4H"),
+        ca_s=pad(ca_s, "H"), cd_s=pad(cd_s, "H"),
+        attn_s=attns.contiguous(), qsum_s=pad(qsum_s, "TA"),
+        d_out=F.pad(pad(d_out_s, "M+1"), (0, mp - M - 1)).to(
+            cdt).contiguous(),
         d_attn_out=d_attn_out.contiguous())
-    ins["mka"] = check_keep_mask(name, mka_s, keep_a, (t_dec, b, H),
-                                 ins["ca_s"])
-    ins["mkd"] = check_keep_mask(name, mkd_s, keep_d, (t_dec, b, H),
-                                 ins["ca_s"])
+    for key, mk, keep in (("mka", mka_s, keep_a), ("mkd", mkd_s, keep_d)):
+        ins[key] = check_keep_mask(name, mk, keep, (t_dec, b, dims["H"]),
+                                   ins["ca_s"])
+        if keep < 1.0:
+            ins[key] = pad(ins[key], "H")
     out = dict(g_att_s=e(t_dec, b, 4 * H, dtype=cdt),
                g_dec_s=e(t_dec, b, 4 * H, dtype=cdt),
                d_ctx_s=e(t_dec, b, E), d_pre_s=e(t_dec, b, P),
@@ -321,7 +320,7 @@ def decoder_bwd_chain_mega(
     tensors = {**ins, **out, **scratch}
     args = _Args(**{k: v.data_ptr() for k, v in tensors.items()},
                  B=b, T=t_enc, MP=mp, K=cfg.location_kernel_size, S=t_dec,
-                 keep_a=keep_a, keep_d=keep_d, **dims)
+                 keep_a=keep_a, keep_d=keep_d, **kd)
     err = _lib().t2_decoder_train_bwd(
         ctypes.byref(args), int(cdt == torch.bfloat16), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -330,7 +329,10 @@ def decoder_bwd_chain_mega(
     decoder_bwd_chain_mega.launches += 1
     decoder_bwd_chain_mega.last_grid_blocks = args.grid_blocks
     decoder_bwd_chain_mega.last_plan = plan
-    return tuple(out.values())
+    kinds = dict(g_att_s="4H", g_dec_s="4H", d_ctx_s="E", d_pre_s="P",
+                 d_qsum_s="TA", d_pq_s="A", dv="A", dpm="TA")
+    return tuple(unpad_series(x, kinds[k], dims, kd) if k in kinds else x
+                 for k, x in out.items())
 
 
 decoder_bwd_chain_mega.launches = 0

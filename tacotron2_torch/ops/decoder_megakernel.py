@@ -9,19 +9,27 @@ step: ~10.9 us per step in bf16, ~21.7 us in fp32 on an H100 SXM at
 :func:`decode_weights` makes once per model and keeps.  The plain version,
 :func:`decoder_infer_mega_reference`, is the step loop of
 ``models/decoder.py`` with the plain attention tail.
+
+The kernel's widths are multiples of 8 (16-byte vector loads).  Where a
+config's are not, :func:`pad_operands` zero-pads the weights to
+:func:`kernel_widths` once with the re-layout, and the wrapper pads the
+memory and slices the mels: the padded units of each LSTM stay 0 (zero
+weights and bias: i = f = o = 1/2, g = 0, from a zero cell), the padded
+columns of every product meet zero weights, so each sum only gains zero
+terms.
 """
 
 from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from ..models.decoder import Decoder
 from . import _build
-from .routes import refuse
 
 
 class _Args(ctypes.Structure):
@@ -68,6 +76,86 @@ def decoder_infer_mega_reference(dec: Decoder, memory: torch.Tensor,
     return decoder_infer_steps(dec, memory, max_steps, gate_threshold,
                                drop_first_frame, mask, stop_mode,
                                forced_stop_at, tail=attention_tail_reference)
+
+
+def _widths(cfg) -> Dict[str, int]:
+    return dict(H=cfg.decoder_rnn_dim, P=cfg.prenet_dim,
+                E=cfg.encoder_embedding_dim, A=cfg.attention_dim,
+                M=cfg.n_mels)
+
+
+def kernel_widths(cfg) -> Dict[str, int]:
+    """The widths H, P, E, A, M the decoder kernels run at: the config's,
+    each rounded up to a multiple of 8."""
+    return {k: -(-v // 8) * 8 for k, v in _widths(cfg).items()}
+
+
+def pad_to(x: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """``x`` zero-padded at the end of its last ``len(sizes)`` dims to
+    ``sizes``; ``x`` itself where nothing grows."""
+    pads = []
+    for n, size in zip(reversed(x.shape), reversed(sizes)):
+        pads += [0, size - n]
+    return F.pad(x, pads) if any(pads) else x
+
+
+def pad_gates(x: torch.Tensor, h: int, hk: int) -> torch.Tensor:
+    """(..., 4h) in PyTorch's gate order (i, f, g, o blocks of h) ->
+    (..., 4hk), each block zero-padded to hk."""
+    if h == hk:
+        return x
+    lead = x.shape[:-1]
+    return pad_to(x.reshape(*lead, 4, h), 4, hk).reshape(*lead, 4 * hk)
+
+
+def unpad_gates(x: torch.Tensor, h: int, hk: int) -> torch.Tensor:
+    """The inverse of :func:`pad_gates`: (..., 4hk) -> (..., 4h)."""
+    if h == hk:
+        return x
+    lead = x.shape[:-1]
+    return x.reshape(*lead, 4, hk)[..., :h].reshape(*lead, 4 * h)
+
+
+def _pad_cols(w: torch.Tensor, widths: Sequence[int],
+              widths_k: Sequence[int]) -> torch.Tensor:
+    """(n, sum(widths)) -> (n, sum(widths_k)), each column segment
+    zero-padded."""
+    if tuple(widths) == tuple(widths_k):
+        return w
+    return torch.cat([pad_to(x, k) for x, k in
+                      zip(w.split(list(widths), 1), widths_k)], 1)
+
+
+def pad_operands(ops: Dict[str, torch.Tensor], dims: Dict[str, int],
+                 kd: Dict[str, int]) -> Dict[str, torch.Tensor]:
+    """The weight operands (keys of :func:`_weights` or
+    ``ops/decoder_train_kernel.py::kernel_operands``, PyTorch layout) at
+    the config's widths ``dims``, zero-padded to the kernel's ``kd``
+    (:func:`kernel_widths`); ``ops`` itself where the two agree."""
+    if dims == kd:
+        return ops
+    h, hk, m, mk = dims["H"], kd["H"], dims["M"], kd["M"]
+
+    def cols(w, *names):
+        return _pad_cols(w, [dims[n] for n in names], [kd[n] for n in names])
+
+    def lstm(w, *names):        # (4H, K): gate rows, column segments
+        return pad_gates(cols(w, *names).t(), h, hk).t()
+
+    heads = lambda x: torch.cat([pad_to(x[:m], mk, *x.shape[1:]), x[m:]])
+    out = dict(
+        wi_a=lstm(ops["wi_a"], "P", "E"), wh_a=lstm(ops["wh_a"], "H"),
+        wi_d=lstm(ops["wi_d"], "H", "E"), wh_d=lstm(ops["wh_d"], "H"),
+        wq=pad_to(ops["wq"], kd["A"], hk),
+        wloc=pad_to(ops["wloc"], kd["A"]),
+        w_heads=heads(cols(ops["w_heads"], "H", "E")),
+        b_a=pad_gates(ops["b_a"], h, hk), b_d=pad_gates(ops["b_d"], h, hk),
+        b_heads=heads(ops["b_heads"]), v=pad_to(ops["v"], kd["A"]),
+        scal=ops["scal"])
+    if "pw1" in ops:
+        out["pw1"] = pad_to(ops["pw1"], kd["P"], mk)
+        out["pw2"] = pad_to(ops["pw2"], kd["P"], kd["P"])
+    return {k: v.contiguous() for k, v in out.items()}
 
 
 def _weights(dec: Decoder) -> dict:
@@ -135,19 +223,23 @@ def tile_major(w: torch.Tensor, widths, rows: int) -> torch.Tensor:
 
 
 def _segments(cfg) -> dict:
-    """Each weight matrix's operand segments, in the kernel's order."""
-    h, e, p = cfg.decoder_rnn_dim, cfg.encoder_embedding_dim, cfg.prenet_dim
-    return dict(pw1=(cfg.n_mels,), pw2=(p,), w_att=(p, e, h),
+    """Each weight matrix's operand segments at the kernel's widths
+    (:func:`kernel_widths`), in the kernel's order."""
+    kd = kernel_widths(cfg)
+    h, e, p = kd["H"], kd["E"], kd["P"]
+    return dict(pw1=(kd["M"],), pw2=(p,), w_att=(p, e, h),
                 w_dec=(h, e, h), wq=(h,), w_heads=(h, e))
 
 
 def _relaid(dec: Decoder) -> dict:
-    """:func:`_weights` in the kernel's layout (see :func:`decode_weights`)."""
-    ops = _weights(dec)
+    """:func:`_weights` padded to :func:`kernel_widths` and in the
+    kernel's layout (see :func:`decode_weights`)."""
+    kd = kernel_widths(dec.cfg)
+    ops = dict(pad_operands(_weights(dec), _widths(dec.cfg), kd))
     for name in ("att", "dec"):
         wi, wh = ops.pop(f"wi_{name[0]}"), ops.pop(f"wh_{name[0]}")
         ops[f"w_{name}"] = gate_interleave(torch.cat([wi, wh], 1))
-    m = dec.cfg.n_mels
+    m = kd["M"]
     ops["w_heads"] = torch.cat([ops["w_heads"][m:], ops["w_heads"][:m]])
     ops["b_heads"] = torch.cat([ops["b_heads"][m:], ops["b_heads"][:m]])
     for name, widths in _segments(dec.cfg).items():
@@ -191,54 +283,24 @@ def decode_weights(dec: Decoder) -> dict:
     return plan[2]
 
 
-def _widths(cfg) -> dict:
-    return dict(H=cfg.decoder_rnn_dim, P=cfg.prenet_dim,
-                E=cfg.encoder_embedding_dim, A=cfg.attention_dim,
-                M=cfg.n_mels)
-
-
-def infer_kernel_takes(cfg, memory: torch.Tensor) -> bool:
-    """Does the kernel take this config and this (B, T_enc, E) memory?
-    It does not take widths that are not multiples of 8 (16-byte vector
-    loads) or an attention rnn dim other than the decoder's: for those the
-    caller runs the plain step loop, as the JAX package serves its
-    ``while_loop`` (``megakernel_enabled``), with a notice once.  A memory
-    of another width than the config's raises."""
-    if memory.ndim != 3 or memory.shape[2] != cfg.encoder_embedding_dim:
-        raise ValueError(f"decoder_infer_mega: memory {tuple(memory.shape)} "
-                         f"does not match encoder_embedding_dim "
-                         f"{cfg.encoder_embedding_dim}")
-    dims = _widths(cfg)
-    if cfg.attention_rnn_dim != dims["H"]:
-        return refuse("decoder_infer_mega",
-                      f"attention_rnn_dim {cfg.attention_rnn_dim} other than "
-                      f"decoder_rnn_dim {dims['H']}")
-    odd = {k: v for k, v in dims.items() if v % 8}
-    if odd:
-        return refuse("decoder_infer_mega", f"widths {odd} that are not "
-                      "multiples of 8 (16-byte vector loads)")
-    return True
-
-
 def check_launch(dec: Decoder, memory: torch.Tensor, max_steps: int,
                  mask: Optional[torch.Tensor], stop_mode: str) -> None:
-    """Raise on what the kernel does not take: another stop mode, widths
-    that are not multiples of 8 (16-byte vector loads), a memory width or
-    attention rnn dim other than the config's, a weight dtype other than
-    fp32 or bf16, ``max_steps`` < 1, weights and memory on different
-    devices, a mask that is not a bool (B, T_enc) tensor on the memory's
-    device."""
+    """Raise on what the kernel does not take: another stop mode, a
+    memory width other than the config's, an attention rnn dim other than
+    the decoder's (the attention LSTM is ``decoder_rnn_dim`` wide), a
+    weight dtype other than fp32 or bf16, ``max_steps`` < 1, weights and
+    memory on different devices, a mask that is not a bool (B, T_enc)
+    tensor on the memory's device."""
     if stop_mode not in ("any", "all"):
         raise ValueError(f"stop_mode must be 'any' or 'all', got {stop_mode}")
     cfg = dec.cfg
+    if memory.ndim != 3:
+        raise ValueError(f"decoder_infer_mega: memory {tuple(memory.shape)}")
     b, t_enc, e = memory.shape
-    dims = _widths(cfg)
-    if e != dims["E"] or cfg.attention_rnn_dim != dims["H"]:
+    if e != cfg.encoder_embedding_dim \
+            or cfg.attention_rnn_dim != cfg.decoder_rnn_dim:
         raise ValueError("decoder_infer_mega: memory width or attention "
                          "rnn dim does not match the config")
-    if any(v % 8 for v in dims.values()):
-        raise ValueError(f"decoder_infer_mega needs every width a multiple "
-                         f"of 8 (16-byte vector loads), got {dims}")
     cdt = dec.attention_lstm.weight_ih.dtype
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decoder_infer_mega: weight dtype {cdt}")
@@ -262,9 +324,8 @@ def decoder_infer_mega(dec: Decoder, memory: torch.Tensor, max_steps: int,
     """Same signature and returns as ``models.decoder.decoder_infer``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise: ``models/decoder.py::decoder_infer`` routes a config that
-    :func:`infer_kernel_takes` refuses to the step loop instead).
-    ``decoder_infer_mega.launches`` counts launches.
+    raise), at :func:`kernel_widths`.  ``decoder_infer_mega.launches``
+    counts launches.
     """
     if memory.device.type == "cpu":
         return decoder_infer_mega_reference(
@@ -276,12 +337,13 @@ def decoder_infer_mega(dec: Decoder, memory: torch.Tensor, max_steps: int,
     check_launch(dec, memory, max_steps, mask, stop_mode)
     cfg = dec.cfg
     b, t_enc, _ = memory.shape
-    dims = _widths(cfg)
+    dims = kernel_widths(cfg)
     cdt = dec.attention_lstm.weight_ih.dtype
     dev = memory.device
     ops = dict(decode_weights(dec))
-    ops["mem"] = memory.detach().to(cdt).contiguous()
-    ops["pm"] = dec.attention.memory_layer(memory).contiguous()
+    ops["mem"] = pad_to(memory.detach().to(cdt), dims["E"]).contiguous()
+    ops["pm"] = pad_to(dec.attention.memory_layer(memory),
+                       dims["A"]).contiguous()
     if mask is None:
         mask = torch.zeros(b, t_enc, dtype=torch.bool, device=dev)
     ops["mask"] = mask.contiguous().view(torch.uint8)
@@ -317,8 +379,10 @@ def decoder_infer_mega(dec: Decoder, memory: torch.Tensor, max_steps: int,
                            f"error {err}")
     decoder_infer_mega.launches += 1
     decoder_infer_mega.last_grid_blocks = args.grid_blocks
-    return (out["mels"], out["gates"], out["aligns"], out["n_frames"][0],
-            out["ends"])
+    mels = out["mels"]
+    if M != cfg.n_mels:
+        mels = mels[..., :cfg.n_mels].contiguous()
+    return mels, out["gates"], out["aligns"], out["n_frames"][0], out["ends"]
 
 
 decoder_infer_mega.launches = 0

@@ -26,6 +26,13 @@ dropout, fused projection + gate head.  Both return, in this order,
 as ``(frames, attn, ha_s, ca_s, hd_s, cd_s, qsum_s, aa_s, ad_s)``; cdt is
 the weight dtype.  The stored series are what the reverse-chain kernel
 (``ops/decoder_bwd_kernel.py``) consumes.
+
+Both kernels of the pair run at ``ops/decoder_megakernel.py::
+kernel_widths``, multiples of 8: where a config's widths are not, the
+wrappers zero-pad the operands and inputs and cut the padding off what
+comes back (:func:`pad_series`, :func:`unpad_series`); the padded units
+stay 0 in the forward and take no gradient in the reverse chain, so each
+sum only gains zero terms.
 """
 
 from __future__ import annotations
@@ -38,10 +45,10 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from . import _build
-from .routes import refuse
 from .attention_kernel import attention_tail_reference
 from .decoder_megakernel import (LSTM_TILE_ROWS, TILE_ROWS, gate_interleave,
-                                 tile_major)
+                                 kernel_widths, pad_gates, pad_operands,
+                                 pad_to, tile_major, unpad_gates)
 
 # Decoder parameters that the kernel pair reads, by their names under
 # ``models.decoder.Decoder`` (the prenet and the memory layer act outside).
@@ -238,53 +245,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def train_kernel_takes(cfg: ModelConfig, memory: torch.Tensor) -> bool:
-    """Does the kernel pair (this forward and the reverse chain of
-    ``ops/decoder_bwd_kernel.py``) take this config and this (B, T_enc, E)
-    memory?  It does not take widths that are not multiples of 8 (16-byte
-    vector loads), an attention rnn dim other than the decoder's, or an
-    attention width and location conv whose staged rows leave the reverse
-    chain no room for two blocks an SM: for those ``ops/decoder_bptt.py``
-    runs the plain pair, as the JAX package falls back to its scan
-    (``train_megakernel_enabled``), with a notice once.  A memory of
-    another width than the config's raises."""
-    from .decoder_bwd_kernel import chain_fits
-    if memory.ndim != 3 or memory.shape[2] != cfg.encoder_embedding_dim:
-        raise ValueError(f"decoder_fwd_train_mega: memory "
-                         f"{tuple(memory.shape)} does not match "
-                         f"encoder_embedding_dim {cfg.encoder_embedding_dim}")
-    name = "decoder_fwd_train_mega/decoder_bwd_chain_mega"
-    dims = dict(H=cfg.decoder_rnn_dim, P=cfg.prenet_dim,
-                E=cfg.encoder_embedding_dim, A=cfg.attention_dim,
-                M=cfg.n_mels)
-    if cfg.attention_rnn_dim != dims["H"]:
-        return refuse(name, f"attention_rnn_dim {cfg.attention_rnn_dim} "
-                      f"other than decoder_rnn_dim {dims['H']}")
-    odd = {k: v for k, v in dims.items() if v % 8}
-    if odd:
-        return refuse(name, f"widths {odd} that are not multiples of 8 "
-                      "(16-byte vector loads)")
-    if not chain_fits(dims["A"], cfg.location_kernel_size):
-        return refuse(name, f"attention_dim {dims['A']} with a "
-                      f"{cfg.location_kernel_size}-tap location conv (the "
-                      "reverse chain's staged rows leave no room for two "
-                      "blocks an SM)")
-    return True
-
-
 def check_pair_inputs(name: str, cfg: ModelConfig,
                       ops: Dict[str, torch.Tensor], memory: torch.Tensor,
                       t_dec: int) -> Dict[str, int]:
-    """The checks both kernels of the pair share; returns the widths."""
+    """The checks both kernels of the pair share; returns the config's
+    widths (the kernels run at ``kernel_widths``)."""
     dims = dict(H=cfg.decoder_rnn_dim, P=cfg.prenet_dim,
                 E=cfg.encoder_embedding_dim, A=cfg.attention_dim,
                 M=cfg.n_mels)
-    if memory.shape[2] != dims["E"] or cfg.attention_rnn_dim != dims["H"]:
+    if memory.ndim != 3 or memory.shape[2] != dims["E"] \
+            or cfg.attention_rnn_dim != dims["H"]:
         raise ValueError(f"{name}: memory width or attention rnn dim does "
                          "not match the config")
-    if any(v % 8 for v in dims.values()):
-        raise ValueError(f"{name} needs every width a multiple of 8 "
-                         f"(16-byte vector loads), got {dims}")
     cdt = ops["wi_a"].dtype
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: weight dtype {cdt}")
@@ -310,6 +282,42 @@ def check_keep_mask(name: str, mk: Optional[torch.Tensor], keep: float,
     return mk.to(torch.uint8).contiguous()
 
 
+def pad_series(x: torch.Tensor, kind: str, dims: Dict[str, int],
+               kd: Dict[str, int]) -> torch.Tensor:
+    """A series at the config's widths ``dims`` zero-padded to the
+    kernels' ``kd``.  ``kind``: a width's letter (the last dim), ``"4H"``
+    (LSTM gates in PyTorch's order), ``"TA"`` (T_enc blocks of A) or
+    ``"M+1"`` (mels then the gate)."""
+    if dims == kd:
+        return x
+    if kind == "4H":
+        return pad_gates(x, dims["H"], kd["H"])
+    if kind == "TA":
+        lead = x.shape[:-1]
+        a, ak = dims["A"], kd["A"]
+        return pad_to(x.reshape(*lead, -1, a), ak).reshape(*lead, -1)
+    if kind == "M+1":
+        m = dims["M"]
+        return torch.cat([pad_to(x[..., :m], kd["M"]), x[..., m:]], -1)
+    return pad_to(x, kd[kind])
+
+
+def unpad_series(x: torch.Tensor, kind: str, dims: Dict[str, int],
+                 kd: Dict[str, int]) -> torch.Tensor:
+    """The inverse of :func:`pad_series`, contiguous."""
+    if dims == kd:
+        return x
+    if kind == "4H":
+        return unpad_gates(x, dims["H"], kd["H"]).contiguous()
+    if kind == "TA":
+        lead = x.shape[:-1]
+        return x.reshape(*lead, -1, kd["A"])[..., :dims["A"]].reshape(
+            *lead, -1)
+    if kind == "M+1":
+        return torch.cat([x[..., :dims["M"]], x[..., kd["M"]:]], -1)
+    return x[..., :dims[kind]].contiguous()
+
+
 def decoder_fwd_train_mega(
         cfg: ModelConfig, ops: Dict[str, torch.Tensor],
         prenet_tbd: torch.Tensor, memory: torch.Tensor, pm: torch.Tensor,
@@ -318,7 +326,8 @@ def decoder_fwd_train_mega(
     """Same signature and returns as :func:`decoder_fwd_train_reference`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise).  ``decoder_fwd_train_mega.launches`` counts launches.
+    raise), at ``kernel_widths``.  ``decoder_fwd_train_mega.launches``
+    counts launches.
     """
     name = "decoder_fwd_train_mega"
     if memory.device.type == "cpu":
@@ -329,10 +338,11 @@ def decoder_fwd_train_mega(
     t_dec, b, _ = prenet_tbd.shape
     t_enc = memory.shape[1]
     dims = check_pair_inputs(name, cfg, ops, memory, t_dec)
-    H, M, A = dims["H"], dims["M"], dims["A"]
+    kd = kernel_widths(cfg)
+    H, M, A = kd["H"], kd["M"], kd["A"]
     dev, cdt = memory.device, ops["wi_a"].dtype
     if (prenet_tbd.shape != (t_dec, b, dims["P"]) or memory.shape[0] != b
-            or pm.shape != (b, t_enc, A) or mask.shape != (b, t_enc)
+            or pm.shape != (b, t_enc, dims["A"]) or mask.shape != (b, t_enc)
             or mask.dtype != torch.bool
             or any(x.device != dev for x in (prenet_tbd, pm, mask))):
         raise ValueError(f"{name}: shape, dtype or device mismatch: prenet "
@@ -351,24 +361,27 @@ def decoder_fwd_train_mega(
                qsum_s=e(t_dec, b, t_enc * A, dtype=cdt),
                aa_s=e(t_dec, b, 4 * H, dtype=cdt),
                ad_s=e(t_dec, b, 4 * H, dtype=cdt))
+    pad = lambda x, kind: pad_series(x, kind, dims, kd).contiguous()
     ins = dict(
-        mem=memory.detach().to(cdt).contiguous(),
-        pm=pm.detach().float().contiguous(),
+        mem=pad(memory.detach().to(cdt), "E"),
+        pm=pad(pm.detach().float(), "A"),
         mask=mask.contiguous().view(torch.uint8),
-        pre=prenet_tbd.detach().to(cdt).contiguous())
-    ins["mka"] = check_keep_mask(name, mka_s, keep_a, (t_dec, b, H),
-                                 ins["mask"])
-    ins["mkd"] = check_keep_mask(name, mkd_s, keep_d, (t_dec, b, H),
-                                 ins["mask"])
-    scratch = dict(ctx_w=z(2, b, dims["E"], dtype=cdt),
+        pre=pad(prenet_tbd.detach().to(cdt), "P"))
+    for key, mk, keep in (("mka", mka_s, keep_a), ("mkd", mkd_s, keep_d)):
+        ins[key] = check_keep_mask(name, mk, keep, (t_dec, b, dims["H"]),
+                                   ins["mask"])
+        if keep < 1.0:
+            ins[key] = pad(ins[key], "H")
+    scratch = dict(ctx_w=z(2, b, kd["E"], dtype=cdt),
                    h_att_w=z(2, b, H, dtype=cdt),
                    h_dec_w=z(2, b, H, dtype=cdt), prev=z(b, t_enc),
                    cum=z(b, t_enc), pq=e(b, A), energy=e(b, t_enc),
                    bar=z(1, dtype=torch.int32))
-    tensors = {**train_weights(ops), **ins, **out, **scratch}
+    tensors = {**train_weights(pad_operands(ops, dims, kd)), **ins, **out,
+               **scratch}
     args = _Args(**{k: v.data_ptr() for k, v in tensors.items()},
                  B=b, T=t_enc, K=cfg.location_kernel_size, S=t_dec,
-                 keep_a=keep_a, keep_d=keep_d, **dims)
+                 keep_a=keep_a, keep_d=keep_d, **kd)
     err = _lib().t2_decoder_train_fwd(
         ctypes.byref(args), int(cdt == torch.bfloat16), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -376,7 +389,10 @@ def decoder_fwd_train_mega(
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
     decoder_fwd_train_mega.launches += 1
     decoder_fwd_train_mega.last_grid_blocks = args.grid_blocks
-    return tuple(out.values())
+    kinds = dict(frames="M+1", ha_s="H", ca_s="H", hd_s="H", cd_s="H",
+                 qsum_s="TA", aa_s="4H", ad_s="4H")
+    return tuple(unpad_series(x, kinds[k], dims, kd) if k in kinds else x
+                 for k, x in out.items())
 
 
 decoder_fwd_train_mega.launches = 0

@@ -16,9 +16,8 @@ Each save writes a temporary file beside the final one and ``os.replace``
 s it, so a save that is cut off leaves the checkpoint before it whole.
 
 :func:`load_any_checkpoint` also reads the JAX package's Orbax directories
-(``utils/orbax_reader.py``; their weights only) and a file holding the
-reference implementation's PyTorch checkpoint dict
-(``utils/torch_compat.py``).
+and a file holding the reference implementation's PyTorch checkpoint dict,
+their weights only (``utils/weight_files.py``, which serving shares).
 """
 
 from __future__ import annotations
@@ -30,16 +29,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..models.tacotron2 import Tacotron2
-from ..utils.orbax_reader import (as_float32, is_orbax_checkpoint,
-                                  map_leaves, read_checkpoint)
-from ..utils.torch_compat import (is_reference_state_dict,
-                                  load_reference_state_dict)
-from ..utils.weights import load_jax_params
+from ..utils.weight_files import (FULL_FILE, PARAMS_FILE, checkpoint_kind,
+                                  load_file, load_weights)
 from .state import TrainState
-
-FULL_FILE = "train_state.pt"
-PARAMS_FILE = "weights.pt"
-
 
 def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
@@ -55,10 +47,6 @@ def _save(obj: Dict[str, Any], directory: str, name: str) -> None:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-
-
-def _load(path: str) -> Dict[str, Any]:
-    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int,
@@ -80,7 +68,7 @@ def restore_checkpoint(path: str, template: TrainState
     """Restore a full checkpoint into ``template`` (a fresh state of the
     same architecture, on the device to train on), in place; returns
     (state, epoch, best_val_mel)."""
-    saved = _load(os.path.join(path, FULL_FILE))
+    saved = load_file(os.path.join(path, FULL_FILE))
     template.model.load_state_dict(saved["model"], strict=True)
     opt = template.opt_state
     for moment in ("mu", "nu"):
@@ -106,89 +94,7 @@ def save_params_only(path: str, model: Tacotron2) -> None:
 def restore_params_only(path: str, model: Tacotron2) -> Tacotron2:
     """Fill ``model`` in place from a params-only checkpoint of the port,
     each tensor cast to the model's dtype."""
-    model.load_state_dict(_load(os.path.join(path, PARAMS_FILE))["model"],
-                          strict=True)
-    return model
-
-
-def _file_dict(path: str) -> Optional[Dict[str, Any]]:
-    """The dict of tensors a ``torch.save`` file holds (the reference's
-    checkpoint keeps it under ``model_state_dict``); None where the file
-    is not one."""
-    try:
-        obj = _load(path)
-    except Exception:    # torch.load raises many types on foreign bytes
-        return None
-    if not isinstance(obj, dict):
-        return None
-    sd = obj.get("model_state_dict", obj)
-    return sd if isinstance(sd, dict) else None
-
-
-def checkpoint_kind(path: str) -> str:
-    """Classify a checkpoint by its layout, without reading its arrays:
-
-    * ``"full"``: the port's full checkpoint directory;
-    * ``"params_only"``: the port's params-only directory;
-    * ``"orbax"``: an Orbax directory of the JAX package (its weights and
-      BatchNorm statistics are read; optimizer state and counters are not);
-    * ``"reference"``: a file holding the reference implementation's
-      PyTorch checkpoint dict;
-    * ``"unknown"``: anything else.
-    """
-    if os.path.isdir(path):
-        if os.path.isfile(os.path.join(path, FULL_FILE)):
-            return "full"
-        if os.path.isfile(os.path.join(path, PARAMS_FILE)):
-            return "params_only"
-        if is_orbax_checkpoint(path):
-            return "orbax"
-        return "unknown"
-    if os.path.isfile(path):
-        sd = _file_dict(path)
-        if sd is not None and is_reference_state_dict(sd):
-            return "reference"
-    return "unknown"
-
-
-@torch.no_grad()
-def load_weights(path: str, model: Tacotron2, kind: Optional[str] = None
-                 ) -> Tacotron2:
-    """Fill ``model`` in place from the weights and BatchNorm statistics
-    of any checkpoint :func:`checkpoint_kind` knows, each tensor cast to
-    the model's dtype (fp32 from a bf16 checkpoint)."""
-    kind = kind or checkpoint_kind(path)
-    if kind == "full":
-        sd = _load(os.path.join(path, FULL_FILE))["model"]
-        model.load_state_dict(sd, strict=True)
-        return model
-    if kind == "params_only":
-        return restore_params_only(path, model)
-    if kind == "orbax":
-        return _load_orbax(path, model)
-    if kind == "reference":
-        return load_reference_state_dict(model, _file_dict(path))
-    raise ValueError(f"{path!r} is not a checkpoint this port reads")
-
-
-def _load_orbax(path: str, model: Tacotron2) -> Tacotron2:
-    tree = read_checkpoint(path)
-    params = map_leaves(as_float32, tree.get("params", {}))
-    state = map_leaves(as_float32, tree.get("model_state", {}))
-    n_speakers = model.cfg.n_speakers
-    table = params.get("speaker", {}).get("embedding", {}).get("table")
-    rows = 1 if table is None else int(table.shape[0])
-    if rows != n_speakers:
-        has = ("no speaker table" if table is None
-               else f"a speaker table of {rows} rows")
-        raise ValueError(f"could not load the Orbax checkpoint {path!r}: it "
-                         f"has {has}, the config asks for "
-                         f"n_speakers={n_speakers}")
-    try:
-        return load_jax_params(model, params, state)
-    except (KeyError, IndexError, ValueError) as e:
-        raise ValueError(f"could not load the Orbax checkpoint {path!r} "
-                         f"into this config: {e}") from e
+    return load_weights(path, model, "params_only")
 
 
 def load_any_checkpoint(path: str, template: TrainState

@@ -42,9 +42,8 @@ held against tensorstore's own reads by ``tests/test_torch_orbax.py``:
   ``<path>/<i>.<j>...`` the chunks, each one zstd frame.  ``_METADATA``
   lists the tree's paths and which keys index a list.
 
-zstd comes from the ``zstandard`` module where it imports, otherwise from
-``libzstd.so.1`` through ``ctypes``; :data:`DECOMPRESSOR` names the one in
-use.  bfloat16 leaves come back as arrays of :data:`BFLOAT16`, a numpy
+zstd comes from ``libzstd.so.1`` through ``ctypes`` (:data:`ZSTD_LIBRARY`
+names the library loaded).  bfloat16 leaves come back as arrays of :data:`BFLOAT16`, a numpy
 dtype that holds the raw 16-bit words (numpy has no bfloat16);
 :func:`as_float32` widens them exactly.
 """
@@ -53,10 +52,11 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import functools
 import json
 import os
 import struct
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 import numpy as np
 
@@ -65,8 +65,7 @@ NODE_MAGIC = 0x0CDB20DE
 HEADER_BYTES = 14          # magic, length, version, compression
 BFLOAT16 = np.dtype([("bfloat16", "<u2")])
 
-# "zstandard" or "libzstd.so.1 (ctypes)", set at the first decompression
-DECOMPRESSOR: Optional[str] = None
+ZSTD_LIBRARY = ctypes.util.find_library("zstd") or "libzstd.so.1"
 
 
 class FormatError(ValueError):
@@ -76,27 +75,12 @@ class FormatError(ValueError):
 # ---------------------------------------------------------------------------
 # zstd
 # ---------------------------------------------------------------------------
-def _zstandard_decompress() -> Optional[Callable[[bytes, int], bytes]]:
-    try:
-        import zstandard
-    except ImportError:
-        return None
-
-    def decompress(src: bytes, size_hint: int) -> bytes:
-        reader = zstandard.ZstdDecompressor().stream_reader(
-            src, read_across_frames=True)
-        return reader.read()
-
-    return decompress
-
-
 _ZSTD_CONTENTSIZE_UNKNOWN = 2 ** 64 - 1
 _ZSTD_CONTENTSIZE_ERROR = 2 ** 64 - 2
 
 
 def _libzstd() -> ctypes.CDLL:
-    path = ctypes.util.find_library("zstd") or "libzstd.so.1"
-    lib = ctypes.CDLL(path)
+    lib = ctypes.CDLL(ZSTD_LIBRARY)
     size_t = ctypes.c_size_t
     lib.ZSTD_findFrameCompressedSize.argtypes = [ctypes.c_char_p, size_t]
     lib.ZSTD_findFrameCompressedSize.restype = size_t
@@ -112,7 +96,11 @@ def _libzstd() -> ctypes.CDLL:
     return lib
 
 
-def _ctypes_decompress() -> Callable[[bytes, int], bytes]:
+@functools.lru_cache(maxsize=None)
+def decompressor() -> Callable[[bytes, int], bytes]:
+    """``decompress(src, size_hint) -> bytes`` for one or more zstd frames
+    laid end to end, by ``libzstd`` through ``ctypes``; ``size_hint`` is
+    the expected size where a frame does not record its own."""
     lib = _libzstd()
 
     def check(code: int) -> int:
@@ -148,33 +136,6 @@ def _ctypes_decompress() -> Callable[[bytes, int], bytes]:
         return b"".join(out)
 
     return decompress
-
-
-_DECOMPRESSORS = {"zstandard": _zstandard_decompress,
-                  "libzstd.so.1 (ctypes)": _ctypes_decompress}
-_decompress_fn: Optional[Callable[[bytes, int], bytes]] = None
-
-
-def decompressor(name: Optional[str] = None
-                 ) -> Callable[[bytes, int], bytes]:
-    """The zstd decompressor ``name`` (a key of the table above), or the
-    first that loads: ``zstandard``, then ``libzstd.so.1``.  Returns
-    ``decompress(src, size_hint) -> bytes`` for one or more frames laid
-    end to end; ``size_hint`` is the expected size where a frame does not
-    record its own."""
-    global DECOMPRESSOR, _decompress_fn
-    if name is not None:
-        fn = _DECOMPRESSORS[name]()
-        if fn is None:
-            raise ImportError(f"{name} is not available")
-        return fn
-    if _decompress_fn is None:
-        for key, make in _DECOMPRESSORS.items():
-            fn = make()
-            if fn is not None:
-                DECOMPRESSOR, _decompress_fn = key, fn
-                break
-    return _decompress_fn
 
 
 # ---------------------------------------------------------------------------
@@ -483,17 +444,15 @@ def _insert(tree: Dict, path: List[Tuple[str, int]], value: Any) -> None:
 
 
 def read_checkpoint(path: str, groups: Iterable[str] = ("params",
-                                                        "model_state"),
-                    decompress_with: Optional[str] = None
+                                                        "model_state")
                     ) -> Dict[str, Any]:
     """The arrays of an Orbax checkpoint directory under its top-level
     ``groups``, as the saved tree: nested dicts, lists where the tree had
     lists, ``np.ndarray`` leaves in the saved dtypes (bfloat16 as
-    :data:`BFLOAT16` words).  ``decompress_with`` picks a decompressor
-    (see :func:`decompressor`).  Raises :class:`FormatError` on bytes it
+    :data:`BFLOAT16` words).  Raises :class:`FormatError` on bytes it
     does not know, and ``FileNotFoundError`` on a missing file."""
     root = os.path.abspath(path)
-    store = _Store(root, decompressor(decompress_with))
+    store = _Store(root, decompressor())
     items = store.items()
     groups = tuple(groups)
     out: Dict[str, Any] = {}

@@ -18,7 +18,8 @@ from tacotron2_tpu.data import metadata as jax_metadata
 from tacotron2_tpu.utils.logging import TrainingLogger as JaxLogger
 from tacotron2_torch.config import AudioConfig
 from tacotron2_torch.data import dataset, metadata
-from tacotron2_torch.data.synth_corpus import token_tone, write_corpus
+from tacotron2_torch.data.synth_corpus import (token_tone, write_corpus,
+                                               write_sine_corpus)
 from tacotron2_torch.text import text_to_sequence
 from tacotron2_torch.utils import plotting
 from tacotron2_torch.utils.logging import TrainingLogger
@@ -75,6 +76,22 @@ def test_corpus_layout(corpus):
     assert mel.shape == (8, 1 + samples // AUDIO.hop_length)
     assert mel.dtype == np.float32 and np.isfinite(mel).all()
     assert mel.min() >= np.log(AUDIO.mel_eps) - 1e-4
+
+
+def test_sine_corpus_is_the_verify_recipes(tmp_path):
+    """16 utterances, the recipe's two texts in turn, utterance i a sine
+    of 0.8 + 0.1 i s."""
+    meta = write_sine_corpus(str(tmp_path), audio=AUDIO, device="cpu")
+    rows = metadata.read_metadata(meta)
+    assert [r["text"] for r in rows] == [
+        "Hello world, this is a test.", "The quick brown fox."] * 8
+    for i, row in enumerate(rows):
+        base = metadata.basename_of(row["filepath"])
+        mel = np.load(os.path.join(str(tmp_path), "mels", f"{base}.npy"))
+        samples = int(AUDIO.sampling_rate * (0.8 + 0.1 * i))
+        assert mel.shape == (8, 1 + samples // AUDIO.hop_length)
+        assert np.load(os.path.join(str(tmp_path), "text", f"{base}.npy")
+                       ).tolist() == text_to_sequence(row["text"])
 
 
 @pytest.mark.parametrize("csv", [0, 1], ids=["one speaker", "speakers"])

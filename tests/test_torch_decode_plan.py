@@ -16,6 +16,7 @@ what the kernel cannot take (``check_launch``).  These tests hold:
 - ``chip_smoke.py``'s pick of a gate-bias offset, on the plain step loop.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -260,10 +261,17 @@ def test_check_launch_takes_what_it_can():
 
 
 def test_check_launch_refuses_widths_and_dtypes():
+    """Widths that are no multiples of 8 are taken (the wrapper pads them
+    to ``kernel_widths``); a memory width or attention rnn dim other than
+    the config's, and fp16 weights, are refused."""
     dec = init_weights(Tacotron2(ModelConfig(**dict(SMALL, prenet_dim=12))),
                        seed=0).decoder
     memory = torch.zeros(2, 12, 32)
-    with pytest.raises(ValueError, match="multiple of 8"):
+    check_launch(dec, memory, 14, None, "any")
+    with pytest.raises(ValueError, match="memory width"):
+        check_launch(dec, torch.zeros(2, 12, 30), 14, None, "any")
+    dec.cfg = dataclasses.replace(dec.cfg, attention_rnn_dim=32)
+    with pytest.raises(ValueError, match="attention rnn dim"):
         check_launch(dec, memory, 14, None, "any")
     half = decoder().half()
     with pytest.raises(TypeError, match="weight dtype"):

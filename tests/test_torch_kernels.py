@@ -36,7 +36,7 @@ from tacotron2_torch.models.tacotron2 import (Tacotron2, cast_params_bf16,
 from tacotron2_torch.train.optim import make_optimizer
 from tacotron2_torch.train.state import create_train_state
 from tacotron2_torch.train.step import train_step
-from tacotron2_torch.ops import _build, routes
+from tacotron2_torch.ops import _build
 from tacotron2_torch.ops.convbn_kernel import (_launch, conv_bn_act,
                                                conv_bn_act_reference,
                                                folded_weights)
@@ -230,30 +230,80 @@ def test_cuda_tail_plan_matches_the_kernel(t, mem_dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_tail_refuses(monkeypatch, capsys):
-    """Bad inputs raise; shapes the kernel does not take (a bf16 memory
-    row of 40 bytes) run the plain version, with a notice once; nothing
-    is launched."""
+def test_cuda_tail_refuses():
+    """Bad inputs raise, and nothing is launched; a bf16 memory row of 40
+    bytes, which no bulk copy takes, is copied by plain loads and agrees
+    with the plain version."""
     dev = cuda_device()
-    monkeypatch.setattr(routes, "NOTICED", set())
     ins = tail_inputs(2, 9, 16, 24, seed=0, device=dev)
     before = attention_tail.launches
     with pytest.raises(TypeError, match="dtypes"):
         attention_tail(ins[0].half(), *ins[1:])
     with pytest.raises(TypeError, match="dtypes"):
         attention_tail(*ins[:4], ins[4].to(torch.uint8), ins[5])
-    row40 = (*ins[:5], ins[5][..., :20].contiguous().to(torch.bfloat16))
-    for _ in range(2):
-        got = attention_tail(*row40)
-        ref = attention_tail_reference(*row40)
-        assert all(torch.equal(g, r) for g, r in zip(got, ref))
-    assert capsys.readouterr().out.count(
-        "[attention_tail] the kernel does not take") == 1
     with pytest.raises(ValueError, match="shape mismatch"):
         attention_tail(*ins[:5], ins[5][:, :8].contiguous())
     with pytest.raises(ValueError, match="different devices"):
         attention_tail(*ins[:5], ins[5].cpu())
     assert attention_tail.launches == before
+    row40 = (*ins[:5], ins[5][..., :20].contiguous().to(torch.bfloat16))
+    got = attention_tail(*row40)
+    ref = attention_tail_reference(*row40)
+    torch.cuda.synchronize()
+    assert attention_tail.launches == before + 1
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=TAIL_TOL, rtol=0)
+
+
+def offset_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in a buffer that starts one element past a 16-byte boundary:
+    contiguous, but no vector load or bulk copy may start at it."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mem_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,a,d,offset", [
+    (2, 9, 30, 24, False),       # A no multiple of 4: four loads a lane
+    (3, 37, 13, 7, False),       # and an odd D: rows padded in the ring
+    (2, 200, 128, 510, False),   # several tiles of padded rows a block
+    (4, 112, 128, 512, True),    # qsum and memory not 16-byte aligned
+    (65536, 8, 16, 32, False)])  # a second launch for the last item
+def test_cuda_tail_takes_any_a_and_d(b, t, a, d, offset, mem_dtype,
+                                     q_dtype):
+    """Shapes and alignments the vector loads and the bulk copy do not
+    take: the kernel launches (once for every 65535 items) and agrees with
+    the plain version at the usual limit."""
+    dev = cuda_device()
+    ins = list(tail_inputs(b, t, a, d, seed=a + d, device=dev,
+                           dtype=q_dtype))
+    ins[5] = ins[5].to(mem_dtype)
+    if offset:
+        ins[0], ins[5] = offset_copy(ins[0]), offset_copy(ins[5])
+    before = attention_tail.launches
+    got = attention_tail(*ins)
+    ref = attention_tail_reference(*ins)
+    torch.cuda.synchronize()
+    assert attention_tail.launches == before + -(-b // 65535)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=TAIL_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mem_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(7, 7), (112, 510), (1000, 30)])
+def test_cuda_tail_plan_matches_the_kernel_at_any_d(t, d, mem_dtype):
+    """The plan's shared memory, rows padded to 16 bytes, is the kernel's
+    own layout's."""
+    cuda_device()
+    plan = tail_plan(4, t, 30, d, mem_dtype)
+    assert _tail_lib().t2_attention_tail_smem(
+        d, plan.split, plan.rows, plan.tile_rows,
+        int(mem_dtype == torch.bfloat16)) == plan.smem_bytes
 
 
 @pytest.mark.cuda
@@ -740,7 +790,11 @@ def test_conv_bn_act_rejects_what_it_cannot_launch():
 @pytest.mark.parametrize("c_in,c_out,k,b,t", [
     (32, 32, 5, 2, 13), (8, 32, 5, 3, 1), (32, 8, 5, 1, 37),
     (20, 70, 3, 2, 65), (80, 512, 5, 2, 130), (512, 80, 5, 1, 64),
-    (36, 40, 7, 2, 129)])
+    (36, 40, 7, 2, 129),
+    # even kernel sizes ('same' padding one step longer after), and 8 and
+    # 9 taps, which the bf16 kernel's second build holds
+    (16, 16, 2, 1, 13), (32, 40, 4, 2, 65), (40, 32, 6, 1, 70),
+    (40, 32, 8, 1, 70), (36, 40, 9, 2, 129)])
 def test_cuda_conv_bn_act_matches_plain(c_in, c_out, k, b, t, dtype, act):
     dev = cuda_device()
     conv, bn = conv_layer(c_in, c_out, k, dtype, seed=c_in + t, device=dev)
@@ -844,9 +898,9 @@ def test_cuda_conv_bn_act_checks_inputs():
     with pytest.raises(TypeError, match="input dtype"):
         conv_bn_act(torch.zeros(1, 8, 4, device=dev, dtype=torch.float16),
                     conv, bn, 1e-5, "relu")
-    even, _ = conv_layer(8, 8, 4, torch.float32, 0, dev)
-    with pytest.raises(ValueError, match="odd kernel sizes"):
-        conv_bn_act(torch.zeros(1, 8, 4, device=dev), even, bn, 1e-5, "relu")
+    long, _ = conv_layer(8, 8, 11, torch.float32, 0, dev)
+    with pytest.raises(ValueError, match="kernel sizes up to 9"):
+        conv_bn_act(torch.zeros(1, 8, 4, device=dev), long, bn, 1e-5, "relu")
     cpu_conv, cpu_bn = conv_layer(8, 8, 5, torch.float32, 0, "cpu")
     with pytest.raises(ValueError, match="different devices"):
         conv_bn_act(torch.zeros(1, 8, 4, device=dev), cpu_conv, cpu_bn, 1e-5,
@@ -893,11 +947,16 @@ def test_cuda_encoder_postnet_fused_route(dtype):
 
 
 # ---------------------------------------------------------------------------
-# configs the kernels do not take run the plain versions on the card
+# configs whose widths are no multiples of 8 run the kernels on the card
 # ---------------------------------------------------------------------------
-# prenet_dim 12 is no multiple of 8: neither decoder kernel takes it; the
-# attention tail (A=16) and the conv layers (K=5) still launch their kernels
-REFUSED = dict(SMALL, prenet_dim=12)
+# prenet_dim 12 pads P in the decoder kernels; "all odd" pads every width,
+# gives the tail an A of 14 and memory rows of 120 bytes (60 in bf16), and
+# the conv layers even kernel sizes
+ODD = {"prenet_dim=12": dict(SMALL, prenet_dim=12),
+       "all odd": dict(SMALL, prenet_dim=13, attention_dim=14, n_mels=9,
+                       symbols_embedding_dim=30, encoder_embedding_dim=30,
+                       decoder_rnn_dim=60, attention_rnn_dim=60,
+                       encoder_kernel_size=6, postnet_kernel_size=4)}
 
 
 def relative_errors(got, ref):
@@ -909,14 +968,14 @@ def relative_errors(got, ref):
 
 
 @pytest.mark.cuda
-def test_cuda_refused_config_serves_the_step_loop(monkeypatch, capsys):
-    """``tacotron2_infer`` at prenet_dim 12 on the card runs the step loop
-    (the decode kernel launches no time; one notice) and agrees with the
-    plain version: the decoder's outputs on the card at the decode's
-    limits, the whole request with the CPU's at 1e-4 relative."""
+@pytest.mark.parametrize("name", list(ODD))
+def test_cuda_odd_widths_serve_the_decode_kernel(name):
+    """``tacotron2_infer`` at widths that are no multiples of 8 launches
+    the decode kernel and the conv kernel on the card and agrees with the
+    CPU's plain request to 1e-4 relative; ``decoder_infer`` there agrees
+    with the plain step loop at the decode's limits."""
     dev = cuda_device()
-    monkeypatch.setattr(routes, "NOTICED", set())
-    model = init_weights(Tacotron2(ModelConfig(**REFUSED)), seed=0)
+    model = init_weights(Tacotron2(ModelConfig(**ODD[name])), seed=0)
     g = torch.Generator().manual_seed(5)
     tokens = torch.randint(0, 72, (2, 11), generator=g)
     lengths = torch.tensor([11, 8])
@@ -924,50 +983,51 @@ def test_cuda_refused_config_serves_the_step_loop(monkeypatch, capsys):
                           text_lengths=lengths, forced_stop_at=9,
                           device="cpu")
     model = model.to(dev)
-    before = (decoder_infer_mega.launches, attention_tail.launches)
-    for _ in range(2):
-        got = tacotron2_infer(model, tokens, max_steps=MAX,
-                              text_lengths=lengths, forced_stop_at=9,
-                              device=dev)
+    before = (decoder_infer_mega.launches, conv_bn_act.launches)
+    got = tacotron2_infer(model, tokens, max_steps=MAX,
+                          text_lengths=lengths, forced_stop_at=9,
+                          device=dev)
     torch.cuda.synchronize()
-    assert decoder_infer_mega.launches == before[0]
-    assert attention_tail.launches > before[1]
-    assert capsys.readouterr().out.count(
-        "[decoder_infer_mega] the kernel does not take") == 1
+    assert decoder_infer_mega.launches == before[0] + 1
+    assert conv_bn_act.launches == before[1] + 8
     n = int(ref[1])
     assert int(got[1]) == n and torch.equal(got[2].cpu(), ref[2])
     errs = relative_errors({k: v[:, :n] for k, v in got[0]._asdict().items()},
                            {k: v[:, :n] for k, v in ref[0]._asdict().items()})
     assert max(errs.values()) < 1e-4, errs
 
-    _, memory, mask = small_decoder(dev)
     dec = model.decoder
+    rng = np.random.default_rng(1)
+    memory = torch.from_numpy((rng.standard_normal(
+        (B, T_ENC, dec.cfg.encoder_embedding_dim)) * 0.5).astype(
+            np.float32)).to(dev)
+    mask = make_pad_mask(torch.tensor([T_ENC, 9]), T_ENC).to(dev)
     args = (dec, memory, MAX, 0.5, True, mask, "all", 9)
     with torch.no_grad():
         got = decoder_infer(*args)
         ref = decoder_infer_mega_reference(*args)
-    assert decoder_infer_mega.launches == before[0]
+    assert decoder_infer_mega.launches == before[0] + 2
     assert torch.equal(got[4], ref[4]) and int(got[3]) == int(ref[3])
-    for name, g_, r in zip(DEC_OUTPUTS, got[:3], ref[:3]):
-        torch.testing.assert_close(g_, r, atol=DEC_TOL[torch.float32][name],
+    for name_, g_, r in zip(DEC_OUTPUTS, got[:3], ref[:3]):
+        torch.testing.assert_close(g_, r, atol=DEC_TOL[torch.float32][name_],
                                    rtol=0)
 
 
 @pytest.mark.cuda
-def test_cuda_refused_config_trains_the_plain_pair(monkeypatch, capsys):
-    """At prenet_dim 12 on the card, ``decoder_scan_bptt`` runs the plain
-    pair (neither training kernel launches; one notice) and its gradients
-    match the plain pair's on the CPU to 1e-4 relative (the rule of
+@pytest.mark.parametrize("name", list(ODD))
+def test_cuda_odd_widths_train_the_kernel_pair(name):
+    """At widths that are no multiples of 8, ``decoder_scan_bptt`` on the
+    card runs the kernel pair (one launch each) and its gradients match
+    the plain pair's on the CPU to 1e-4 relative (the rule of
     test_cuda_scan_bptt_routes); one ``train_step`` runs the same route
     and matches the same step on the CPU in its losses to 1e-4 relative
     and its BatchNorm statistics to 3e-4 (fp32, dropout off)."""
     dev = cuda_device()
-    monkeypatch.setattr(routes, "NOTICED", set())
-    mc = ModelConfig(**dict(REFUSED, p_attention_dropout=0.0,
+    mc = ModelConfig(**dict(ODD[name], p_attention_dropout=0.0,
                             p_decoder_dropout=0.0, p_prenet_dropout=0.0,
                             p_postnet_dropout=0.0))
     counts = (decoder_fwd_train_mega.launches,
-              decoder_bwd_chain_mega.launches, attention_tail.launches)
+              decoder_bwd_chain_mega.launches)
     dec = init_weights(Tacotron2(mc), seed=0).decoder
     rng = np.random.default_rng(2)
     pre = torch.from_numpy(np.abs(rng.standard_normal(
@@ -988,6 +1048,9 @@ def test_cuda_refused_config_trains_the_plain_pair(monkeypatch, capsys):
         ((out[0] ** 2).sum() + (out[1] ** 2).sum()).backward()
         grads[str(where)] = {n: x.grad.cpu() for n, x in p.items()}
     torch.cuda.synchronize()
+    assert (decoder_fwd_train_mega.launches,
+            decoder_bwd_chain_mega.launches) == (counts[0] + 1,
+                                                 counts[1] + 1)
     errs = relative_errors(grads[str(dev)], grads["cpu"])
     assert max(errs.values()) < 1e-4, errs
 
@@ -1006,18 +1069,16 @@ def test_cuda_refused_config_trains_the_plain_pair(monkeypatch, capsys):
                                         sigma_warmup_steps=100)[:2]
     torch.cuda.synchronize()
     assert (decoder_fwd_train_mega.launches,
-            decoder_bwd_chain_mega.launches) == counts[:2]
-    assert attention_tail.launches > counts[2]
-    assert capsys.readouterr().out.count(
-        "the kernel does not take widths") == 1
+            decoder_bwd_chain_mega.launches) == (counts[0] + 2,
+                                                 counts[1] + 2)
     (ref, ref_losses), (got, got_losses) = states["cpu"], states[str(dev)]
-    for name in ref_losses._fields:
-        np.testing.assert_allclose(float(getattr(got_losses, name)),
-                                   float(getattr(ref_losses, name)),
-                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    for name_ in ref_losses._fields:
+        np.testing.assert_allclose(float(getattr(got_losses, name_)),
+                                   float(getattr(ref_losses, name_)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name_)
     params = dict(got.model.named_parameters())
-    for name, r in ref.model.state_dict().items():
-        if name not in params:
-            g = got.model.state_dict()[name].cpu()
+    for name_, r in ref.model.state_dict().items():
+        if name_ not in params:
+            g = got.model.state_dict()[name_].cpu()
             assert float((g - r).abs().max()) <= 3e-4 * max(
-                1.0, float(r.abs().max())), name
+                1.0, float(r.abs().max())), name_

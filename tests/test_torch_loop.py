@@ -334,6 +334,29 @@ def test_resume_from_orbax_restarts_the_counters(corpus, orbax_params,
     assert resumed.step == 12
 
 
+def test_epoch_resume_goes_on_where_jax_repeats_the_epoch(
+        corpus, orbax_params, tmp_path):
+    """The one meaning of ``--resume`` that differs from the JAX loop's,
+    pinned against it: after one epoch from the same Orbax checkpoint,
+    both resume from their ``tacotron2_epoch_1`` with ``epochs=2``; the
+    JAX loop runs epoch 1 again and then epoch 2 (eight more steps), the
+    port runs epoch 2 alone (four)."""
+    path, _, _ = orbax_params
+    jcfg, cfg = configs()
+    jax_loop.train(corpus, str(tmp_path / "jax"), cfg=jcfg, epochs=1,
+                   resume=path)
+    port_loop.train(corpus, str(tmp_path / "port"), cfg=cfg, epochs=1,
+                    resume=path, device="cpu")
+    jstate = jax_loop.train(
+        corpus, str(tmp_path / "jax"), cfg=jcfg, epochs=2,
+        resume=str(tmp_path / "jax" / "tacotron2_epoch_1"))
+    state = port_loop.train(
+        corpus, str(tmp_path / "port"), cfg=cfg, epochs=2, device="cpu",
+        resume=str(tmp_path / "port" / "tacotron2_epoch_1"))
+    assert int(jstate.step) == 4 + 8
+    assert state.step == 4 + 4
+
+
 def test_debug_overfit_exports(corpus, tmp_path):
     """``--debug``: one batch, then the params-only model, the batch and
     the inference artifacts under ``debug_export``."""

@@ -59,17 +59,34 @@ def test_tail_plan_covers_every_row_once(t, b, mem_dtype):
 @pytest.mark.parametrize("args,err,match", [
     ((0, 8, 128, 512, torch.float32), ValueError, "shapes"),
     ((1, 0, 128, 512, torch.float32), ValueError, "shapes"),
-    ((65536, 8, 128, 512, torch.float32), ValueError, "shapes"),
-    ((1, 8, 128, 20, torch.bfloat16), ValueError, "multiple of 16"),
-    ((1, 8, 128, 17, torch.float32), ValueError, "multiple of 16"),
     ((1, 8, 128, 16392, torch.float32), ValueError, "ring stage"),
     ((1, 8, 128, 16384, torch.float32), ValueError, "shared memory"),
-    ((1, 8, 126, 512, torch.float32), ValueError, "multiple of 4"),
     ((1, 8, 128, 512, torch.float16), TypeError, "memory dtype"),
 ])
 def test_tail_plan_refuses(args, err, match):
     with pytest.raises(err, match=match):
         tail_plan(*args)
+
+
+@pytest.mark.parametrize("args", [
+    (65536, 8, 128, 512, torch.float32),      # two launches
+    (1, 8, 128, 20, torch.bfloat16),          # 40-byte rows, padded to 48
+    (1, 8, 128, 17, torch.float32),           # 68-byte rows, padded to 80
+    (1, 8, 126, 512, torch.float32),          # four loads a lane
+    (2, 11, 13, 7, torch.float32),            # odd A and D
+    (1, 40, 128, 8190, torch.float32),        # 32760-byte rows, 2 stages
+])
+def test_tail_plan_takes_any_a_and_d(args):
+    """What the kernel once refused: B past 65535, memory rows that are no
+    multiple of 16 bytes (staged padded to 16), A no multiple of 4."""
+    b, t, a, d, mem_dtype = args
+    plan = tail_plan(*args)
+    row_bytes = up16(d * mem_dtype.itemsize)
+    cols = -(-d // plan.split)
+    assert plan.smem_bytes == (HEAD_BYTES
+                               + plan.stages * plan.tile_rows * row_bytes
+                               + up16(4 * d) + up16(4 * plan.split * cols)
+                               + 2 * up16(4 * plan.tile_rows))
 
 
 def split_tail(qsum, v_w, v_b, scale, mask, memory, plan):

@@ -7,11 +7,10 @@ Writes a corpus into a temporary directory in the preprocessed layout,
 then runs ``python3 train_torch.py <corpus>/metadata.csv <dir> --debug
 --epochs N --lr 1e-3`` on it and prints the iteration at which the mel L1
 fell below 1.0 (or the last one it reached), the wall time of the run,
-the export's files and the card's name and power limit.  ``sines`` is the
-JAX package's verification recipe (16 utterances of two sentences, each a
-sine of 150 + 12 i Hz for 0.8 + 0.1 i s at amplitude 0.35), ``tones`` the
-formant tones of ``tacotron2_torch/data/synth_corpus.py`` (16 utterances,
-one tone a token).  Nothing is kept: the temporary directory goes at the
+the export's files and the card's name and power limit.  Both corpora are
+``tacotron2_torch/data/synth_corpus.py``'s: ``sines`` is the JAX package's
+verification corpus (``write_sine_corpus``), ``tones`` 16 utterances of
+formant tones, one a token (``write_corpus``).  Nothing is kept: the temporary directory goes at the
 end.
 """
 
@@ -25,38 +24,8 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
-
-
-def write_sines(out_dir: str) -> str:
-    """The recipe's corpus: texts alternate, utterance i is a sine of
-    150 + 12 i Hz lasting 0.8 + 0.1 i s."""
-    from tacotron2_torch.config import AudioConfig
-    from tacotron2_torch.data.metadata import _write_csv
-    from tacotron2_torch.dsp.mel import get_mel_spectrogram_array
-    from tacotron2_torch.text import text_to_sequence
-
-    audio = AudioConfig()
-    texts = ["Hello world, this is a test.", "The quick brown fox."] * 8
-    for sub in ("text", "mels"):
-        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
-    rows = []
-    for i, text in enumerate(texts):
-        sr = audio.sampling_rate
-        t = np.arange(int(sr * (0.8 + 0.1 * i))) / sr
-        y = (0.35 * np.sin(2 * np.pi * (150 + 12 * i) * t)).astype(np.float32)
-        base = f"LJT-{i:04d}"
-        np.save(os.path.join(out_dir, "text", f"{base}.npy"),
-                np.asarray(text_to_sequence(text), np.int32))
-        np.save(os.path.join(out_dir, "mels", f"{base}.npy"),
-                get_mel_spectrogram_array(y, audio, device="cuda"))
-        rows.append({"filepath": f"wavs/{base}.wav", "text": text})
-    path = os.path.join(out_dir, "metadata.csv")
-    _write_csv(path, rows, ["filepath", "text"])
-    return path
 
 
 def main() -> int:
@@ -68,14 +37,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_debug_run: needs a CUDA card", file=sys.stderr)
         return 2
-    from tacotron2_torch.data.synth_corpus import write_corpus
+    from tacotron2_torch.data.synth_corpus import (write_corpus,
+                                                   write_sine_corpus)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     with tempfile.TemporaryDirectory() as tmp:
         corpus = os.path.join(tmp, "corpus")
-        meta = (write_sines(corpus) if args.corpus == "sines"
+        meta = (write_sine_corpus(corpus) if args.corpus == "sines"
                 else write_corpus(corpus, 16, seed=0, device="cuda")[0])
         run = os.path.join(tmp, "run")
         t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Train the PyTorch port of Tacotron 2 on one CUDA card.
 
-The flags are ``train.py``'s, with the same meanings, plus ``--device``:
+The flags are ``train.py``'s, with the same meanings but one, plus
+``--device``:
 
     python train_torch.py processed/metadata.csv checkpoints/run1 \\
         --epochs 100 --batch_size 16 --lr 1e-3 [--debug] \\
@@ -11,6 +12,10 @@ The flags are ``train.py``'s, with the same meanings, plus ``--device``:
 
 ``--resume`` takes a checkpoint directory of the port, an Orbax checkpoint
 directory of the JAX package or the reference's PyTorch checkpoint file.
+It differs from ``train.py``'s in one point: resumed from
+``tacotron2_epoch_N`` (or a ``best_model`` saved after epoch N), the port
+goes on at epoch N + 1, where ``train.py`` runs epoch N again; so
+``--epochs E`` from there trains E - N epochs here and E - N + 1 there.
 ``--remat`` is not ported (an XLA policy), and ``--tp`` takes 1 only.
 """
 
@@ -30,7 +35,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--debug", action="store_true",
                         help="Debug mode: overfit on a single batch.")
     parser.add_argument("--val_metadata", type=str, default=None)
-    parser.add_argument("--resume", type=str, default=None)
+    parser.add_argument("--resume", type=str, default=None,
+                        help="Checkpoint to resume from.  From the epoch N "
+                             "checkpoint the port goes on at epoch N + 1 "
+                             "(train.py runs epoch N again).")
     parser.add_argument("--postnet_freeze_steps", type=int, default=None)
     parser.add_argument("--accum_steps", type=int, default=1)
     parser.add_argument("--precision", type=str, default=None,
