@@ -141,12 +141,42 @@ it fails:
     the card against the CPU's plain pair, and ``attention_tail`` at A=14,
     D=30 (and with a ``memory`` one element past a 16-byte boundary)
     against its plain version; the decode, conv and training kernels must
-    each launch.
+    each launch; and an encoder of 11 taps (the conv kernel's halo-8 build)
+    on the card against the CPU's plain encoder;
+17. serving, on the checkpoint of phase 14: ``serve()``'s handler on a
+    ``BatchingTTSService`` (bf16, ``max_batch=8``) in a thread, with a
+    seeded HiFi-GAN generator saved in NGC's weight-normed layout and
+    named by ``HIFIGAN_CHECKPOINT``; after one warm-up request a vocoder,
+    with the launch counters zeroed: eight concurrent ``POST /synthesize``
+    (the four sentences twice, half Griffin-Lim, half HiFi-GAN), each 200
+    with a WAV of ``frame_end x 256`` samples within ``STOP_SLACK`` of the
+    pinned stops, ``/healthz`` showing a coalesced batch, the peak device
+    memory; the same eight one at a time (p50 and max latency at both
+    concurrencies, seconds of audio per wall second); ``POST
+    /synthesize_streaming`` with Griffin-Lim, the service's bf16 HiFi-GAN
+    and an fp32 one (time to the first chunk; the attention tail's inputs
+    recorded); ``synthesize_longform`` of the four sentences with
+    HiFi-GAN; ``inference_torch.py`` and ``serve_torch.py`` as processes
+    (one WAV; one answered request, then SIGTERM and exit 0); then the
+    counters read (each of ``decoder_infer_mega``, ``conv_bn_act`` and
+    ``attention_tail`` above zero), and each kernel held on this path's
+    inputs: the batched decode against the plain step loop (bf16 as phase
+    14 holds it, and the fp32 model to ``DEC_TOL``), the tail on every
+    recorded step (``TAIL_TOL``), the eight conv layers of one request
+    (``CONV_TOL``: trained layers, whose largest sums stand further above
+    their outputs' mean than the seeded ones of ``CONV_MAIN_TOL``); the
+    streamed HiFi-GAN PCM against the one-shot PCM of the same mel (fp32
+    generator, one LSB; the bf16 generator ``STREAM_BF16_LSB``); the
+    generator on the card against the CPU's, bf16 against fp32,
+    ``vocoder_chunk_frames=64`` against whole, and its device ms per
+    second of audio at B=1 and 8 in fp32 and bf16.
 
-Phases 11-14 run after phase 7, before the training phases, and phases 15
-and 16 after phase 10.  The ``kernels`` line has five entries.  The last line is
+Phases 11-14 and 17 run after phase 7, before the training phases, and
+phases 15 and 16 after phase 10.  The ``kernels`` line has five entries;
+the serving path's three carry ``serve_path_launches``.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
-``tacotron2_tpu``, and reads no weights file from the repository.
+``tacotron2_tpu``, and reads no weights file from the repository but the
+checkpoint of phase 14.
 """
 
 from __future__ import annotations
@@ -1945,6 +1975,7 @@ ODD_WIDTHS = dict(n_mels=9, prenet_dim=13, symbols_embedding_dim=30,
                   postnet_embedding_dim=32, encoder_kernel_size=6,
                   postnet_kernel_size=4)
 ODD_TOL = 1e-4          # fp32, relative to max |plain| + 1e-3 of the largest
+LONG_TAPS = 11          # an encoder longer than the halo-4 builds take
 
 
 def odd_widths_phase(dev) -> None:
@@ -1995,6 +2026,22 @@ def odd_widths_phase(dev) -> None:
     check(int(got[1]) == n and torch.equal(got[2].cpu(), ref[2]),
           "phase 16: frame counts differ")
     check(err < ODD_TOL, f"phase 16: request error {err:.2e}")
+
+    # an encoder of 11 taps: the conv kernel's halo-8 build
+    from tacotron2_torch.models.encoder import encoder_apply
+    long_enc = init_weights(Tacotron2(dataclasses.replace(
+        mc, encoder_kernel_size=LONG_TAPS)), seed=SEED).encoder
+    ref_mem = encoder_apply(long_enc, tokens)
+    conv_bn_act.launches = 0
+    with torch.no_grad():
+        got_mem = encoder_apply(long_enc.to(dev), tokens.to(dev))
+    torch.cuda.synchronize()
+    err = rel({"memory": got_mem}, {"memory": ref_mem.detach()})
+    print(f"[odd widths] encoder of {LONG_TAPS} taps on the card vs the "
+          f"CPU's plain encoder: {err:.2e} (limit {ODD_TOL:g}), launches "
+          f"conv_bn_act={conv_bn_act.launches}", flush=True)
+    check(conv_bn_act.launches == mc.encoder_n_convolutions
+          and err < ODD_TOL, f"phase 16: {LONG_TAPS}-tap encoder")
 
     rng = np.random.default_rng(SEED)
     t_dec, b, t_enc = 10, 2, 12
@@ -2052,6 +2099,494 @@ def odd_widths_phase(dev) -> None:
                   f"{attention_tail.launches}", flush=True)
             check(attention_tail.launches == 1 and err <= TAIL_TOL,
                   "phase 16: attention_tail at A=14 D=30")
+
+
+# phase 17: the serving path on the trained checkpoint
+SERVE_MAX_BATCH = 8
+SERVE_TIMEOUT_S = 300   # each HTTP call, thread join and subprocess
+LONGFORM_SILENCE = int(22050 * 0.12)    # synthesize_longform's 120 ms
+# HiFi-GAN (seeded generator, cuDNN): the card's fp32 generator against
+# the CPU's with TF32 off (fp32 sums in another order; the JAX package's
+# limit against an independent PyTorch generator), bf16 against fp32 on a
+# tanh-bounded signal (the JAX package's limit for its bf16 cast), and the
+# chunked generator against the whole one (the same windows)
+HIFIGAN_TOL = 2e-4
+HIFIGAN_BF16_TOL = 0.05
+HIFIGAN_CHUNK_TOL = 2e-5
+STREAM_LSB = 1          # streamed vs one-shot HiFi-GAN PCM, fp32 generator
+# the same with the bf16 generator the service serves: its windows round
+# apart from the one-shot call (16 LSB read on the H100), held at 4x that
+STREAM_BF16_LSB = 64
+
+
+def http_post(url: str, payload: dict, stream: bool = False):
+    """One POST: (status, body, seconds to the first body bytes, seconds to
+    the whole body)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t1 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as resp:
+            first = resp.read1(1 << 16) if stream else b""
+            t_first = time.perf_counter() - t1
+            body = first + resp.read()
+            return resp.status, body, t_first, time.perf_counter() - t1
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), None, time.perf_counter() - t1
+
+
+def http_get_json(url: str, timeout: float = SERVE_TIMEOUT_S) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def wav_frames(body: bytes, where: str, want: int) -> int:
+    """Frames of a served 16-bit WAV, held to the pinned gate stop."""
+    import io
+    import wave
+    with wave.open(io.BytesIO(body)) as w:
+        rate, n = w.getframerate(), w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), "<i2")
+    check(rate == 22050 and n % 256 == 0 and pcm.size == n,
+          f"{where}: WAV of {n} samples at {rate} Hz")
+    check(abs(n // 256 - want) <= STOP_SLACK and np.abs(pcm).max() > 0,
+          f"{where}: {n // 256} frames, pinned {want}")
+    return n // 256
+
+
+def latency_line(name: str, secs, audio_s: float, wall: float) -> str:
+    ms = sorted(s * 1e3 for s in secs)
+    return (f"[serve] {name}: {len(ms)} requests, p50 "
+            f"{float(np.median(ms)):.1f} ms, max {ms[-1]:.1f} ms; "
+            f"{audio_s:.2f} s of audio in {wall:.3f} s wall: "
+            f"{audio_s / wall:.2f} s of audio per wall second")
+
+
+def serving_phase(dev, smi: str) -> dict:
+    """Phase 17.  ``serve()``'s handler on a ``BatchingTTSService`` of
+    ``checkpoints/r4_synth_bf16`` (bf16, ``max_batch=8``) and a seeded
+    HiFi-GAN generator in NGC's file layout: batched, serial and streamed
+    requests, long-form synthesis, both CLIs as subprocesses; then each
+    kernel against its plain version on the inputs this path gave it, and
+    the generator on the card.  Returns each kernel's launches on the
+    path."""
+    import signal
+    import socket
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from tacotron2_torch.infer import server as srv
+    from tacotron2_torch.infer.longform import synthesize_longform
+    from tacotron2_torch.infer.streaming import stream_mels
+    from tacotron2_torch.infer.synthesize import load_model
+    from tacotron2_torch.models import hifigan as hg
+    from tacotron2_torch.models.encoder import encoder_apply
+    from tacotron2_torch.models.tacotron2 import (
+        _condition_memory, make_pad_mask, tacotron2_infer)
+    from tacotron2_torch.ops import attention_kernel as ak
+    from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
+                                                   conv_bn_act_reference)
+    from tacotron2_torch.ops.decoder_megakernel import (
+        decoder_infer_mega, decoder_infer_mega_reference)
+    from tacotron2_torch.text import pad_sequences, text_to_sequence
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    texts = list(TRAINED_FRAME_ENDS)
+    hop, sr = 256, 22050
+    tmp = tempfile.TemporaryDirectory()
+    gen = hg.hifigan_init(seed=SEED)
+    ngc = os.path.join(tmp.name, "hifigan_gen.pt")
+    torch.save({"generator": hg.nvidia_state_dict(gen)}, ngc)
+    old_env = os.environ.get("HIFIGAN_CHECKPOINT")
+    os.environ["HIFIGAN_CHECKPOINT"] = ngc
+    t1 = time.perf_counter()
+    service = srv.BatchingTTSService(TRAINED_CKPT, bf16=True,
+                                     max_batch=SERVE_MAX_BATCH, device=dev)
+    setup_s = time.perf_counter() - t1
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    proc = log = None
+    recorded = []
+    plain_forward = ak._forward
+    try:
+        print(f"[serve] BatchingTTSService({os.path.relpath(TRAINED_CKPT)}, "
+              f"bf16, max_batch={SERVE_MAX_BATCH}) built and warmed in "
+              f"{setup_s:.2f} s, serving on {url}; HiFi-GAN from a seeded "
+              f"weight-normed file in NGC's layout ({smi})", flush=True)
+        # one request a vocoder before the counted, timed run: the
+        # generator is read from its file on first use, on the card
+        for voc in ("griffinlim", "hifigan"):
+            status, body, _, _ = http_post(url + "/synthesize",
+                                           {"text": texts[0],
+                                            "vocoder": voc})
+            check(status == 200, f"phase 17 warm-up {voc}: HTTP {status}")
+        decoder_infer_mega.launches = conv_bn_act.launches = 0
+        ak.attention_tail.launches = 0
+
+        # eight concurrent requests: the four sentences twice, half of
+        # them Griffin-Lim, half HiFi-GAN
+        reqs = [(t, v) for v in ("griffinlim", "hifigan") for t in texts]
+        results = [None] * len(reqs)
+
+        def call(i):
+            text, voc = reqs[i]
+            results[i] = http_post(url + "/synthesize",
+                                   {"text": text, "vocoder": voc})
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mb = torch.cuda.memory_allocated(dev) / 2 ** 20
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVE_TIMEOUT_S)
+            check(not t.is_alive(), "phase 17: a request thread hung")
+        wall8 = time.perf_counter() - t1
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        frames8 = []
+        for (text, voc), res in zip(reqs, results):
+            check(res is not None and res[0] == 200,
+                  f"phase 17 batched {voc} {text!r}: "
+                  f"{None if res is None else res[:2]}")
+            frames8.append(wav_frames(res[1], f"batched {voc} {text!r}",
+                                      TRAINED_FRAME_ENDS[text]))
+        health = http_get_json(url + "/healthz")
+        check(health["max_batch_observed"] > 1,
+              f"phase 17: the requests did not coalesce: {health}")
+        check(health["batch_retries"] == 0,
+              f"phase 17: a batched decode failed and was served per "
+              f"item: {health}")
+        print(f"[serve] 8 concurrent requests: all 200, frames {frames8} "
+              f"(pinned {[TRAINED_FRAME_ENDS[t] for t, _ in reqs]}), "
+              f"healthz {health}; peak device memory of the batch "
+              f"{peak_mb - base_mb:.1f} MiB above the {base_mb:.1f} MiB "
+              f"held before it ({peak_mb:.1f} MiB absolute, "
+              f"torch.cuda.max_memory_allocated) ({smi})", flush=True)
+        print(latency_line("concurrency 8", [r[3] for r in results],
+                           sum(frames8) * hop / sr, wall8) + f" ({smi})",
+              flush=True)
+
+        # the same requests one at a time
+        lat1, frames1 = [], []
+        t1 = time.perf_counter()
+        for text, voc in reqs:
+            status, body, _, secs = http_post(url + "/synthesize",
+                                              {"text": text, "vocoder": voc})
+            check(status == 200, f"phase 17 serial {voc}: HTTP {status}")
+            frames1.append(wav_frames(body, f"serial {voc} {text!r}",
+                                      TRAINED_FRAME_ENDS[text]))
+            lat1.append(secs)
+        wall1 = time.perf_counter() - t1
+        print(latency_line("concurrency 1", lat1, sum(frames1) * hop / sr,
+                           wall1) + f" ({smi})", flush=True)
+
+        # streaming, once per vocoder, recording the attention tail's
+        # inputs and outputs; then HiFi-GAN once more on an fp32 generator
+        def recording_forward(*ins):
+            out = plain_forward(*ins)
+            recorded.append((tuple(x.clone() for x in ins),
+                             tuple(o.clone() for o in out)))
+            return out
+
+        ak._forward = recording_forward
+        streams = {}
+        for name, voc in (("griffinlim", "griffinlim"),
+                          ("hifigan bf16", "hifigan"),
+                          ("hifigan fp32", "hifigan")):
+            if name == "hifigan fp32":
+                service._hifigan_vocoder = hg.load_hifigan_vocoder(
+                    device=dev)
+            status, body, first_s, total_s = http_post(
+                url + "/synthesize_streaming",
+                {"text": texts[0], "vocoder": voc, "chunk_frames": 64},
+                stream=True)
+            check(status == 200 and len(body) % 2 == 0,
+                  f"phase 17 stream {name}: HTTP {status}")
+            streams[name] = np.frombuffer(body, "<i2").astype(np.int32)
+            print(f"[serve stream {name}] {texts[0]!r}: first chunk after "
+                  f"{first_s * 1e3:.1f} ms, {len(body) // 2} samples in "
+                  f"{total_s * 1e3:.1f} ms ({smi})", flush=True)
+        ak._forward = plain_forward
+
+        # long-form: the four sentences as one paragraph, HiFi-GAN
+        paragraph = " ".join(texts)
+        card_gen = hg.load_hifigan_params(device=dev)
+        with service._lock:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            wav, mels = synthesize_longform(service.model, paragraph,
+                                            hifigan_params=card_gen,
+                                            device=dev)
+            long_s = time.perf_counter() - t1
+        ends = [m.shape[0] for m in mels]
+        check(len(mels) == len(texts) and all(
+            abs(n - TRAINED_FRAME_ENDS[t]) <= STOP_SLACK
+            for n, t in zip(ends, texts)), f"phase 17 long-form: {ends}")
+        check(wav.shape == (sum(ends) * hop + 3 * LONGFORM_SILENCE,)
+              and bool(np.isfinite(wav).all()) and np.abs(wav).max() > 0,
+              f"phase 17 long-form: {wav.shape} samples")
+        print(f"[serve longform] {len(texts)} sentences, frames {ends}, "
+              f"{wav.size / sr:.2f} s of audio in {long_s * 1e3:.1f} ms "
+              f"(HiFi-GAN fp32, bf16 Tacotron 2; {smi})", flush=True)
+
+        # the CLIs, each as a process of its own
+        out_dir = os.path.join(tmp.name, "cli")
+        t1 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "inference_torch.py", texts[0], "--checkpoint",
+             TRAINED_CKPT, "--vocoder", "griffinlim", "--output_dir",
+             out_dir], cwd=root, capture_output=True, text=True,
+            timeout=SERVE_TIMEOUT_S)
+        cli_s = time.perf_counter() - t1
+        check(run.returncode == 0, f"inference_torch.py exit "
+              f"{run.returncode}: {run.stdout[-2000:]} {run.stderr[-2000:]}")
+        from tacotron2_torch.dsp.wav import load_audio
+        cli_wav, rate = load_audio(os.path.join(out_dir, "output_1.wav"))
+        cli_frames = len(cli_wav) // hop
+        check(rate == sr and abs(cli_frames - TRAINED_FRAME_ENDS[texts[0]])
+              <= STOP_SLACK, f"inference_torch.py wrote {len(cli_wav)} "
+              f"samples at {rate} Hz")
+        print(f"[serve cli] inference_torch.py {texts[0]!r} --vocoder "
+              f"griffinlim: exit 0, {cli_frames} frames in one WAV, "
+              f"{cli_s:.1f} s wall with the process's start", flush=True)
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        log_path = os.path.join(tmp.name, "serve_torch.log")
+        log = open(log_path, "w")
+        t1 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "serve_torch.py", "--checkpoint", TRAINED_CKPT,
+             "--port", str(port), "--bf16", "--max_batch", "2"], cwd=root,
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+        cli_url = f"http://127.0.0.1:{port}"
+
+        def server_log() -> str:
+            with open(log_path) as f:
+                return f.read()[-2000:]
+
+        while True:
+            if proc.poll() is not None:
+                fail(f"serve_torch.py exited {proc.returncode}: "
+                     f"{server_log()}")
+            if time.perf_counter() - t1 > SERVE_TIMEOUT_S:
+                fail(f"serve_torch.py did not come up: {server_log()}")
+            try:
+                http_get_json(cli_url + "/healthz", timeout=5)
+                break
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t1
+        status, body, _, secs = http_post(cli_url + "/synthesize",
+                                          {"text": texts[0]})
+        check(status == 200, f"serve_torch.py answered HTTP {status}")
+        served = wav_frames(body, "serve_torch.py",
+                            TRAINED_FRAME_ENDS[texts[0]])
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            fail(f"serve_torch.py did not stop on SIGTERM: {server_log()}")
+        check(proc.returncode == 0, f"serve_torch.py exit {proc.returncode} "
+              f"after SIGTERM: {server_log()}")
+        proc = None
+        said = [ln for ln in server_log().splitlines()
+                if ln.startswith(("[serve]", "TTS server"))]
+        print(f"[serve cli] serve_torch.py up in {up_s:.1f} s, one request "
+              f"({served} frames) in {secs * 1e3:.1f} ms, SIGTERM -> exit 0; "
+              f"it said: {' | '.join(said)}", flush=True)
+
+        launches = {"decoder_infer_mega": decoder_infer_mega.launches,
+                    "conv_bn_act": conv_bn_act.launches,
+                    "attention_tail": ak.attention_tail.launches}
+        print(f"[serve] launches on the serving path: {launches}",
+              flush=True)
+        check(all(n > 0 for n in launches.values()),
+              f"phase 17: a kernel of the path did not launch: {launches}")
+
+        # each kernel against its plain version on this path's inputs.
+        # The batched decode: the service's (bf16, held as phase 14 holds
+        # bf16) and the same batch on the fp32 model (DEC_TOL)
+        tokens, lengths = pad_sequences(
+            [text_to_sequence(t) for t, _ in reqs], pad_multiple=16)
+        model32 = load_model(TRAINED_CKPT, device=dev)
+        for m in (model32, service.model):
+            cdt = m.decoder.attention_lstm.weight_ih.dtype
+            with torch.no_grad():
+                tok = torch.from_numpy(tokens).long().to(dev)
+                memory = _condition_memory(m, encoder_apply(m.encoder, tok),
+                                           None)
+                mask = make_pad_mask(torch.from_numpy(lengths).to(dev),
+                                     tok.shape[1])
+                args = (m.decoder, memory, m.cfg.max_decoder_steps,
+                        m.cfg.gate_threshold, True, mask, "all", None)
+                got = decoder_infer_mega(*args)
+                ref = decoder_infer_mega_reference(*args)
+            torch.cuda.synchronize()
+            g_end, r_end = got[4].tolist(), ref[4].tolist()
+            where = f"serve batched decode {str(cdt)[6:]} B={len(reqs)}"
+            check(all(abs(a - b) <= STOP_SLACK for a, b in zip(g_end, r_end))
+                  and all(abs(a - TRAINED_FRAME_ENDS[t]) <= STOP_SLACK
+                          for a, (t, _) in zip(g_end, reqs)),
+                  f"{where}: frame_ends {g_end} vs plain {r_end}")
+            errs = {"mels": 0.0, "gates": 0.0, "aligns": 0.0}
+            first = mean = 0.0
+            for row in range(len(reqs)):
+                k = min(g_end[row], r_end[row])
+                for name, g, r in zip(DEC_OUTPUTS, got[:3], ref[:3]):
+                    errs[name] = max(errs[name], float(
+                        (g[row, :k].float() - r[row, :k].float())
+                        .abs().max()))
+                d = (got[0][row, :k] - ref[0][row, :k]).abs()
+                first = max(first, float(d[:10].max()))
+                mean = max(mean, float(d.mean()))
+            if cdt == torch.float32:
+                tol = dict(DEC_TOL[cdt], aligns=DEC_ALIGN_SHARE[cdt] * float(
+                    ref[2][:, :max(r_end)].abs().mean()))
+                print(f"[{where}] frame_ends kernel {g_end}, plain {r_end}; "
+                      f"over the shared frames " + ", ".join(
+                          f"{k} {errs[k]:.3e} (tol {tol[k]:.3g})"
+                          for k in DEC_OUTPUTS), flush=True)
+                for k in DEC_OUTPUTS:
+                    check(errs[k] <= tol[k], f"{where}: {k} {errs[k]}")
+            else:
+                print(f"[{where}] frame_ends kernel {g_end}, plain {r_end}; "
+                      f"mels first ten frames {first:.3e} (tol "
+                      f"{TRAINED_FIRST_TOL}), mean {mean:.3e} (tol "
+                      f"{TRAINED_MEAN_TOL})", flush=True)
+                check(first <= TRAINED_FIRST_TOL and mean <= TRAINED_MEAN_TOL,
+                      f"{where}: the decodes part beyond the limits")
+        del model32
+
+        # the attention tail on the inputs of every step of the streams
+        tail_err = max(max_err(out, ak.attention_tail_reference(*ins))
+                       for ins, out in recorded)
+        print(f"[serve stream attention_tail] {len(recorded)} steps of "
+              f"{len(streams)} streams: kernel vs plain max err "
+              f"{tail_err:.3e} (tol {TAIL_TOL})", flush=True)
+        check(tail_err <= TAIL_TOL, f"phase 17: attention_tail {tail_err}")
+
+        # conv_bn_act on each layer's real input of one request
+        m = service.model
+        eps = m.cfg.batchnorm_eps
+        tok1, len1 = pad_sequences([text_to_sequence(texts[0])],
+                                   pad_multiple=16)
+        with torch.no_grad():
+            out, _, _ = tacotron2_infer(m, tok1, text_lengths=len1,
+                                        device=dev)
+            x = m.encoder.embedding(
+                torch.from_numpy(tok1).long().to(dev)).transpose(1, 2)
+            n_post = len(m.postnet.convs)
+            layers = [("encoder", i, c, b, "relu") for i, (c, b) in
+                      enumerate(zip(m.encoder.convs, m.encoder.bns))] + [
+                ("postnet", i, c, b, "tanh" if i < n_post - 1 else "none")
+                for i, (c, b) in enumerate(zip(m.postnet.convs,
+                                               m.postnet.bns))]
+            shares, abs_errs = [], []
+            for part, i, conv, bn, act in layers:
+                if part == "postnet" and i == 0:
+                    x = out.mel_coarse.transpose(1, 2)
+                got = conv_bn_act(x, conv, bn, eps, act)
+                ref = conv_bn_act_reference(x, conv, bn, eps, act)
+                shares.append(conv_share(got, ref))
+                abs_errs.append(float((got - ref).abs().max()))
+                x = ref
+        torch.cuda.synchronize()
+        print(f"[serve conv_bn_act] the eight layers of one request "
+              f"({texts[0]!r}, bf16, T={x.shape[2]}): kernel vs plain "
+              f"{', '.join(f'{s_:.2e}' for s_ in shares)} of the mean size "
+              f"(limit {CONV_TOL[torch.bfloat16]:g}), largest "
+              f"{max(abs_errs):.2e} absolute", flush=True)
+        check(max(shares) <= CONV_TOL[torch.bfloat16],
+              f"phase 17 conv_bn_act {shares}")
+
+        # the streams against one-shot vocodes of the same mel
+        with torch.no_grad():
+            full_mel = np.concatenate(list(stream_mels(
+                m, texts[0], chunk_frames=64, apply_postnet=True,
+                device=dev)))
+        voc32 = service._hifigan_vocoder
+        one_shot = np.frombuffer(srv._pcm16(voc32(full_mel.T[None])[0]),
+                                 "<i2").astype(np.int32)
+        voc16 = hg.load_hifigan_vocoder(bf16=True, device=dev)
+        one_shot16 = np.frombuffer(srv._pcm16(voc16(full_mel.T[None])[0]),
+                                   "<i2").astype(np.int32)
+        n_samples = full_mel.shape[0] * hop
+        check(all(v.shape == (n_samples,) for v in streams.values()),
+              f"phase 17 streams: {[v.shape for v in streams.values()]} vs "
+              f"{n_samples} samples")
+        lsb = int(np.abs(streams["hifigan fp32"] - one_shot).max())
+        lsb16 = int(np.abs(streams["hifigan bf16"] - one_shot16).max())
+        print(f"[serve stream] streamed vs one-shot HiFi-GAN PCM of the "
+              f"same {full_mel.shape[0]}-frame mel: fp32 generator "
+              f"{lsb} LSB (limit {STREAM_LSB}); the bf16 generator the "
+              f"service serves {lsb16} LSB (limit {STREAM_BF16_LSB}: bf16 "
+              f"convolutions of other lengths round apart); Griffin-Lim "
+              f"stream "
+              f"{streams['griffinlim'].size} samples, the one-shot length",
+              flush=True)
+        check(lsb <= STREAM_LSB, f"phase 17: streamed HiFi-GAN {lsb} LSB")
+        check(lsb16 <= STREAM_BF16_LSB,
+              f"phase 17: streamed bf16 HiFi-GAN {lsb16} LSB")
+
+        # the generator on the card
+        mel_ct = torch.from_numpy(np.ascontiguousarray(full_mel.T[None]))
+        short = mel_ct[:, :, :32]
+        with torch.no_grad():
+            cpu_wav = hg.hifigan_apply(gen, short)
+            card_wav = hg.hifigan_apply(card_gen, short.to(dev)).cpu()
+            gen16 = hg.cast_hifigan_bf16(card_gen)
+            half_wav = hg.hifigan_apply(gen16, short.to(dev)).cpu()
+            whole = hg.hifigan_apply(card_gen, mel_ct.to(dev))
+            chunked = hg.hifigan_apply_chunked(card_gen, mel_ct.to(dev),
+                                               chunk=64)
+        errs = (float((card_wav - cpu_wav).abs().max()),
+                float((half_wav - card_wav).abs().max()),
+                float((chunked - whole).abs().max()))
+        print(f"[serve hifigan] card fp32 vs CPU on 32 frames "
+              f"{errs[0]:.2e} (limit {HIFIGAN_TOL:g}); bf16 vs fp32 "
+              f"{errs[1]:.2e} (limit {HIFIGAN_BF16_TOL:g}); "
+              f"vocoder_chunk_frames=64 vs whole on {mel_ct.shape[2]} "
+              f"frames {errs[2]:.2e} (limit {HIFIGAN_CHUNK_TOL:g})",
+              flush=True)
+        check(errs[0] <= HIFIGAN_TOL and errs[1] <= HIFIGAN_BF16_TOL
+              and errs[2] <= HIFIGAN_CHUNK_TOL, f"phase 17 HiFi-GAN {errs}")
+        rates = []
+        for b in (1, 8):
+            mel_b = mel_ct.to(dev).expand(b, -1, -1).contiguous()
+            audio_s = b * mel_b.shape[2] * hop / sr
+            for name, g in (("fp32", card_gen), ("bf16", gen16)):
+                ms = time_ms(lambda: hg.hifigan_apply(g, mel_b), 5)
+                rates.append(f"B={b} {name} {ms / audio_s:.3f}")
+        print(f"[serve hifigan] device ms per second of audio (CUDA "
+              f"events, {mel_ct.shape[2]} frames a row): "
+              f"{'; '.join(rates)} ({smi})", flush=True)
+        return launches
+    finally:
+        ak._forward = plain_forward
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=SERVE_TIMEOUT_S)
+        if log is not None:
+            log.close()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=SERVE_TIMEOUT_S)
+        service.close(join_timeout=SERVE_TIMEOUT_S)
+        if old_env is None:
+            os.environ.pop("HIFIGAN_CHECKPOINT", None)
+        else:
+            os.environ["HIFIGAN_CHECKPOINT"] = old_env
+        tmp.cleanup()
 
 
 def main() -> int:
@@ -2424,6 +2959,8 @@ def main() -> int:
     trained, kernels[0]["trained_path_launches"] = trained_weights_phase(
         dev, smi)
     kernels[1].update(trained)
+    # 17. the serving path on the same checkpoint
+    serve_launches = serving_phase(dev, smi)
 
     # 8, 9. the training kernels against their plain versions
     sweep = train_kernel_phases(dev, base, cfg)
@@ -2439,6 +2976,9 @@ def main() -> int:
     # 16. widths the kernels were not written for
     odd_widths_phase(dev)
     kernels += train_kernels + [conv_kernel]
+    for entry in kernels:
+        if entry["name"] in serve_launches:
+            entry["serve_path_launches"] = serve_launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Synthesize speech from text with the PyTorch port, on one CUDA card.
+
+The flags are ``inference.py``'s, plus ``--device``:
+
+    python inference_torch.py "Hello world." --checkpoint ckpt_dir \\
+        [--output_dir generated_audio] [--vocoder hifigan|griffinlim] \\
+        [--device cuda|cpu]
+    python inference_torch.py --input_file input.txt --longform \\
+        --checkpoint ...
+    python inference_torch.py --batch_file lines.txt --checkpoint ...
+
+``--checkpoint`` takes what ``infer/synthesize.py::load_model`` reads: an
+Orbax checkpoint directory of the JAX package, a checkpoint directory of
+the port or the port's weights file.  ``--vocoder hifigan`` (the default)
+reads the HiFi-GAN generator from ``$HIFIGAN_CHECKPOINT`` or
+``./hifigan_checkpoint.pt`` and falls back to Griffin-Lim, with a message,
+where there is none.
+"""
+
+import argparse
+import dataclasses
+import sys
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+
+def parse_args(argv: Optional[List[str]] = None
+               ) -> Tuple[argparse.ArgumentParser, argparse.Namespace]:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("text", type=str, nargs="?", default=None,
+                        help="Text to synthesize.")
+    parser.add_argument("--input_file", type=str, default=None,
+                        help="Read the text from a file (e.g. a paragraph).")
+    parser.add_argument("--longform", action="store_true",
+                        help="Sentence-chunked decode for paragraphs "
+                             "longer than the decoder cap.")
+    parser.add_argument("--batch_file", type=str, default=None,
+                        help="File with one text per line: synthesize the "
+                             "whole batch in one decode (per-line WAVs).")
+    parser.add_argument("--checkpoint", type=str, required=True,
+                        help="Path to a trained model checkpoint.")
+    parser.add_argument("--output_dir", type=str, default="generated_audio")
+    parser.add_argument("--vocoder", type=str, default="hifigan",
+                        choices=["hifigan", "griffinlim"])
+    parser.add_argument("--griffinlim_iters", type=int, default=60)
+    parser.add_argument("--speaker_id", type=int, default=None,
+                        help="Speaker index for multi-speaker checkpoints.")
+    parser.add_argument("--n_speakers", type=int, default=1,
+                        help="Speaker-table size of the checkpoint "
+                             "(must match training).")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="Device to synthesize on (default cuda).")
+    return parser, parser.parse_args(argv)
+
+
+def _make_cfg(args):
+    from tacotron2_torch.config import Config
+    cfg = Config()
+    if args.n_speakers > 1:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model,
+                                           n_speakers=args.n_speakers))
+    return cfg
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    parser, args = parse_args(argv)
+    from tacotron2_torch.dsp.wav import save_wav
+    from tacotron2_torch.infer.synthesize import (load_model,
+                                                  next_output_path,
+                                                  synthesize,
+                                                  synthesize_mels)
+    from tacotron2_torch.infer.vocode import (try_load_hifigan,
+                                              try_load_hifigan_params,
+                                              vocode_mels)
+
+    if args.batch_file:
+        with open(args.batch_file, "r", encoding="utf-8") as f:
+            texts = [line.strip() for line in f if line.strip()]
+        if not texts:
+            parser.error("--batch_file is empty")
+        cfg = _make_cfg(args)
+        model = load_model(args.checkpoint, cfg, args.device)
+        vocode = (try_load_hifigan(device=args.device)
+                  if args.vocoder == "hifigan" else None)
+        print(f"Batch synthesis: {len(texts)} texts in one decode")
+        mels, _ = synthesize_mels(model, texts, speaker_id=args.speaker_id,
+                                  device=args.device)
+        # One vocoder call per length bucket (not one per line), in
+        # chunks, so that WAVs are written as they are made.
+        chunk = 16
+        for s in range(0, len(mels), chunk):
+            part = list(mels[s:s + chunk])
+            wavs = vocode_mels(part, cfg.audio, vocoder=vocode,
+                               griffinlim_iters=args.griffinlim_iters,
+                               device=args.device)
+            for mel, wav in zip(part, wavs):
+                out_path = next_output_path(args.output_dir)
+                save_wav(out_path, wav, cfg.audio.sampling_rate)
+                print(f"  -> {out_path} ({mel.shape[0]} frames)")
+        return
+
+    if args.input_file:
+        with open(args.input_file, "r", encoding="utf-8") as f:
+            text = f.read().strip()
+    elif args.text:
+        text = args.text
+    else:
+        parser.error("provide TEXT, --input_file, or --batch_file")
+
+    if args.longform:
+        from tacotron2_torch.infer.longform import synthesize_longform
+        cfg = _make_cfg(args)
+        model = load_model(args.checkpoint, cfg, args.device)
+        # HiFi-GAN goes into the proportional pipeline as the generator
+        # (longform.py), not as an external vocoder callable, which would
+        # take the modular path.
+        hp = (try_load_hifigan_params(device=args.device)
+              if args.vocoder == "hifigan" else None)
+        wav, mels = synthesize_longform(
+            model, text, cfg, hifigan_params=hp,
+            griffinlim_iters=args.griffinlim_iters,
+            speaker_id=args.speaker_id, device=args.device)
+        out_path = next_output_path(args.output_dir)
+        save_wav(out_path, np.asarray(wav), cfg.audio.sampling_rate)
+        print(f"\nAudio ({len(mels)} sentences, "
+              f"{len(wav) / cfg.audio.sampling_rate:.1f}s) saved to: "
+              f"{out_path}")
+    else:
+        synthesize(text=text, checkpoint_path=args.checkpoint,
+                   output_dir=args.output_dir, vocoder=args.vocoder,
+                   griffinlim_iters=args.griffinlim_iters,
+                   cfg=_make_cfg(args), speaker_id=args.speaker_id,
+                   device=args.device)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except (FileNotFoundError, RuntimeError, ValueError) as e:
+        sys.exit(f"error: {e}")

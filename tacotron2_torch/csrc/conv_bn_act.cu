@@ -10,8 +10,11 @@
 //
 // with x rounded to the weight dtype, the sum kept in fp32, zeros outside
 // [0, T) ('same' padding, pad = (K - 1) / 2 before and K / 2 after, for
-// odd and even K) and one fp32 write.  K up to 2 HALO + 1 = 9 taps: the
-// input is staged with HALO steps on either side of a tile.
+// odd and even K) and one fp32 write.  K up to 33 taps: the input is
+// staged with a halo of HALO steps on either side of a tile, HALO in {4, 8,
+// 16} by K (up to 2 HALO + 1 taps), each halo a build of its own.  Past 33
+// taps (HALO = 16) the bf16 weights of one input chunk alone would take
+// more than half of a block's shared memory; the wrapper raises there.
 //
 // What bounds it on an H100: at the serving shapes (K = 5, 512 channels)
 // a layer is 2*B*T*C_in*C_out*K operations over about B*T*(C_in + C_out)*4
@@ -26,8 +29,10 @@
 // C_in into chunks of 32 (16 for fp32) that are staged in shared memory:
 // the K weight slices (64 x chunk, from the folded weights, which the
 // wrapper keeps zero-padded to whole tiles and chunks) and the input slice
-// with a halo of 4 steps (fp32 rows 16 bytes a copy, masked at the edges,
-// at the input's own strides instead of a padded copy).
+// with its halo (fp32 rows 16 bytes a copy, masked at the edges, at the
+// input's own strides instead of a padded copy).  The K <= 9 builds (halo
+// 4) are the serving path's; a longer kernel stages fewer chunks ahead
+// (halo 8: two, halo 16: one), so that its K weight slices still fit.
 //
 // At the serving shapes the grid of tiles is small (8 tiles for one
 // sentence's encoder layer, on 132 SMs) and a block's chunks are a chain
@@ -66,12 +71,19 @@ constexpr int THREADS = 128;
 constexpr int MAX_SPLIT = 8;               // portable cluster size
 constexpr int FMA_CHUNK = 16;              // input channels a stage, fp32
 constexpr int FMA_STRIDE = FMA_CHUNK + 4;  // 80-byte rows, 16-byte aligned
-constexpr int HALO = 4;                    // steps staged on either side
-constexpr int MAX_K = 2 * HALO + 1;
-constexpr int XF_COLS = T_TILE + 2 * HALO;  // a staged channel row
-constexpr int XF_STRIDE = XF_COLS + 4;      // 16-byte rows; float4 reads of
-                                            // 8 rows hit 8 bank groups
-constexpr int XF_VECS = XF_COLS / 4;
+constexpr int MAX_K = 33;                  // 2 x the largest halo + 1
+// steps staged on either side of a tile, by kernel size
+__host__ __device__ constexpr int halo_for(int K) {
+  return K <= 9 ? 4 : K <= 17 ? 8 : 16;
+}
+// a staged channel row: the tile and its halo; 16-byte rows, and float4
+// reads of 8 rows hit 8 bank groups (the stride is 4 mod 8 words)
+template <int HALO>
+struct Staged {
+  static constexpr int COLS = T_TILE + 2 * HALO;
+  static constexpr int STRIDE = COLS + 4;
+  static constexpr int VECS = COLS / 4;
+};
 constexpr int RED_STRIDE = T_TILE + 4;     // the partial tile, [co][t] fp32
 constexpr int RED_BYTES = CO_TILE * RED_STRIDE * 4;
 
@@ -179,9 +191,12 @@ __device__ __forceinline__ void stage_weights(const ConvArgs& a, float* ws,
 // input goes element by element, consecutive threads along its unit-
 // stride axis (time, or channels for a transposed (B, T, C) one): fp32 by
 // cp.async, bf16 (the embedding of a bf16 model) by plain loads.
-template <typename TIn, int CHUNK>
+template <typename TIn, int CHUNK, int HALO>
 __device__ __forceinline__ void stage_input(const ConvArgs& a, int b,
                                             TIn* xf, int t0, int ci0) {
+  constexpr int XF_COLS = Staged<HALO>::COLS;
+  constexpr int XF_STRIDE = Staged<HALO>::STRIDE;
+  constexpr int XF_VECS = Staged<HALO>::VECS;
   const TIn* x = static_cast<const TIn*>(a.x);
   const TIn* xb = x + (size_t)b * a.sx_b;
   const int t_first = t0 - HALO;
@@ -272,9 +287,10 @@ __device__ __forceinline__ void reduce_store(const ConvArgs& a, float* red,
 // per shift, each written by the rounding pass: K times its stores and
 // shared memory, against ldmatrix reads that cost nothing extra here.
 constexpr int WG_CHUNK = 32;                 // input channels a stage
-constexpr int WG_STAGES = 3;
 constexpr int WG_MAX_K = 7;   // taps held in registers by the build that
-                              // serves K <= 7; a second build holds MAX_K
+                              // serves K <= 7; the others hold 9
+constexpr int WG_TAP_GROUP = 9;   // taps whose operands a thread holds at
+                                  // once; longer kernels run groups of 9
 constexpr int WG_XS = WG_CHUNK + 8;          // 80-byte rows: ldmatrix 16 B
 constexpr int WG_TAP_BYTES = CO_TILE * WG_CHUNK * 2;   // 4 KB, 64 B rows
 
@@ -355,9 +371,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 // The rounding pass: xs[r][ci] = bf16(xf[ci][r + skip]) for r in [0, rows),
 // the operand's time-major layout.  fp32 is read 4 steps at a time (a
 // thread takes one channel's float4, a warp 32 channels).
-template <typename TIn>
+template <typename TIn, int HALO>
 __device__ __forceinline__ void round_input(const TIn* xf, __nv_bfloat16* xs,
                                             int rows, int skip) {
+  constexpr int XF_STRIDE = Staged<HALO>::STRIDE;
+  constexpr int XF_VECS = Staged<HALO>::VECS;
   static_assert(WG_CHUNK == 32, "a warp spans the chunk's channels");
   const int ci = threadIdx.x & 31;
   if constexpr (sizeof(TIn) == 4) {
@@ -378,32 +396,43 @@ __device__ __forceinline__ void round_input(const TIn* xf, __nv_bfloat16* xs,
   }
 }
 
+// chunks staged ahead in the ring, by halo: all K weight slices of a chunk
+// are one stage, so the longer kernels hold fewer
+__host__ __device__ constexpr int wg_stages(int halo) {
+  return halo == 4 ? 3 : halo == 8 ? 2 : 1;
+}
+
 struct WgLayout {   // byte offsets into the 1024-aligned dynamic shared memory
   int ws, xf, xs, bar, total;
 };
 
+template <int HALO>
 __host__ __device__ inline WgLayout wg_layout(int K, int x_bytes) {
+  constexpr int STAGES = wg_stages(HALO);
   const int rows = T_TILE + K - 1;
   WgLayout l;
   l.ws = 0;
-  l.xf = WG_STAGES * K * WG_TAP_BYTES;
-  l.xs = l.xf + ((WG_STAGES * WG_CHUNK * XF_STRIDE * x_bytes + 15) & ~15);
+  l.xf = STAGES * K * WG_TAP_BYTES;
+  l.xs = l.xf +
+         ((STAGES * WG_CHUNK * Staged<HALO>::STRIDE * x_bytes + 15) & ~15);
   l.bar = l.xs + ((rows * WG_XS * 2 + 7) & ~7);
-  l.total = l.bar + WG_STAGES * 8;
+  l.total = l.bar + STAGES * 8;
   if (l.total < RED_BYTES) l.total = RED_BYTES;
   return l;
 }
 
-template <typename TIn, int kMaxK>
+template <typename TIn, int kMaxK, int HALO>
 __global__ void __launch_bounds__(THREADS)
 conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                          ConvArgs a) {
+  constexpr int WG_STAGES = wg_stages(HALO);
+  static_assert(kMaxK <= 2 * HALO + 1, "the halo holds kMaxK taps");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const WgLayout l = wg_layout(a.K, sizeof(TIn));
+  const WgLayout l = wg_layout<HALO>(a.K, sizeof(TIn));
   const int rows = T_TILE + a.K - 1;
-  const int xf_elems = WG_CHUNK * XF_STRIDE;
+  const int xf_elems = WG_CHUNK * Staged<HALO>::STRIDE;
   TIn* xf_buf = reinterpret_cast<TIn*>(smem + l.xf);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + l.xs);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + l.bar);
@@ -430,8 +459,8 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
         tma_weights(&wmap, smem + l.ws + s * stage_bytes, &bars[s],
                     stage_bytes, c * WG_CHUNK, tl.co0);
       }
-      stage_input<TIn, WG_CHUNK>(a, tl.b, xf_buf + s * xf_elems, tl.t0,
-                                 c * WG_CHUNK);
+      stage_input<TIn, WG_CHUNK, HALO>(a, tl.b, xf_buf + s * xf_elems, tl.t0,
+                                       c * WG_CHUNK);
     }
     cp_async_commit();
   };
@@ -448,7 +477,7 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     cp_async_wait<WG_STAGES - 1>();
     mbar_wait(&bars[s], (i / WG_STAGES) & 1);
     __syncthreads();
-    round_input<TIn>(xf_buf + s * xf_elems, xs, rows, HALO - pad);
+    round_input<TIn, HALO>(xf_buf + s * xf_elems, xs, rows, HALO - pad);
     __syncthreads();
 
     const unsigned char* ws = smem + l.ws + s * stage_bytes;
@@ -457,27 +486,36 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     const __nv_bfloat16* xrow =
         xs + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * WG_XS +
         8 * (lane >> 4);
-    // every tap's A fragments first: a register that a wgmma in flight reads
-    // is not written again before the wait
-    uint32_t af[kMaxK][2][4];
+    // the taps in groups of at most WG_TAP_GROUP (one group up to K = 9):
+    // every tap's A fragments of a group first, since a register that a
+    // wgmma in flight reads is not written again before the wait
+    constexpr int kGroup = kMaxK < WG_TAP_GROUP ? kMaxK : WG_TAP_GROUP;
+    constexpr int kGroups = (kMaxK + kGroup - 1) / kGroup;
 #pragma unroll
-    for (int tap = 0; tap < kMaxK; ++tap) {
-      if (tap < a.K) {
-        ldmatrix_x4(af[tap][0], xrow + tap * WG_XS);
-        ldmatrix_x4(af[tap][1], xrow + tap * WG_XS + 16);
+    for (int grp = 0; grp < kGroups; ++grp) {
+      const int tap0 = grp * kGroup;
+      if (grp == 0 || tap0 < a.K) {
+        uint32_t af[kGroup][2][4];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          if (tap0 + j < a.K) {
+            ldmatrix_x4(af[j][0], xrow + (tap0 + j) * WG_XS);
+            ldmatrix_x4(af[j][1], xrow + (tap0 + j) * WG_XS + 16);
+          }
+        }
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          if (tap0 + j < a.K) {
+            const unsigned char* wt = ws + (tap0 + j) * WG_TAP_BYTES;
+            wgmma_m64n64k16(acc, af[j][0], desc_sw64(wt));
+            wgmma_m64n64k16(acc, af[j][1], desc_sw64(wt + 32));
+          }
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       }
     }
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int tap = 0; tap < kMaxK; ++tap) {
-      if (tap < a.K) {
-        wgmma_m64n64k16(acc, af[tap][0], desc_sw64(ws + tap * WG_TAP_BYTES));
-        wgmma_m64n64k16(acc, af[tap][1],
-                        desc_sw64(ws + tap * WG_TAP_BYTES + 32));
-      }
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -496,16 +534,25 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   reduce_store(a, red, tl);
 }
 
-// fp32 weights: plain FMA.  Shared memory: two weight buffers as above and
-// two input buffers xs[ci][r] (channel-major as it was copied: a warp's
-// lanes read consecutive time steps).  Warp w owns channels 16 w .. 16 w +
-// 15 of the tile, lane l time steps l and l + 32.
+// fp32 weights: plain FMA.  Shared memory: weight buffers as above and
+// input buffers xs[ci][r] (channel-major as it was copied: a warp's lanes
+// read consecutive time steps), two of each (the next chunk's loads fly
+// under this one's products), one of each for halo 16, whose 33 weight
+// slices of a chunk take 169 KB.  Warp w owns channels 16 w .. 16 w + 15 of
+// the tile, lane l time steps l and l + 32.
+__host__ __device__ constexpr int fma_buffers(int halo) {
+  return halo == 16 ? 1 : 2;
+}
+
+template <int HALO>
 __global__ void __launch_bounds__(THREADS)
 conv_bn_act_fma_kernel(ConvArgs a) {
+  constexpr int XF_STRIDE = Staged<HALO>::STRIDE;
+  constexpr int BUFS = fma_buffers(HALO);
   extern __shared__ __align__(16) unsigned char smem[];
   const int ws_elems = a.K * CO_TILE * FMA_STRIDE;
   float* ws_buf = reinterpret_cast<float*>(smem);
-  float* xs_buf = ws_buf + 2 * ws_elems;
+  float* xs_buf = ws_buf + BUFS * ws_elems;
 
   const Tile tl = tile_of(a, FMA_CHUNK);
   const int pad = (a.K - 1) / 2;
@@ -516,22 +563,28 @@ conv_bn_act_fma_kernel(ConvArgs a) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i][0] = acc[i][1] = 0.f;
 
-  if (tl.c_begin < tl.c_end) {
+  if (BUFS == 2 && tl.c_begin < tl.c_end) {
     stage_weights(a, ws_buf, tl.co0, tl.c_begin * FMA_CHUNK);
-    stage_input<float, FMA_CHUNK>(a, tl.b, xs_buf, tl.t0,
-                                  tl.c_begin * FMA_CHUNK);
+    stage_input<float, FMA_CHUNK, HALO>(a, tl.b, xs_buf, tl.t0,
+                                        tl.c_begin * FMA_CHUNK);
     cp_async_commit();
   }
   for (int c = tl.c_begin; c < tl.c_end; ++c) {
-    const int buf = (c - tl.c_begin) & 1;
+    const int buf = BUFS == 2 ? (c - tl.c_begin) & 1 : 0;
     const float* ws = ws_buf + buf * ws_elems;
     const float* xs = xs_buf + buf * FMA_CHUNK * XF_STRIDE + HALO - pad;
-    if (c + 1 < tl.c_end) {     // the next chunk's loads fly under this one
+    if (BUFS == 1) {            // this chunk's loads, then its products
+      stage_weights(a, ws_buf, tl.co0, c * FMA_CHUNK);
+      stage_input<float, FMA_CHUNK, HALO>(a, tl.b, xs_buf, tl.t0,
+                                          c * FMA_CHUNK);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else if (c + 1 < tl.c_end) {  // the next chunk's loads fly under this
       stage_weights(a, ws_buf + (buf ^ 1) * ws_elems, tl.co0,
                     (c + 1) * FMA_CHUNK);
-      stage_input<float, FMA_CHUNK>(a, tl.b,
-                                    xs_buf + (buf ^ 1) * FMA_CHUNK * XF_STRIDE,
-                                    tl.t0, (c + 1) * FMA_CHUNK);
+      stage_input<float, FMA_CHUNK, HALO>(
+          a, tl.b, xs_buf + (buf ^ 1) * FMA_CHUNK * XF_STRIDE, tl.t0,
+          (c + 1) * FMA_CHUNK);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -575,37 +628,58 @@ conv_bn_act_fma_kernel(ConvArgs a) {
   reduce_store(a, red, tl);
 }
 
-size_t smem_bytes(int is_bf16, int x_bf16, int K) {
-  if (is_bf16) return (size_t)wg_layout(K, x_bf16 ? 2 : 4).total + 1024;
-  const size_t n =
-      2 * (K * CO_TILE * FMA_STRIDE + FMA_CHUNK * XF_STRIDE) * sizeof(float);
+template <int HALO>
+size_t smem_bytes_for(int is_bf16, int x_bf16, int K) {
+  if (is_bf16) return (size_t)wg_layout<HALO>(K, x_bf16 ? 2 : 4).total + 1024;
+  const size_t n = fma_buffers(HALO) *
+                   (K * CO_TILE * FMA_STRIDE + FMA_CHUNK * Staged<HALO>::STRIDE) *
+                   sizeof(float);
   return n > (size_t)RED_BYTES ? n : (size_t)RED_BYTES;
 }
 
-template <int kMaxK>
-const void* wgmma_kernel_for(int x_bf16) {
-  return x_bf16 ? (const void*)conv_bn_act_wgmma_kernel<__nv_bfloat16, kMaxK>
-                : (const void*)conv_bn_act_wgmma_kernel<float, kMaxK>;
+size_t smem_bytes(int is_bf16, int x_bf16, int K) {
+  switch (halo_for(K)) {
+    case 4: return smem_bytes_for<4>(is_bf16, x_bf16, K);
+    case 8: return smem_bytes_for<8>(is_bf16, x_bf16, K);
+    default: return smem_bytes_for<16>(is_bf16, x_bf16, K);
+  }
 }
 
+template <int kMaxK, int HALO>
+const void* wgmma_kernel_for(int x_bf16) {
+  return x_bf16
+             ? (const void*)conv_bn_act_wgmma_kernel<__nv_bfloat16, kMaxK, HALO>
+             : (const void*)conv_bn_act_wgmma_kernel<float, kMaxK, HALO>;
+}
+
+// the build for these weights and K: halo 4 up to 9 taps (two bf16 builds,
+// up to 7 and 9 taps in registers), 8 up to 17, 16 up to 33
 const void* kernel_for(int is_bf16, int x_bf16, int K) {
-  if (!is_bf16) return (const void*)conv_bn_act_fma_kernel;
-  return K <= WG_MAX_K ? wgmma_kernel_for<WG_MAX_K>(x_bf16)
-                       : wgmma_kernel_for<MAX_K>(x_bf16);
+  const int halo = halo_for(K);
+  if (!is_bf16) {
+    return halo == 4   ? (const void*)conv_bn_act_fma_kernel<4>
+           : halo == 8 ? (const void*)conv_bn_act_fma_kernel<8>
+                       : (const void*)conv_bn_act_fma_kernel<16>;
+  }
+  if (K <= WG_MAX_K) return wgmma_kernel_for<WG_MAX_K, 4>(x_bf16);
+  if (halo == 4) return wgmma_kernel_for<9, 4>(x_bf16);
+  if (halo == 8) return wgmma_kernel_for<17, 8>(x_bf16);
+  return wgmma_kernel_for<MAX_K, 16>(x_bf16);
 }
 
 // Allow the kernel `smem` bytes of dynamic shared memory (once per kernel
 // and size: setting the attribute costs a CUDA API call).
 cudaError_t allow_smem(const void* kernel, size_t smem) {
-  static const void* kernels[8];
-  static size_t sizes[8];
-  for (int i = 0; i < 8; ++i) {
+  constexpr int N = 16;   // 11 builds
+  static const void* kernels[N];
+  static size_t sizes[N];
+  for (int i = 0; i < N; ++i) {
     if (kernels[i] == kernel && sizes[i] >= smem) return cudaSuccess;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < N; ++i) {
     if (kernels[i] == kernel || kernels[i] == nullptr) {
       kernels[i] = kernel;
       sizes[i] = smem;

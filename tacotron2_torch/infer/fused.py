@@ -1,11 +1,12 @@
-"""Tokens -> waveform without leaving the device (Griffin-Lim vocoder).
+"""Tokens -> waveform without leaving the device.
 
-Counterpart of the Griffin-Lim half of ``tacotron2_tpu/infer/fused.py``.
-There each function is one compiled program; here each is one eager
-function on device tensors with no host synchronisation inside it:
-encoder + decode kernel + postnet + mel inversion + Griffin-Lim are queued
-on the current stream back to back, and the host waits once, when it
-fetches the result.
+Counterpart of ``tacotron2_tpu/infer/fused.py``.  There each function is
+one compiled program; here each is one eager function on device tensors
+with no host synchronisation inside it: encoder + decode kernel + postnet
++ vocoder (mel inversion + Griffin-Lim, or the HiFi-GAN generator of
+``models/hifigan.py`` where ``hifigan_params`` is given) are queued on the
+current stream back to back, and the host waits once, when it fetches the
+result.
 
 Frames beyond the gate stop are masked to the log floor before vocoding,
 so the (fixed-shape) vocoder sees silence there; the caller trims the
@@ -30,8 +31,8 @@ the postnet mel on the device between the phases and picks the bucket from
 the decoded length; it costs a second synchronise, which suits serving
 where one decode feeds retries or batches.
 
-The HiFi-GAN branches of the JAX module wait for the port's HiFi-GAN
-(ROADMAP A11): passing ``hifigan_params`` raises.
+``hifigan_params`` is the generator (``models/hifigan.py::HiFiGAN``) on
+the model's device, in place of the JAX package's params pytree.
 """
 
 from __future__ import annotations
@@ -43,17 +44,11 @@ import torch
 
 from ..config import AudioConfig, Config
 from ..dsp.griffinlim import griffin_lim, mel_to_linear
+from ..models.hifigan import HiFiGAN, hifigan_apply, hifigan_apply_chunked
 from ..models.tacotron2 import Tacotron2, make_speaker_ids, tacotron2_infer
 from ..text import pad_sequences, text_to_sequence
 
 Device = Union[str, torch.device]
-
-
-def _no_hifigan(hifigan_params) -> None:
-    if hifigan_params is not None:
-        raise NotImplementedError(
-            "the port has no HiFi-GAN yet (ROADMAP A11): hifigan_params "
-            "must be None; Griffin-Lim is the only vocoder")
 
 
 def _griffin_lim_wav(mel: torch.Tensor, acfg: AudioConfig,
@@ -103,6 +98,43 @@ def synthesize_wav_fused(model: Tacotron2, acfg: AudioConfig, tokens,
         forced_stop_at=forced_stop_at, device=device)     # (B, S, n_mels)
     mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
     return _griffin_lim_wav(mel, acfg, gl_iters), n_frames, frame_ends
+
+
+def synthesize_wav_fused_hifigan(model: Tacotron2, hifigan_params: HiFiGAN,
+                                 acfg: AudioConfig, tokens,
+                                 text_lengths=None, speaker_ids=None, *,
+                                 max_steps: Optional[int] = None,
+                                 gate_threshold: Optional[float] = None,
+                                 stop_mode: str = "any",
+                                 vocoder_chunk_frames: Optional[int] = None,
+                                 device: Device = "cuda"
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor, torch.Tensor]:
+    """tokens (B, T_enc) -> (wav (B, S*hop), mel_postnet (B, S, n_mels),
+    n_frames, frame_ends), all on the device, with the neural vocoder
+    queued behind the decode.
+
+    The reference's primary synthesis path is Tacotron 2 -> HiFi-GAN
+    (reference: inference.py:40-54,71-74).  Frames past the gate stop are
+    masked to the log-mel floor, so the vocoder renders silence there;
+    trim returned audio at ``frame_ends[b] * hop_length`` (the generator's
+    total upsampling 256 == hop_length).
+
+    ``vocoder_chunk_frames`` bounds the generator's peak activation memory
+    by vocoding the mel in exact receptive-field-overlapped windows of that
+    many frames (``models/hifigan.py::hifigan_apply_chunked``).
+    """
+    mel, n_frames, frame_ends = decode_mel_fused(
+        model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
+        gate_threshold=gate_threshold, stop_mode=stop_mode, device=device)
+    mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
+    mel_ct = mel.transpose(1, 2)                           # (B, n_mels, S)
+    if vocoder_chunk_frames:
+        wav = hifigan_apply_chunked(hifigan_params, mel_ct,
+                                    chunk=vocoder_chunk_frames)
+    else:
+        wav = hifigan_apply(hifigan_params, mel_ct)
+    return wav, mel, n_frames, frame_ends
 
 
 # Mel-length buckets for the length-proportional path: the 128-frame grid
@@ -162,6 +194,15 @@ def vocode_bucket_pcm16(mel: torch.Tensor, frame_ends: torch.Tensor,
     return _to_pcm16(_griffin_lim_wav(mel, acfg, gl_iters))
 
 
+def vocode_bucket_hifigan_pcm16(hifigan_params: HiFiGAN, mel: torch.Tensor,
+                                frame_ends: torch.Tensor, acfg: AudioConfig,
+                                bucket: int) -> torch.Tensor:
+    """HiFi-GAN twin of :func:`vocode_bucket_pcm16` (the reference's
+    primary vocoder, reference: inference.py:40-54)."""
+    mel = _mask_and_slice(mel, frame_ends, bucket, acfg.mel_eps)
+    return _to_pcm16(hifigan_apply(hifigan_params, mel.transpose(1, 2)))
+
+
 def pick_bucket(n_frames: int, max_steps: int,
                 buckets: Tuple[int, ...] = VOCODE_BUCKETS) -> int:
     """Smallest bucket covering ``n_frames``, capped at ``max_steps``."""
@@ -189,15 +230,18 @@ def synthesize_wav_buckets(model: Tacotron2, acfg: AudioConfig, tokens,
     bucket -> bucket-sized vocode returning int16 PCM.  Sample b's audio
     is valid up to ``frame_ends[b] * hop_length`` samples; divide by
     32767 for float."""
-    _no_hifigan(hifigan_params)
     mel, _, frame_ends = decode_mel_fused(
         model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
         gate_threshold=gate_threshold, stop_mode=stop_mode,
         forced_stop_at=forced_stop_at, device=device)
     ends_np, = _fetch(frame_ends)                          # tiny copy
     bucket = pick_bucket(max(int(ends_np.max()), 1), mel.shape[1], buckets)
-    pcm = vocode_bucket_pcm16(mel, frame_ends, acfg, bucket,
-                              gl_iters=gl_iters)
+    if hifigan_params is not None:
+        pcm = vocode_bucket_hifigan_pcm16(hifigan_params, mel, frame_ends,
+                                          acfg, bucket)
+    else:
+        pcm = vocode_bucket_pcm16(mel, frame_ends, acfg, bucket,
+                                  gl_iters=gl_iters)
     return pcm, ends_np
 
 
@@ -215,22 +259,29 @@ def estimate_frames(n_tokens: int, frames_per_token: float = FRAMES_PER_TOKEN,
     return int(np.ceil(frames_per_token * n_tokens + margin))
 
 
-def _synthesize_pcm_bucket(model: Tacotron2, acfg: AudioConfig, tokens,
-                           text_lengths, speaker_ids, *, bucket: int,
+def _synthesize_pcm_bucket(model: Tacotron2,
+                           hifigan_params: Optional[HiFiGAN],
+                           acfg: AudioConfig, tokens, text_lengths,
+                           speaker_ids, *, bucket: int,
                            gate_threshold: Optional[float], stop_mode: str,
                            gl_iters: int, forced_stop_at: Optional[int],
                            device: Device
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Decode capped at ``bucket`` -> mask past the gate stop ->
-    bucket-length vocode -> int16 PCM, with no host synchronisation.
+    bucket-length vocode (HiFi-GAN where ``hifigan_params`` is given,
+    Griffin-Lim otherwise) -> int16 PCM, with no host synchronisation.
     Returns (pcm, frame_ends, masked mel), all on the device."""
     mel, _, frame_ends = decode_mel_fused(
         model, tokens, text_lengths, speaker_ids, max_steps=bucket,
         gate_threshold=gate_threshold, stop_mode=stop_mode,
         forced_stop_at=forced_stop_at, device=device)
     mel = _mask_and_slice(mel, frame_ends, bucket, acfg.mel_eps)
-    return _to_pcm16(_griffin_lim_wav(mel, acfg, gl_iters)), frame_ends, mel
+    if hifigan_params is not None:
+        wav = hifigan_apply(hifigan_params, mel.transpose(1, 2))
+    else:
+        wav = _griffin_lim_wav(mel, acfg, gl_iters)
+    return _to_pcm16(wav), frame_ends, mel
 
 
 def synthesize_pcm_proportional(model: Tacotron2, acfg: AudioConfig, tokens,
@@ -261,7 +312,6 @@ def synthesize_pcm_proportional(model: Tacotron2, acfg: AudioConfig, tokens,
     postnet mel as a fourth element, fetched in the same round (for
     diagnostics — the reference prints mel stats before vocoding,
     reference: inference.py:98-111)."""
-    _no_hifigan(hifigan_params)
     limit = (model.cfg.max_decoder_steps if max_steps is None else max_steps)
     if expected_frames is None:
         if text_lengths is not None:
@@ -273,7 +323,8 @@ def synthesize_pcm_proportional(model: Tacotron2, acfg: AudioConfig, tokens,
     bucket = pick_bucket(expected_frames, limit, buckets)
     while True:
         pcm, ends, mel = _synthesize_pcm_bucket(
-            model, acfg, tokens, text_lengths, speaker_ids, bucket=bucket,
+            model, hifigan_params, acfg, tokens, text_lengths, speaker_ids,
+            bucket=bucket,
             gate_threshold=gate_threshold, stop_mode=stop_mode,
             gl_iters=gl_iters, forced_stop_at=forced_stop_at, device=device)
         fetched = _fetch(pcm, ends, *([mel] if return_mel else []))
@@ -295,16 +346,22 @@ def synthesize_wav(model: Tacotron2, texts: Sequence[str],
                    speaker_id=None, hifigan_params=None,
                    device: Device = "cuda") -> List[np.ndarray]:
     """Host convenience: texts -> list of trimmed float32 waveforms via
-    :func:`synthesize_wav_fused` (Griffin-Lim)."""
-    _no_hifigan(hifigan_params)
+    :func:`synthesize_wav_fused_hifigan` when ``hifigan_params`` is given,
+    :func:`synthesize_wav_fused` (Griffin-Lim) otherwise."""
     cfg = cfg or Config()
     seqs = [text_to_sequence(t) or [0] for t in texts]
     tokens, lengths = pad_sequences(seqs, pad_multiple=16)
     speaker_ids = make_speaker_ids(speaker_id, len(texts), model.cfg)
     stop_mode = "all" if len(texts) > 1 else "any"
-    wav, _, ends = synthesize_wav_fused(
-        model, cfg.audio, tokens, lengths, speaker_ids, max_steps=max_steps,
-        gl_iters=gl_iters, stop_mode=stop_mode, device=device)
+    if hifigan_params is not None:
+        wav, _, _, ends = synthesize_wav_fused_hifigan(
+            model, hifigan_params, cfg.audio, tokens, lengths, speaker_ids,
+            max_steps=max_steps, stop_mode=stop_mode, device=device)
+    else:
+        wav, _, ends = synthesize_wav_fused(
+            model, cfg.audio, tokens, lengths, speaker_ids,
+            max_steps=max_steps, gl_iters=gl_iters, stop_mode=stop_mode,
+            device=device)
     wav_np, ends_np = _fetch(wav, ends)
     return [wav_np[b, : int(ends_np[b]) * cfg.audio.hop_length]
             for b in range(len(texts))]

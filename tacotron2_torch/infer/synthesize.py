@@ -1,8 +1,8 @@
 """Text-to-speech synthesis pipeline, the port's serving entry points.
 
 Counterpart of ``tacotron2_tpu/infer/synthesize.py``: load weights ->
-text_to_sequence -> autoregressive mel decode -> Griffin-Lim ->
-auto-numbered output WAV.  Batched synthesis is a first-class capability.
+text_to_sequence -> autoregressive mel decode -> vocoder (HiFi-GAN or
+Griffin-Lim) -> auto-numbered output WAV.  Batched synthesis is a first-class capability.
 :func:`synthesize_mels_tokens` is the same from token ids on.
 """
 
@@ -141,7 +141,7 @@ def synthesize(text: str, checkpoint_path: str, output_dir: str,
     # "hifigan" tries HiFi-GAN and falls back to Griffin-Lim with a
     # message; any other name is Griffin-Lim (as in the JAX package)
     from .vocode import try_load_hifigan_params
-    hifigan_params = (try_load_hifigan_params()
+    hifigan_params = (try_load_hifigan_params(device=device)
                       if vocoder.lower() == "hifigan" else None)
 
     # Length-proportional path: the mel bucket is picked from the text
@@ -150,7 +150,8 @@ def synthesize(text: str, checkpoint_path: str, output_dir: str,
     # frame_ends + the diagnostic mel come back in one round
     # (infer/fused.py).
     from .fused import synthesize_pcm_proportional
-    print("Processing input text + generating waveform (Griffin-Lim "
+    print("Processing input text + generating waveform "
+          f"({'HiFi-GAN' if hifigan_params is not None else 'Griffin-Lim'} "
           "length-proportional path)...")
     tokens, lengths = pad_sequences([text_to_sequence(text) or [0]],
                                     pad_multiple=16)

@@ -4,11 +4,11 @@ Counterpart of ``tacotron2_tpu/infer/vocode.py``.  Gate-trimmed mels have
 arbitrary lengths; this helper pads the time axis to 128-frame buckets
 (log-floor frames), vocodes, and trims the audio back, so that batched
 traffic stacks mels of one bucket into one vocoder call and the cached
-window-sum envelopes (``dsp/stft.py``) are reused.  The ``vocoder``
-callable argument is kept for a neural vocoder.  HiFi-GAN is not ported
-yet (ROADMAP A11): :func:`try_load_hifigan_params` falls back to
-Griffin-Lim as the JAX package's loader does when it fails, so
-``vocoder=None`` (Griffin-Lim) is the only vocoder the port ships.
+window-sum envelopes (``dsp/stft.py``) are reused.  ``vocoder`` is a
+callable (the HiFi-GAN closure of :func:`try_load_hifigan`) or None for
+Griffin-Lim.  The two loaders return None, with the JAX package's
+message, when HiFi-GAN cannot be loaded, so that callers fall back to
+Griffin-Lim.
 """
 
 from __future__ import annotations
@@ -106,15 +106,28 @@ def vocode_mels(mels: Sequence[np.ndarray], cfg: AudioConfig,
     return out
 
 
-def try_load_hifigan_params(checkpoint_path: Optional[str] = None):
-    """HiFi-GAN parameters for the fused synthesis path, or None (with the
-    JAX package's message) on ANY failure, so that callers fall back to
-    Griffin-Lim.  Until ``models/hifigan.py`` is ported (ROADMAP A11) its
-    import fails and this always returns None."""
+def _try_load(loader_name: str, checkpoint_path: Optional[str], **kw):
+    """Run a ``models.hifigan`` loader, returning None (with the JAX
+    package's message) on ANY failure -- missing checkpoint, wrong layout
+    -- so callers fall back to Griffin-Lim instead of crashing."""
     try:
         from ..models import hifigan
-        return hifigan.load_hifigan_params(checkpoint_path)
+        return getattr(hifigan, loader_name)(checkpoint_path, **kw)
     except Exception as e:
         print(f"HiFi-GAN unavailable ({type(e).__name__}: {e}); "
               f"falling back to Griffin-Lim.")
         return None
+
+
+def try_load_hifigan(checkpoint_path: Optional[str] = None,
+                     device: Union[str, torch.device] = "cuda"):
+    """HiFi-GAN vocoder callable on ``device``, or None on any failure (see
+    :func:`_try_load`)."""
+    return _try_load("load_hifigan_vocoder", checkpoint_path, device=device)
+
+
+def try_load_hifigan_params(checkpoint_path: Optional[str] = None,
+                            device: Union[str, torch.device] = "cuda"):
+    """The HiFi-GAN generator on ``device`` (the ``hifigan_params`` of the
+    fused synthesis path), or None on any failure (see :func:`_try_load`)."""
+    return _try_load("load_hifigan_params", checkpoint_path, device=device)

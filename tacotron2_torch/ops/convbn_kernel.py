@@ -42,7 +42,8 @@ from . import _build
 ACTS = {"none": 0, "relu": 1, "tanh": 2}
 TILE = 64          # output channels (and time steps) of the kernel's tile
 CHUNK = 32         # the folded weights' C_in is padded to whole chunks
-MAX_TAPS = 9       # the kernel stages 4 steps on either side of a tile
+MAX_TAPS = 33      # the kernel stages at most 16 steps on either side of a
+                   # tile (a halo of 4, 8 or 16 steps by K)
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,7 +228,8 @@ def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
     raise): one launch a call once the layer's fold is made.  Kernel
-    sizes up to ``MAX_TAPS``, odd or even, with 'same' padding as
+    sizes up to ``MAX_TAPS`` (33, as the JAX package's kernel takes any
+    that fits its VMEM), odd or even, with 'same' padding as
     ``models/layers.py::conv1d_same`` pads: ``(k - 1) // 2`` steps before,
     ``k // 2`` after.  ``conv_bn_act.launches`` counts launches."""
     if x.device.type == "cpu":
@@ -247,9 +249,11 @@ def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
         raise TypeError(f"conv_bn_act: input dtype {x.dtype} with "
                         f"{wdtype} weights")
     if k > MAX_TAPS:
-        raise ValueError(f"conv_bn_act takes kernel sizes up to {MAX_TAPS} "
-                         f"(the input is staged with 4 steps on either side "
-                         f"of a tile); got {k}")
+        raise ValueError(
+            f"conv_bn_act takes kernel sizes up to {MAX_TAPS}: the input is "
+            f"staged with at most 16 steps on either side of a 64-step "
+            f"tile, and at 33 taps one input chunk's bf16 weights already "
+            f"take 132 KB of a block's 227 KB of shared memory; got {k}")
     if conv.weight.device != x.device or bn.running_var.device != x.device:
         raise ValueError("conv_bn_act: weights and input on different "
                          "devices")

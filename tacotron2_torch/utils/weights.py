@@ -6,6 +6,12 @@ them), including ``params["speaker"]`` for multi-speaker models.  The JAX
 package stores linear weights ``(in, out)`` and LSTM weights ``(in, 4H)``;
 the port stores PyTorch's ``(out, in)`` and ``(4H, in)``, so those are
 transposed.  Convolution, embedding and BatchNorm layouts are the same.
+
+:func:`load_jax_hifigan_params` and :func:`export_jax_hifigan_params` do
+the same for the HiFi-GAN generator's pytree
+(``tacotron2_tpu/models/hifigan.py``), whose transposed convolutions are
+stored flipped along the taps and as ``(out, in, k)`` for an lhs-dilated
+convolution; ``ConvTranspose1d`` wants ``(in, out, k)``, unflipped.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from ..models.hifigan import HiFiGAN
 from ..models.tacotron2 import Tacotron2
 
 Path = Tuple[Any, ...]
@@ -160,3 +167,55 @@ def export_jax_params(model: Tacotron2
         a = sd[key].detach().float().cpu().numpy()
         _set(trees, path, (a.T if transpose else a).copy())
     return _lists(trees["params"]), _lists(trees["state"])
+
+
+def _hifigan_pairs(model: HiFiGAN) -> Iterator[Tuple[Path, str, bool]]:
+    """(JAX path, port state_dict key, transposed conv) for every tensor of
+    the generator."""
+    convs = [(("conv_pre",), "conv_pre", False)]
+    convs += [(("ups", i), f"ups.{i}", True) for i in range(len(model.ups))]
+    for i, block in enumerate(model.resblocks):
+        for half in ("convs1", "convs2"):
+            convs += [(("resblocks", i, half, j), f"resblocks.{i}.{half}.{j}",
+                       False) for j in range(len(getattr(block, half)))]
+    convs.append((("conv_post",), "conv_post", False))
+    for path, name, transposed in convs:
+        yield path + ("w",), name + ".weight", transposed
+        yield path + ("b",), name + ".bias", False
+
+
+@torch.no_grad()
+def load_jax_hifigan_params(model: HiFiGAN, params: Dict[str, Any]
+                            ) -> HiFiGAN:
+    """Fill the generator in place from the JAX package's HiFi-GAN params
+    pytree (numpy or array leaves).  Each tensor keeps the model's dtype
+    and device; shapes must match."""
+    sd = model.state_dict()
+    n = 0
+    for path, key, transposed in _hifigan_pairs(model):
+        a = np.asarray(_get(params, path)).astype(np.float32)
+        if transposed:      # (out, in, k) flipped -> (in, out, k)
+            a = np.flip(a, -1).transpose(1, 0, 2)
+        dst = sd[key]
+        if tuple(a.shape) != tuple(dst.shape):
+            raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                             f"{a.shape} does not fit {key} "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(a.copy()))
+        n += 1
+    if n != len(sd):
+        raise ValueError(f"filled {n} of the generator's {len(sd)} tensors")
+    return model
+
+
+def export_jax_hifigan_params(model: HiFiGAN) -> Dict[str, Any]:
+    """Inverse of :func:`load_jax_hifigan_params`: the generator's weights
+    as the JAX package's params pytree with fp32 numpy leaves."""
+    tree: Dict[str, Any] = {}
+    sd = model.state_dict()
+    for path, key, transposed in _hifigan_pairs(model):
+        a = sd[key].detach().float().cpu().numpy()
+        if transposed:      # (in, out, k) -> (out, in, k) flipped
+            a = np.flip(a.transpose(1, 0, 2), -1)
+        _set(tree, path, a.copy())
+    return _lists(tree)

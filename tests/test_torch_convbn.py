@@ -112,6 +112,10 @@ CASES = [
     (10, 40, 5, 1, 37, "none"),
     (40, 10, 3, 2, 8, "tanh"),
     (80, 96, 5, 2, 21, "none"),
+    # longer kernels than the model's 5 taps (the card's kernel stages a
+    # wider halo for them)
+    (24, 16, 11, 2, 19, "relu"),
+    (16, 24, 15, 1, 23, "tanh"),
 ]
 
 

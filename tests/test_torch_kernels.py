@@ -794,7 +794,10 @@ def test_conv_bn_act_rejects_what_it_cannot_launch():
     # even kernel sizes ('same' padding one step longer after), and 8 and
     # 9 taps, which the bf16 kernel's second build holds
     (16, 16, 2, 1, 13), (32, 40, 4, 2, 65), (40, 32, 6, 1, 70),
-    (40, 32, 8, 1, 70), (36, 40, 9, 2, 129)])
+    (40, 32, 8, 1, 70), (36, 40, 9, 2, 129),
+    # the halo-8 and halo-16 builds: taps in groups of 9, fewer stages
+    (512, 512, 11, 2, 130), (40, 72, 15, 1, 70), (64, 40, 33, 2, 129),
+    (36, 40, 16, 1, 65)])
 def test_cuda_conv_bn_act_matches_plain(c_in, c_out, k, b, t, dtype, act):
     dev = cuda_device()
     conv, bn = conv_layer(c_in, c_out, k, dtype, seed=c_in + t, device=dev)
@@ -898,8 +901,8 @@ def test_cuda_conv_bn_act_checks_inputs():
     with pytest.raises(TypeError, match="input dtype"):
         conv_bn_act(torch.zeros(1, 8, 4, device=dev, dtype=torch.float16),
                     conv, bn, 1e-5, "relu")
-    long, _ = conv_layer(8, 8, 11, torch.float32, 0, dev)
-    with pytest.raises(ValueError, match="kernel sizes up to 9"):
+    long, _ = conv_layer(8, 8, 35, torch.float32, 0, dev)
+    with pytest.raises(ValueError, match="kernel sizes up to 33"):
         conv_bn_act(torch.zeros(1, 8, 4, device=dev), long, bn, 1e-5, "relu")
     cpu_conv, cpu_bn = conv_layer(8, 8, 5, torch.float32, 0, "cpu")
     with pytest.raises(ValueError, match="different devices"):

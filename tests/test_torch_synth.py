@@ -3,7 +3,8 @@
 Small config: shared weights (``load_jax_params``), shared token ids, and
 the JAX package's own initial Griffin-Lim phase handed to the port, through
 ``synthesize_wav_fused``, ``synthesize_pcm_proportional``,
-``synthesize_wav`` and ``vocode_mels``; the export tool's weights file
+``synthesize_wav`` and ``vocode_mels``, and each of them with HiFi-GAN (a
+seeded generator bridged into the JAX package's params, at 80 mels); the export tool's weights file
 against the checkpoint it was made from.  Full width, on
 ``checkpoints/r4_synth_bf16`` through ``load_jax_params``: the sentences
 that ``chip_smoke.py`` speaks, with the gate firing by itself at the pinned
@@ -49,10 +50,12 @@ from tacotron2_torch.dsp import griffinlim as tgl
 from tacotron2_torch.dsp.wav import load_audio
 from tacotron2_torch.infer import fused, vocode
 from tacotron2_torch.infer import synthesize as synth
+from tacotron2_torch.models import hifigan
 from tacotron2_torch.models.tacotron2 import (Tacotron2, cast_params_bf16,
                                               tacotron2_infer)
 from tacotron2_torch.text import pad_sequences, text_to_sequence
-from tacotron2_torch.utils.weights import load_jax_params
+from tacotron2_torch.utils.weights import (export_jax_hifigan_params,
+                                           load_jax_params)
 
 # the module, not the function of the same name that its package exports
 jsynth = importlib.import_module("tacotron2_tpu.infer.synthesize")
@@ -253,18 +256,80 @@ def test_vocode_mels(small, jax_phase):
     assert vocode._FRAME_BUCKET == jvocode._FRAME_BUCKET
 
 
-def test_hifigan_is_not_silently_replaced(small, tmp_path):
-    _, _, model, _, cfg = small
-    tokens, lengths = batch(TEXTS[:1])
-    with pytest.raises(NotImplementedError, match="A11"):
-        fused.synthesize_pcm_proportional(model, cfg.audio, tokens, lengths,
-                                          hifigan_params={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        fused.synthesize_wav_buckets(model, cfg.audio, tokens, lengths,
-                                     hifigan_params={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        fused.synthesize_wav(model, TEXTS, cfg=cfg, hifigan_params={},
-                             device="cpu")
+@pytest.fixture(scope="module")
+def small80():
+    """The small model at the 80 mels and 256-sample hop of the HiFi-GAN
+    generator, and one generator: the port's seeded one, bridged into the
+    JAX package's params."""
+    mcfg = dict(SMALL, n_mels=80)
+    params, state = tacotron2_init(jax.random.PRNGKey(4),
+                                   JaxModelConfig(**mcfg))
+    model = load_jax_params(Tacotron2(ModelConfig(**mcfg)), np_tree(params),
+                            np_tree(state))
+    gen = hifigan.hifigan_init(seed=0)
+    jcfg = JaxConfig(model=JaxModelConfig(**mcfg))
+    return (params, state, export_jax_hifigan_params(gen), model, gen, jcfg,
+            Config(model=ModelConfig(**mcfg)))
+
+
+def test_hifigan_branches_match_jax(small80):
+    """Every HiFi-GAN branch of the fused path against the JAX package's,
+    on the same Tacotron 2 weights and the same generator."""
+    params, state, jgen, model, gen, jcfg, cfg = small80
+    tokens, lengths = batch(TEXTS)
+    ref = jfused.synthesize_wav_fused_hifigan(
+        params, state, jgen, jcfg.model, jcfg.audio, jnp.asarray(tokens),
+        jnp.asarray(lengths), max_steps=5, stop_mode="all")
+    got = fused.synthesize_wav_fused_hifigan(
+        model, gen, cfg.audio, tokens, lengths, max_steps=5,
+        stop_mode="all", device="cpu")
+    assert got[0].shape == (2, 5 * 256) and int(got[2]) == int(ref[2]) == 5
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]),
+                               atol=MEL_TOL, rtol=0)
+    assert_wav_close(got[0].numpy(), np.asarray(ref[0]))
+    # vocoder_chunk_frames: the exact chunked generator (six windows)
+    one, one_len = batch(TEXTS[:1])
+    kw = dict(max_steps=44, device="cpu")
+    whole = fused.synthesize_wav_fused_hifigan(model, gen, cfg.audio, one,
+                                               one_len, **kw)
+    chunked = fused.synthesize_wav_fused_hifigan(
+        model, gen, cfg.audio, one, one_len, vocoder_chunk_frames=8, **kw)
+    np.testing.assert_allclose(chunked[0].numpy(), whole[0].numpy(),
+                               atol=2e-5, rtol=0)
+    # the two-phase pipeline's HiFi-GAN vocode of the bucket
+    kw = dict(max_steps=12, stop_mode="all", buckets=(4, 8, 16))
+    ref_pcm, ref_ends = jfused.synthesize_wav_buckets(
+        params, state, jcfg.model, jcfg.audio, jnp.asarray(tokens),
+        jnp.asarray(lengths), forced_stop_at=jnp.int32(3),
+        hifigan_params=jgen, **kw)
+    pcm, ends = fused.synthesize_wav_buckets(
+        model, cfg.audio, tokens, lengths, forced_stop_at=3,
+        hifigan_params=gen, device="cpu", **kw)
+    np.testing.assert_array_equal(ends, ref_ends)
+    assert pcm.shape == (2, 4 * 256)
+    assert_pcm_close(pcm.numpy(), np.asarray(ref_pcm))
+    # the length-proportional path picks the bucket before the decode
+    kw = dict(expected_frames=3, buckets=(4, 8, 16), return_mel=True)
+    ref = jfused.synthesize_pcm_proportional(
+        params, state, jcfg.model, jcfg.audio, jnp.asarray(one),
+        jnp.asarray(one_len), forced_stop_at=jnp.int32(3),
+        hifigan_params=jgen, **kw)
+    got = fused.synthesize_pcm_proportional(
+        model, cfg.audio, one, one_len, forced_stop_at=3, hifigan_params=gen,
+        device="cpu", **kw)
+    assert got[2] == ref[2] == 4 and got[0].shape == (1, 4 * 256)
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert_pcm_close(got[0], ref[0])
+    np.testing.assert_allclose(got[3], ref[3], atol=MEL_TOL, rtol=0)
+    # texts in, trimmed float waveforms out
+    ref_wavs = jfused.synthesize_wav(params, state, TEXTS, cfg=jcfg,
+                                     max_steps=5, hifigan_params=jgen)
+    wavs = fused.synthesize_wav(model, TEXTS, cfg=cfg, max_steps=5,
+                                hifigan_params=gen, device="cpu")
+    for w, r in zip(wavs, ref_wavs):
+        assert w.dtype == np.float32 and w.shape == (5 * 256,)
+        assert_wav_close(w, np.asarray(r))
 
 
 FALLBACK = re.compile(r"^HiFi-GAN unavailable \((\w+): .+\); falling back "

@@ -7,7 +7,7 @@ their wrappers zero-pad the weights and inputs of any other config
 comes back.  These tests run the plain versions on padded operands, which
 is the arithmetic the kernels do on them, and hold the result to the
 unpadded config's: the padding only adds zero terms.  The conv takes any
-kernel size up to 9 taps, odd or even: its plain version is checked here
+kernel size up to 33 taps, odd or even: its plain version is checked here
 (the attention tail's plan for any A and D in
 ``tests/test_torch_tail_plan.py``), the launches in
 ``tests/test_torch_kernels.py`` on the card.
@@ -276,7 +276,7 @@ def test_decode_checks_still_raise():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [2, 4, 5, 6, 8, MAX_TAPS])
+@pytest.mark.parametrize("k", [2, 4, 5, 6, 8, 9, 16, MAX_TAPS])
 def test_conv_plain_version_pads_as_the_model(k, dtype):
     """The folded conv's plain version, odd or even K, equals the model's
     unfused conv + eval BatchNorm + ReLU ('same' padding of
