@@ -171,12 +171,38 @@ it fails:
     ``vocoder_chunk_frames=64`` against whole, and its device ms per
     second of audio at B=1 and 8 in fp32 and bf16.
 
-Phases 11-14 and 17 run after phase 7, before the training phases, and
-phases 15 and 16 after phase 10.  The ``kernels`` line has five entries;
-the serving path's three carry ``serve_path_launches``.  The last line is
+18. the data path on the trained multi-speaker checkpoint
+    ``checkpoints/r5_ms_bf16``: the seed-5, 4-speaker, 2048-row corpus of
+    ``docs/evidence_r5`` generated by ``make_synth_corpus`` (every row
+    synthesized, rows 1792-2047 written as float32 WAV to a temporary
+    directory, the last 48 split into ``metadata_val.csv``);
+    ``preprocess_corpus(use_native=True)`` on the card (the C++ loader
+    built from ``native/wavio.cc``): every row ``ok``, every token file
+    equal to ``text_to_sequence``, every card mel within ``PRE_MEL_TOL`` of
+    the plain version on the CPU over the same padded batch, and the
+    utterances and audio-seconds per wall second with the padding the size
+    estimate costs; ``tools/eval_quality_torch.py::evaluate`` on the card
+    over the first 16 val items, held to the TPU's report
+    ``docs/evidence_r5/quality_r5ms.json``: ``text_len``, ``mel_len`` and
+    ``speaker_id`` equal, ``ar_end_frames`` within ``AR_END_SLACK``,
+    ``mcd_tf_db`` within ``TF_MCD_SLACK``, the summaries inside
+    ``tests/test_quality_report.py``'s tail limits (``R5_TAILS``), with the
+    launch counters zeroed before and read after (``attention_tail`` once a
+    teacher-forced step, ``conv_bn_act`` 16 an item, ``decoder_infer_mega``
+    one an item); then the 16 decodes against the plain step loop
+    (``DEC_TOL``, fp32 as ``load_model`` serves), one item's teacher-forced
+    tail calls (``TAIL_TOL``) and eight conv layers (``CONV_TOL``) against
+    their plain versions; and ``gt_vocoder_check_torch.py`` on one val
+    item: both scale guesses ``LIKELY_LOG``, the cached and recomputed
+    mels within ``PRE_MEL_TOL``, a finite Griffin-Lim WAV.
+
+Phases 11-14 and 17 run after phase 7, before the training phases,
+phases 15 and 16 after phase 10, and phase 18 last.  The ``kernels`` line
+has five entries; the serving path's three carry ``serve_path_launches``
+and the data path's three ``quality_path_launches``.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``tacotron2_tpu``, and reads no weights file from the repository but the
-checkpoint of phase 14.
+checkpoints of phases 14 and 18.
 """
 
 from __future__ import annotations
@@ -1095,6 +1121,49 @@ def conv_layer(c_in, c_out, k, dtype, seed, dev):
 def conv_share(got, ref) -> float:
     """Largest error as a share of the plain output's mean size."""
     return float((got - ref).abs().max()) / float(ref.abs().mean())
+
+
+def tail_recorder(forward, recorded: list):
+    """A stand-in for ``ops/attention_kernel.py::_forward`` that runs
+    ``forward`` and appends a copy of each call's (inputs, outputs) to
+    ``recorded``."""
+    def recording_forward(*ins):
+        out = forward(*ins)
+        recorded.append((tuple(x.clone() for x in ins),
+                         tuple(o.clone() for o in out)))
+        return out
+    return recording_forward
+
+
+def model_conv_layers(model, tokens, mel_coarse):
+    """The model's eight conv layers, ``conv_bn_act`` against its plain
+    version on each layer's real input: the encoder's from the embedded
+    ``tokens`` (B, T_enc), the postnet's from ``mel_coarse`` (B, T_dec,
+    n_mels), each next layer fed the plain output.  Returns (each layer's
+    largest error as a share of the plain output's mean size, its largest
+    absolute error)."""
+    from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
+                                                   conv_bn_act_reference)
+    eps = model.cfg.batchnorm_eps
+    n_post = len(model.postnet.convs)
+    layers = [("encoder", i, c, b, "relu") for i, (c, b) in
+              enumerate(zip(model.encoder.convs, model.encoder.bns))] + [
+        ("postnet", i, c, b, "tanh" if i < n_post - 1 else "none")
+        for i, (c, b) in enumerate(zip(model.postnet.convs,
+                                       model.postnet.bns))]
+    shares, abs_errs = [], []
+    with torch.no_grad():
+        x = model.encoder.embedding(tokens).transpose(1, 2)
+        for part, i, conv, bn, act in layers:
+            if part == "postnet" and i == 0:
+                x = mel_coarse.transpose(1, 2)
+            got = conv_bn_act(x, conv, bn, eps, act)
+            ref = conv_bn_act_reference(x, conv, bn, eps, act)
+            shares.append(conv_share(got, ref))
+            abs_errs.append(float((got - ref).abs().max()))
+            x = ref
+    torch.cuda.synchronize()
+    return shares, abs_errs
 
 
 def convbn_sweep(dev):
@@ -2187,8 +2256,7 @@ def serving_phase(dev, smi: str) -> dict:
     from tacotron2_torch.models.tacotron2 import (
         _condition_memory, make_pad_mask, tacotron2_infer)
     from tacotron2_torch.ops import attention_kernel as ak
-    from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
-                                                   conv_bn_act_reference)
+    from tacotron2_torch.ops.convbn_kernel import conv_bn_act
     from tacotron2_torch.ops.decoder_megakernel import (
         decoder_infer_mega, decoder_infer_mega_reference)
     from tacotron2_torch.text import pad_sequences, text_to_sequence
@@ -2290,13 +2358,7 @@ def serving_phase(dev, smi: str) -> dict:
 
         # streaming, once per vocoder, recording the attention tail's
         # inputs and outputs; then HiFi-GAN once more on an fp32 generator
-        def recording_forward(*ins):
-            out = plain_forward(*ins)
-            recorded.append((tuple(x.clone() for x in ins),
-                             tuple(o.clone() for o in out)))
-            return out
-
-        ak._forward = recording_forward
+        ak._forward = tail_recorder(plain_forward, recorded)
         streams = {}
         for name, voc in (("griffinlim", "griffinlim"),
                           ("hifigan bf16", "hifigan"),
@@ -2477,32 +2539,16 @@ def serving_phase(dev, smi: str) -> dict:
 
         # conv_bn_act on each layer's real input of one request
         m = service.model
-        eps = m.cfg.batchnorm_eps
         tok1, len1 = pad_sequences([text_to_sequence(texts[0])],
                                    pad_multiple=16)
         with torch.no_grad():
             out, _, _ = tacotron2_infer(m, tok1, text_lengths=len1,
                                         device=dev)
-            x = m.encoder.embedding(
-                torch.from_numpy(tok1).long().to(dev)).transpose(1, 2)
-            n_post = len(m.postnet.convs)
-            layers = [("encoder", i, c, b, "relu") for i, (c, b) in
-                      enumerate(zip(m.encoder.convs, m.encoder.bns))] + [
-                ("postnet", i, c, b, "tanh" if i < n_post - 1 else "none")
-                for i, (c, b) in enumerate(zip(m.postnet.convs,
-                                               m.postnet.bns))]
-            shares, abs_errs = [], []
-            for part, i, conv, bn, act in layers:
-                if part == "postnet" and i == 0:
-                    x = out.mel_coarse.transpose(1, 2)
-                got = conv_bn_act(x, conv, bn, eps, act)
-                ref = conv_bn_act_reference(x, conv, bn, eps, act)
-                shares.append(conv_share(got, ref))
-                abs_errs.append(float((got - ref).abs().max()))
-                x = ref
-        torch.cuda.synchronize()
+        shares, abs_errs = model_conv_layers(
+            m, torch.from_numpy(tok1).long().to(dev), out.mel_coarse)
         print(f"[serve conv_bn_act] the eight layers of one request "
-              f"({texts[0]!r}, bf16, T={x.shape[2]}): kernel vs plain "
+              f"({texts[0]!r}, bf16, T={out.mel_coarse.shape[1]}): "
+              f"kernel vs plain "
               f"{', '.join(f'{s_:.2e}' for s_ in shares)} of the mean size "
               f"(limit {CONV_TOL[torch.bfloat16]:g}), largest "
               f"{max(abs_errs):.2e} absolute", flush=True)
@@ -2586,6 +2632,327 @@ def serving_phase(dev, smi: str) -> dict:
             os.environ.pop("HIFIGAN_CHECKPOINT", None)
         else:
             os.environ["HIFIGAN_CHECKPOINT"] = old_env
+        tmp.cleanup()
+
+
+# phase 18: the data path on the trained multi-speaker checkpoint
+R5_ROOT = os.path.dirname(os.path.abspath(__file__))
+R5_CKPT = os.path.join(R5_ROOT, "checkpoints", "r5_ms_bf16")
+R5_REPORT = os.path.join(R5_ROOT, "docs", "evidence_r5", "quality_r5ms.json")
+R5_CORPUS = dict(n=2048, seed=5, n_speakers=4)   # tools/make_synth_corpus.py
+R5_ROWS = range(1792, 2048)     # written and preprocessed; the last 48: val
+R5_VAL = 48
+R5_ITEMS = 16
+# card mels against the plain version on the CPU (the same padded batch),
+# max abs on natural-log mels: both frame, FFT and project in fp32 in
+# another order, and the largest gap sits near the log floor (-11.5),
+# where a power of 1e-5 moves the log by 1e-4 for a 1e-9 difference.
+# Read on an H100 1.4e-4 (and 5.6e-5 between the cached mel and one
+# recomputed alone on the card); the limit stands 4 times above.
+PRE_MEL_TOL = 5.5e-4
+AR_END_SLACK = 3        # frames, autoregressive stop against the TPU report
+TF_MCD_SLACK = 0.5      # dB, teacher-forced MCD against the TPU report
+# tests/test_quality_report.py's tail limits on the TPU report: (p90, max),
+# strict for the MCDs, inclusive for the gate error
+R5_TAILS = {"mcd_teacher_forced_db": (5.0, 8.0),
+            "mcd_autoregressive_dtw_db": (6.0, 9.0),
+            "gate_timing_error_frames": (10.0, 25.0)}
+
+
+def data_path_phase(dev, smi: str) -> dict:
+    """Phase 18.  The seed-5 corpus of ``checkpoints/r5_ms_bf16`` generated,
+    preprocessed on the card and evaluated there against the TPU's report;
+    then the three kernels of the path against their plain versions on its
+    inputs, and the ground-truth DSP round trip.  Returns the kernels-line
+    additions by kernel name."""
+    import gt_vocoder_check_torch as gt_check
+    from tacotron2_torch.config import AudioConfig, Config, ModelConfig
+    from tacotron2_torch.data import preprocess as pre
+    from tacotron2_torch.data.dataset import TextMelDataset
+    from tacotron2_torch.data.metadata import (_write_csv, basename_of,
+                                               read_metadata)
+    from tacotron2_torch.data.native_loader import (decode_batch_padded,
+                                                    library_path)
+    from tacotron2_torch.data.synth_corpus import make_synth_corpus
+    from tacotron2_torch.dsp import get_mel_spectrogram
+    from tacotron2_torch.dsp.wav import load_audio
+    from tacotron2_torch.dsp.mel import batched_log_mel_with_lengths
+    from tacotron2_torch.infer.synthesize import load_model
+    from tacotron2_torch.models.encoder import encoder_apply
+    from tacotron2_torch.models.tacotron2 import (_condition_memory,
+                                                  tacotron2_forward)
+    from tacotron2_torch.ops import attention_kernel as ak
+    from tacotron2_torch.ops.convbn_kernel import conv_bn_act
+    from tacotron2_torch.ops.decoder_megakernel import (
+        decoder_infer_mega, decoder_infer_mega_reference)
+    from tacotron2_torch.text import text_to_sequence
+    sys.path.insert(0, os.path.join(R5_ROOT, "tools"))
+    try:
+        from eval_quality_torch import evaluate
+    finally:
+        sys.path.pop(0)
+
+    audio = AudioConfig()
+    hop, sr = audio.hop_length, audio.sampling_rate
+    with open(R5_REPORT) as f:
+        tpu = json.load(f)
+    phase0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    plain_forward = ak._forward
+    try:
+        # (a) the corpus: every row synthesized, the last 256 written
+        raw, proc = (os.path.join(tmp.name, d) for d in ("raw", "processed"))
+        t1 = time.perf_counter()
+        meta = make_synth_corpus(raw, rows=R5_ROWS, **R5_CORPUS)
+        gen_s = time.perf_counter() - t1
+        rows = read_metadata(meta)
+        fields = ["filepath", "text", "speaker_id"]
+        check(len(rows) == len(R5_ROWS), f"phase 18: {len(rows)} rows")
+        wav_bytes = sum(os.path.getsize(r["filepath"]) for r in rows)
+        print(f"[data corpus] make_synth_corpus(n=2048, seed=5, "
+              f"n_speakers=4): rows {R5_ROWS.start}-{R5_ROWS.stop - 1} "
+              f"written ({wav_bytes / 1e6:.1f} MB of float32 WAV) in "
+              f"{gen_s:.2f} s", flush=True)
+
+        # (b) preprocessing on the card, the native loader forced
+        print(f"[data preprocess] native loader {library_path().name} "
+              f"(built from native/wavio.cc)", flush=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = pre.preprocess_corpus(meta, proc, use_native=True,
+                                      device=dev)
+        wall = time.perf_counter() - t1
+        check(stats == {"ok": len(rows), "skipped": 0},
+              f"phase 18 preprocess: {stats}")
+        _write_csv(os.path.join(proc, "metadata_train.csv"),
+                   rows[:-R5_VAL], fields)
+        val_meta = os.path.join(proc, "metadata_val.csv")
+        _write_csv(val_meta, rows[-R5_VAL:], fields)
+        # the plan the pass made (size-estimate buckets, batches of 64) and
+        # the one the true lengths would give
+        lengths, buckets, true_buckets = [], {}, {}
+        for r in rows:
+            n = len(load_audio(r["filepath"])[0])
+            lengths.append(n)
+            est = pre._bucket_len(pre._estimated_wav_samples(r["filepath"]))
+            buckets.setdefault(est, []).append(r)
+            true_buckets.setdefault(pre._bucket_len(n), []).append(r)
+
+        def planned(plan):
+            return sum(-(-len(v) // 64) * 64 * (b + audio.n_fft)
+                       for b, v in plan.items())
+        audio_s = sum(lengths) / sr
+        print(f"[data preprocess] {len(rows)} utterances, {audio_s:.1f} s "
+              f"of audio in {wall:.3f} s wall: {len(rows) / wall:.1f} "
+              f"utterances/s, {audio_s / wall:.1f} audio-s per wall s; "
+              f"{sum(-(-len(v) // 64) for v in buckets.values())} device "
+              f"batches over buckets {sorted(buckets)}; device samples "
+              f"{planned(buckets)} for {sum(lengths)} true "
+              f"({planned(buckets) / sum(lengths):.2f}x; buckets from the "
+              f"true lengths: {planned(true_buckets)}, "
+              f"{planned(true_buckets) / sum(lengths):.2f}x) ({smi})",
+              flush=True)
+        # every token file exact, every card mel against the CPU's plain
+        # version on the same padded batch
+        for r in rows:
+            got = np.load(os.path.join(proc, "text",
+                                       basename_of(r["filepath"]) + ".npy"))
+            check(got.dtype == np.int32 and got.tolist()
+                  == text_to_sequence(r["text"]),
+                  f"phase 18: token file of {r['filepath']}")
+        mel_err, n_frames = 0.0, 0
+        for b, bucket_rows in buckets.items():
+            for start in range(0, len(bucket_rows), 64):
+                chunk = bucket_rows[start:start + 64]
+                batch, lens, _ = decode_batch_padded(
+                    [c["filepath"] for c in chunk], audio.n_fft // 2,
+                    b + audio.n_fft)
+                ref, _ = batched_log_mel_with_lengths(
+                    torch.from_numpy(batch), torch.from_numpy(lens),
+                    sr=sr, n_fft=audio.n_fft, hop_length=hop,
+                    win_length=audio.win_length, n_mels=audio.n_mels,
+                    fmin=audio.fmin, fmax=audio.fmax, mel_eps=audio.mel_eps)
+                for j, c in enumerate(chunk):
+                    got = np.load(os.path.join(
+                        proc, "mels", basename_of(c["filepath"]) + ".npy"))
+                    t = 1 + int(lens[j]) // hop
+                    check(got.shape == (audio.n_mels, t)
+                          and got.dtype == np.float32,
+                          f"phase 18: mel {got.shape} {got.dtype}")
+                    mel_err = max(mel_err, float(np.abs(
+                        got - ref[j, :, :t].numpy()).max()))
+                    n_frames += t
+        print(f"[data preprocess] {len(rows)} token files equal "
+              f"text_to_sequence; card mels vs the plain version on the "
+              f"CPU over {n_frames} frames: max abs err {mel_err:.3e} "
+              f"(tol {PRE_MEL_TOL:g})", flush=True)
+        check(mel_err <= PRE_MEL_TOL, f"phase 18: mel error {mel_err}")
+
+        # (c) the evaluation on the card, held to the TPU's report
+        for fn in (ak.attention_tail, conv_bn_act, decoder_infer_mega):
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        report = evaluate(R5_CKPT, val_meta, n=R5_ITEMS, n_speakers=4,
+                          device=dev)
+        eval_s = time.perf_counter() - t1
+        launches = {"attention_tail": ak.attention_tail.launches,
+                    "conv_bn_act": conv_bn_act.launches,
+                    "decoder_infer_mega": decoder_infer_mega.launches}
+        items = report["per_item"]
+        check(len(items) == R5_ITEMS, f"phase 18: {len(items)} items")
+        gaps = []
+        for got, ref in zip(items, tpu["per_item"]):
+            for k in ("text_len", "mel_len", "speaker_id"):
+                check(got[k] == ref[k], f"phase 18 item {got['index']}: "
+                      f"{k} {got[k]} != {ref[k]}")
+            gaps.append((got["ar_end_frames"] - ref["ar_end_frames"],
+                         got["mcd_tf_db"] - ref["mcd_tf_db"],
+                         got["mcd_ar_dtw_db"] - ref["mcd_ar_dtw_db"],
+                         got["diagonality"] - ref["diagonality"]))
+        print(f"[data eval] evaluate({os.path.relpath(R5_CKPT, R5_ROOT)}, "
+              f"val, n={R5_ITEMS}, n_speakers=4) on the card in "
+              f"{eval_s:.2f} s; per item against the TPU's report "
+              f"(index: ar_end, mcd_tf dB, mcd_ar dB, diagonality): "
+              + "; ".join(f"{i}: {g[0]:+d}, {g[1]:+.3f}, {g[2]:+.3f}, "
+                          f"{g[3]:+.4f}" for i, g in enumerate(gaps))
+              + f" ({smi})", flush=True)
+        print("[data eval] summaries: " + "; ".join(
+            f"{k} " + ", ".join(f"{s} {report[k][s]:.4f} (TPU "
+                                f"{tpu[k][s]:.4f})"
+                                for s in ("mean", "p90", "max"))
+            for k in ("mcd_teacher_forced_db", "mcd_autoregressive_dtw_db",
+                      "gate_timing_error_frames", "alignment_diagonality")),
+            flush=True)
+        check(max(abs(g[0]) for g in gaps) <= AR_END_SLACK,
+              f"phase 18: autoregressive stops {[g[0] for g in gaps]}")
+        check(max(abs(g[1]) for g in gaps) <= TF_MCD_SLACK,
+              f"phase 18: teacher-forced MCD gaps {[g[1] for g in gaps]}")
+        for k, (p90, top) in R5_TAILS.items():
+            s = report[k]
+            inclusive = k == "gate_timing_error_frames"
+            ok = ((s["p90"] <= p90 and s["max"] <= top) if inclusive
+                  else (s["p90"] < p90 and s["max"] < top))
+            check(ok, f"phase 18: {k} tails {s}")
+        mel_lens = [it["mel_len"] for it in items]
+        print(f"[data eval] launches {launches} (attention_tail one a "
+              f"teacher-forced step: {sum(mel_lens)} steps; conv_bn_act 8 "
+              f"layers x 2 forwards x {R5_ITEMS}; one decode an item)",
+              flush=True)
+        check(launches == {"attention_tail": sum(mel_lens),
+                           "conv_bn_act": 16 * R5_ITEMS,
+                           "decoder_infer_mega": R5_ITEMS},
+              f"phase 18: launches {launches}")
+
+        # (d) each kernel against its plain version on this path's inputs
+        cfg = Config(model=ModelConfig(n_speakers=4))
+        model = load_model(R5_CKPT, cfg, device=dev)
+        ds = TextMelDataset(val_meta)
+        dec_errs = {k: 0.0 for k in DEC_OUTPUTS}
+        stops = []
+        for i in range(R5_ITEMS):
+            item = ds[i]
+            with torch.no_grad():
+                tok = torch.from_numpy(item.text[None]).long().to(dev)
+                spk = torch.tensor([item.speaker_id], device=dev)
+                memory = _condition_memory(
+                    model, encoder_apply(model.encoder, tok), spk)
+                args = (model.decoder, memory, 1000,
+                        model.cfg.gate_threshold, True, None, "any", None)
+                got = decoder_infer_mega(*args)
+                ref = decoder_infer_mega_reference(*args)
+            g_n, r_n = int(got[4][0]), int(ref[4][0])
+            check(abs(g_n - r_n) <= STOP_SLACK
+                  and g_n == items[i]["ar_end_frames"],
+                  f"phase 18 item {i}: stops kernel {g_n}, plain {r_n}, "
+                  f"evaluate {items[i]['ar_end_frames']}")
+            stops.append((g_n, r_n))
+            k = min(g_n, r_n)
+            tol = dict(DEC_TOL[torch.float32],
+                       aligns=DEC_ALIGN_SHARE[torch.float32]
+                       * float(ref[2][0, :k].abs().mean()))
+            for name, g, r in zip(DEC_OUTPUTS, got[:3], ref[:3]):
+                err = float((g[0, :k] - r[0, :k]).abs().max())
+                check(err <= tol[name], f"phase 18 item {i}: decode {name} "
+                      f"error {err} > {tol[name]}")
+                dec_errs[name] = max(dec_errs[name], err)
+        print(f"[data decoder_infer_mega] the {R5_ITEMS} decodes (fp32, "
+              f"max_steps 1000) against the plain step loop: stops "
+              f"(kernel, plain) {stops}; max err over the shared frames "
+              + ", ".join(f"{k} {v:.3e}" for k, v in dec_errs.items())
+              + f" (tol mels/gates {DEC_TOL[torch.float32]['mels']:g}, "
+              f"aligns {DEC_ALIGN_SHARE[torch.float32]:g} of their mean)",
+              flush=True)
+
+        # one item's teacher-forced pass, recording every tail call, and
+        # its eight conv layers on their real inputs
+        recorded = []
+        item = ds[0]
+        ak._forward = tail_recorder(plain_forward, recorded)
+        with torch.no_grad():
+            out = tacotron2_forward(model, item.text[None], item.mel[None],
+                                    [len(item.text)], train=False,
+                                    speaker_ids=[item.speaker_id],
+                                    device=dev)
+        ak._forward = plain_forward
+        check(len(recorded) == item.mel.shape[1],
+              f"phase 18: {len(recorded)} tail calls for "
+              f"{item.mel.shape[1]} frames")
+        tail_err = max(max_err(o, ak.attention_tail_reference(*ins))
+                       for ins, o in recorded)
+        shares, conv_errs = model_conv_layers(
+            model, torch.from_numpy(item.text[None]).long().to(dev),
+            out.mel_coarse)
+        print(f"[data attention_tail] item 0's {len(recorded)} "
+              f"teacher-forced steps: kernel vs plain max err "
+              f"{tail_err:.3e} (tol {TAIL_TOL})", flush=True)
+        print(f"[data conv_bn_act] item 0's eight layers (fp32, T_enc="
+              f"{len(item.text)}, T_dec={item.mel.shape[1]}): kernel vs "
+              f"plain {', '.join(f'{s_:.2e}' for s_ in shares)} of the "
+              f"mean size (limit {CONV_TOL[torch.float32]:g}), largest "
+              f"{max(conv_errs):.2e} absolute", flush=True)
+        check(tail_err <= TAIL_TOL, f"phase 18: attention_tail {tail_err}")
+        check(max(shares) <= CONV_TOL[torch.float32],
+              f"phase 18: conv_bn_act {shares}")
+        del model
+
+        # (e) the ground-truth DSP round trip on one val item
+        gt = gt_check.main(gt_check.parse_args([
+            "--metadata", val_meta, "--processed_root", proc, "--index",
+            "0", "--output_dir", os.path.join(tmp.name, "gt"),
+            "--device", str(dev)]))
+        row = rows[-R5_VAL]
+        cached = np.load(os.path.join(proc, "mels",
+                                      basename_of(row["filepath"]) + ".npy"))
+        again = get_mel_spectrogram(row["filepath"], audio, device=dev)
+        gt_err = float(np.abs(cached - again).max())
+        gl, rate = load_audio(os.path.join(
+            tmp.name, "gt", gt["basename"] + "_gt_griffinlim.wav"))
+        print(f"[data gt_vocoder_check] {gt['basename']}: scale guesses "
+              f"processed {gt['processed_mel_scale_guess']}, recomputed "
+              f"{gt['recomputed_mel_scale_guess']}; cached vs recomputed "
+              f"mel max abs err {gt_err:.3e} (tol {PRE_MEL_TOL:g}); "
+              f"Griffin-Lim {len(gl)} samples at {rate} Hz", flush=True)
+        check(gt["recomputed_mel_scale_guess"] == "LIKELY_LOG"
+              and gt["processed_mel_scale_guess"] == "LIKELY_LOG",
+              f"phase 18: scale guesses {gt}")
+        check(cached.shape == again.shape and gt_err <= PRE_MEL_TOL,
+              f"phase 18: cached vs recomputed mel {gt_err}")
+        check(rate == sr and bool(np.isfinite(gl).all())
+              and float(np.abs(gl).max()) > 0,
+              "phase 18: Griffin-Lim wrote no audio")
+        print(f"[data] phase 18 wall {time.perf_counter() - phase0:.1f} s",
+              flush=True)
+        return {"attention_tail": dict(quality_path_launches=launches[
+                    "attention_tail"], quality_path_max_abs_err=tail_err),
+                "decoder_infer_mega": dict(
+                    quality_path_launches=launches["decoder_infer_mega"],
+                    quality_path_max_abs_err=dec_errs["mels"]),
+                "conv_bn_act": dict(
+                    quality_path_launches=launches["conv_bn_act"],
+                    quality_path_max_abs_err=max(conv_errs))}
+    finally:
+        ak._forward = plain_forward
         tmp.cleanup()
 
 
@@ -2975,10 +3342,13 @@ def main() -> int:
      train_kernels[1]["loop_launches"]) = training_loop_phase(dev, smi)
     # 16. widths the kernels were not written for
     odd_widths_phase(dev)
+    # 18. the data path on the trained multi-speaker checkpoint
+    quality = data_path_phase(dev, smi)
     kernels += train_kernels + [conv_kernel]
     for entry in kernels:
         if entry["name"] in serve_launches:
             entry["serve_path_launches"] = serve_launches[entry["name"]]
+        entry.update(quality.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
