@@ -196,11 +196,43 @@ it fails:
     item: both scale guesses ``LIKELY_LOG``, the cached and recomputed
     mels within ``PRE_MEL_TOL``, a finite Griffin-Lim WAV.
 
+19. data parallelism on the one card: the compute mode (``Default``) and
+    no MPS server (the decoder kernels' grid barriers need every block
+    resident; two processes time-slice the card); (a) one process at the
+    training main path's B=16, then two ranks of this script
+    (``--dp-rank``) on ``cuda:0`` over gloo (``file://`` store), each on
+    8 rows at full width: the first step's gradients summed over the
+    ranks (rank 0 also holds both training kernels against their plain
+    versions on that step's inputs, ``MAIN_PAIR_TOL``), the counted run
+    (``DP_STEPS`` bf16 ``train_step``s: #3 and #4 once a step on each
+    rank, the gradient all-reduce timed; an ``eval_step``: #1 on every
+    teacher-forced step, each call within ``TAIL_TOL`` of the plain
+    version, #5 eight times), then the same steps in fp32; after every
+    step every rank's state bit for bit (sha256); against one process:
+    the bf16 gradients (``GRAD_TOL`` by phase 10's rule), each step's
+    losses (``GRAD_TOL`` relative) and, in fp32, the weights after the
+    last step (gap over update, ``GRAD_TOL``); a failed or hung rank
+    fails the phase; (b) ``train_torch.py`` under ``torchrun
+    --nproc_per_node 2`` on phase 15's corpus: two epochs, then the
+    second resumed from the first's checkpoint, bit for bit, one log
+    written by rank 0 alone; (c) ``ShardedSynthesizer`` over
+    ``["cuda:0", "cuda:0"]`` on ``r4_synth_bf16`` (fp32) for eight
+    sentences and for three: frame ends equal to the unsharded
+    ``synthesize_wav``'s, waveforms within ``DP_WAV_TOL`` /
+    ``DP_WAV_MEAN`` at ``DP_GL_ITERS`` Griffin-Lim rounds (widened to at
+    most ``DP_WAV_CAP``), #2 once and #5 eight times a shard, each shard's
+    decode and conv layers against their plain versions (at most
+    ``DP_DEC_CAP``), the walls of both in turns; for the eight, how far
+    the batch's makeup moves a decode (the whole batch against each row
+    alone, by the kernel and by the plain step loop), printed, not held.
+
 Phases 11-14 and 17 run after phase 7, before the training phases,
-phases 15 and 16 after phase 10, and phase 18 last.  The ``kernels`` line
-has five entries; the serving path's three carry ``serve_path_launches``
-and the data path's three ``quality_path_launches``.  The last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
+phases 15 and 16 after phase 10, then phase 18 and phase 19 last.  The
+``kernels`` line has five entries; the serving path's three carry
+``serve_path_launches``, the data path's three ``quality_path_launches``,
+the data-parallel training path's four ``dp_path_launches`` (one rank's)
+and the sharded serving path's two ``sharded_path_launches``.  The last
+line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``tacotron2_tpu``, and reads no weights file from the repository but the
 checkpoints of phases 14 and 18.
 """
@@ -211,6 +243,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -789,12 +822,38 @@ def train_kernel_phases(dev, base, cfg):
     return sweep_err
 
 
+def seeded_train_batch(mc):
+    """The training main path's batch: B=16 seeded ragged utterances, the
+    longest text 128 tokens and the longest mel 512 frames."""
+    from tacotron2_torch.data.dataset import Example, collate
+    rng = np.random.default_rng(SEED)
+    text_lens = rng.integers(60, 129, 16)
+    mel_lens = rng.integers(300, 513, 16)
+    text_lens[3], mel_lens[5] = 128, 512
+    return collate([
+        Example(text=rng.integers(0, mc.n_symbols, n).astype(np.int32),
+                mel=(rng.standard_normal((mc.n_mels, m)) * 1.5 - 5.0
+                     ).astype(np.float32))
+        for n, m in zip(text_lens, mel_lens)])
+
+
+def first_step_masks(mc, b, t_dec, g, dev):
+    """Dropout keep-masks for a postnet-bypassed step of a batch of ``b``,
+    drawn from the generator ``g`` on the card."""
+    keep = lambda shape, rate: torch.rand(
+        shape, generator=g, device=dev) < 1.0 - rate
+    h = mc.decoder_rnn_dim
+    return {"prenet": [keep((b, t_dec, mc.prenet_dim), mc.p_prenet_dropout)
+                       for _ in range(2)],
+            "attention": keep((t_dec, b, h), mc.p_attention_dropout),
+            "decoder": keep((t_dec, b, h), mc.p_decoder_dropout)}
+
+
 def train_main_path(dev):
     """Phase 10.  Returns attention_tail's launches on this path and its
     largest error on eval_step's inputs, and the kernels-line entries of
     the two training kernels."""
     from tacotron2_torch.config import Config
-    from tacotron2_torch.data.dataset import Example, collate
     from tacotron2_torch.models.encoder import encoder_apply
     from tacotron2_torch.models.layers import BatchNorm
     from tacotron2_torch.models.postnet import postnet_apply
@@ -817,15 +876,7 @@ def train_main_path(dev):
     tx = make_optimizer(cfg.train)
     state = create_train_state(cfg, seed=SEED, tx=tx)
     model = state.model
-    rng = np.random.default_rng(SEED)
-    text_lens = rng.integers(60, 129, 16)
-    mel_lens = rng.integers(300, 513, 16)
-    text_lens[3], mel_lens[5] = 128, 512
-    batch = collate([
-        Example(text=rng.integers(0, mc.n_symbols, n).astype(np.int32),
-                mel=(rng.standard_normal((mc.n_mels, m)) * 1.5 - 5.0
-                     ).astype(np.float32))
-        for n, m in zip(text_lens, mel_lens)])
+    batch = seeded_train_batch(mc)
     b, t_enc = batch["text"].shape
     t_dec = batch["mel"].shape[2]
     check((b, t_enc, t_dec) == (16, 128, 512), f"batch {b} {t_enc} {t_dec}")
@@ -842,13 +893,8 @@ def train_main_path(dev):
     # the same batch and the same dropout masks, and both kernels against
     # their plain versions on that step's own inputs
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
-    keep = lambda shape, rate: torch.rand(
-        shape, generator=g, device=dev) < 1.0 - rate
     h = mc.decoder_rnn_dim
-    masks = {"prenet": [keep((b, t_dec, mc.prenet_dim), mc.p_prenet_dropout)
-                        for _ in range(2)],
-             "attention": keep((t_dec, b, h), mc.p_attention_dropout),
-             "decoder": keep((t_dec, b, h), mc.p_decoder_dropout)}
+    masks = first_step_masks(mc, b, t_dec, g, dev)
     tbatch = train._to_device(batch, dev)
     buffers = {n: x.clone() for n, x in model.named_buffers()}
     calls = {}
@@ -2956,6 +3002,804 @@ def data_path_phase(dev, smi: str) -> dict:
         tmp.cleanup()
 
 
+# phase 19: data parallelism, two ranks sharing the one card
+DP_WORLD = 2
+DP_STEPS = 3
+DP_WAIT_S = 300         # each launch of ranks, bounded: a hung rank fails
+DP_EXTRA_TEXTS = ("Hello world.", "Two replicas share one card.",
+                  "Good morning to you.", "The rain stays in the plain.")
+DP_GL_ITERS = 2         # tests/test_parallel.py's sharded-serving limits,
+DP_WAV_TOL, DP_WAV_MEAN = 5e-3, 5e-4   # at 2 Griffin-Lim iterations
+# how far the trained checks may widen those limits to twice what batching
+# alone gives (the sharded waveforms read 3.3e-3 at B=8 and 8.0e-3 at B=3,
+# the shard decodes 2.6e-4 in the mels, on an H100 at 700 W)
+DP_WAV_CAP, DP_DEC_CAP = 2e-2, 5e-4
+# parameters whose true gradient is zero (a conv bias straight before a
+# train-mode BatchNorm, the attention's v bias): Adam moves them by noise,
+# at most twice the largest learning rate a step apart
+STRUCTURAL_ZERO = tuple(f"{part}.convs.{i}.bias" for part, n in
+                        (("encoder", 3), ("postnet", 5)) for i in range(n)) \
+    + ("decoder.attention.v.bias",)
+
+
+def state_digest(state) -> str:
+    """sha256 over every bit of a train state: weights, BatchNorm
+    statistics, Adam moments and count, counters, generator."""
+    import hashlib
+    h = hashlib.sha256()
+    opt = state.opt_state
+    for t in [*state.model.state_dict().values(),
+              *(opt[m][n] for m in ("mu", "nu") for n in sorted(opt[m]))]:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    h.update(repr((state.step, state.loss_step, opt["count"])).encode())
+    h.update(state.generator.get_state().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_state(precision: str, batch, dev):
+    """A full-width train state in ``precision`` (seed ``SEED``, under a
+    group rank 0's on every rank) with the projection bias from the mels
+    of ``batch`` (this rank's rows).  Returns (state, cfg, tx)."""
+    from tacotron2_torch.config import Config, TrainConfig
+    from tacotron2_torch.models.tacotron2 import init_projection_bias
+    from tacotron2_torch.parallel import shard_train_state
+    from tacotron2_torch.train.optim import make_optimizer
+    from tacotron2_torch.train.state import create_train_state
+    cfg = Config(train=TrainConfig(precision=precision))
+    tx = make_optimizer(cfg.train)
+    state = shard_train_state(create_train_state(cfg, seed=SEED, tx=tx,
+                                                 device=dev))
+    init_projection_bias(state.model, batch["mel"])
+    return state, cfg, tx
+
+
+def dp_first_grads(state, cfg, batch, masks, dev):
+    """The first step's gradients (summed over the ranks under a group) on
+    ``masks``, the postnet bypassed; the BatchNorm statistics are left as
+    they were."""
+    from tacotron2_torch.parallel import all_reduce_gradients
+    from tacotron2_torch.train import step as train
+    buffers = {n: x.clone() for n, x in state.model.named_buffers()}
+    total, _ = train._forward_loss(
+        state.model, cfg, train._to_device(batch, dev), None, 0, False,
+        cfg.guided_attention.sigma_warmup_steps, masks)
+    grads = all_reduce_gradients(train._grads(state.model, total))
+    with torch.no_grad():
+        for n, x in state.model.named_buffers():
+            x.copy_(buffers[n])
+    return grads
+
+
+def dp_steps(state, cfg, tx, batch, digest: bool):
+    """``DP_STEPS`` ``train_step``s, the postnet bypassed in the first.
+    Returns each step's losses, wall ms and (``digest``) the state's
+    digest after it."""
+    from tacotron2_torch.train import step as train
+    losses, walls, digests = [], [], []
+    for use_postnet in (False,) + (True,) * (DP_STEPS - 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, l, _ = train.train_step(
+            state, batch, cfg=cfg, tx=tx, use_postnet=use_postnet,
+            sigma_warmup_steps=cfg.guided_attention.sigma_warmup_steps)
+        losses.append({k: float(v) for k, v in l._asdict().items()})
+        walls.append((time.perf_counter() - t1) * 1e3)
+        if digest:
+            digests.append(state_digest(state))
+    return losses, walls, digests
+
+
+def cpu_copy(tensors):
+    return {n: x.detach().cpu().clone() for n, x in tensors.items()}
+
+
+def dp_rank(rank: int, world: int, init_file: str, work: str) -> int:
+    """One rank of phase 19, started by the phase as ``chip_smoke.py
+    --dp-rank RANK WORLD INIT_FILE WORK_DIR``.  On this rank's rows of the
+    training main path's batch: the first step's summed gradients, then
+    the counted run (``DP_STEPS`` bf16 ``train_step``s, an ``eval_step``),
+    then the same steps in fp32.  Writes ``WORK_DIR/rank<RANK>.json`` and,
+    rank 0, the gradients and the weights after each run's last step."""
+    import torch.distributed as dist
+
+    from tacotron2_torch.ops import _build, attention_kernel, decoder_bptt
+    from tacotron2_torch.ops.attention_kernel import attention_tail
+    from tacotron2_torch.ops.convbn_kernel import conv_bn_act
+    from tacotron2_torch.ops.decoder_bwd_kernel import (
+        decoder_bwd_chain_mega, decoder_bwd_chain_reference)
+    from tacotron2_torch.ops.decoder_train_kernel import (
+        decoder_fwd_train_mega, decoder_fwd_train_reference)
+    from tacotron2_torch.parallel import (initialize_distributed, rank_device,
+                                          shard_batch)
+    from tacotron2_torch.train import step as train
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    # the parent built every kernel; a rank only loads them
+    prebuilt = all(_build.library_path(n).exists()
+                   for n in _build.CUDA_SOURCES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"file://{init_file}",
+                           world_size=world, rank=rank)
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev),
+           "prebuilt": prebuilt}
+    from tacotron2_torch.config import ModelConfig
+    batch = seeded_train_batch(ModelConfig())
+    local = shard_batch(batch, rank, world)
+    b, t_enc = local["text"].shape
+    t_dec = local["mel"].shape[2]
+    state, cfg, tx = dp_state("bfloat16", local, dev)
+
+    # the first step's summed gradients on this rank's rows of the main
+    # path's masks; the two training kernels' calls recorded on rank 0
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    masks = first_step_masks(cfg.model, b * world, t_dec, g, dev)
+    rows = slice(rank * b, (rank + 1) * b)
+    masks = {"prenet": [m[rows] for m in masks["prenet"]],
+             "attention": masks["attention"][:, rows],
+             "decoder": masks["decoder"][:, rows]}
+    calls = {}
+
+    def record(name, fn):
+        def wrapper(*args):
+            calls[name] = (args, fn(*args))
+            return calls[name][1]
+        return wrapper
+
+    if rank == 0:
+        decoder_bptt.decoder_fwd_train_mega = record(
+            "fwd", decoder_fwd_train_mega)
+        decoder_bptt.decoder_bwd_chain_mega = record(
+            "bwd", decoder_bwd_chain_mega)
+    try:
+        grads = dp_first_grads(state, cfg, local, masks, dev)
+    finally:
+        decoder_bptt.decoder_fwd_train_mega = decoder_fwd_train_mega
+        decoder_bptt.decoder_bwd_chain_mega = decoder_bwd_chain_mega
+    if rank == 0:
+        torch.save(cpu_copy(grads), os.path.join(work, "grads.pt"))
+        where = f"dp rank 0 B={b} T_enc={t_enc} T_dec={t_dec} bf16"
+        detach = lambda xs: tuple(x.detach() if torch.is_tensor(x) else x
+                                  for x in xs)
+        for name, kernel, names, plain in (
+                ("fwd", "decoder_fwd_train_mega", FWD_OUT,
+                 decoder_fwd_train_reference),
+                ("bwd", "decoder_bwd_chain_mega", BWD_OUT,
+                 decoder_bwd_chain_reference)):
+            args, got = calls[name]
+            errs = compare_outputs(names, got, plain(*detach(args)),
+                                   MAIN_PAIR_TOL, f"{where} {kernel}")
+            out[f"{name}_max_abs_err"] = max(errs.values())
+    del grads, calls
+
+    # the counted run: DP_STEPS bf16 train_steps, the all-reduce timed
+    reduce = train.all_reduce_gradients
+    reduce_ms = []
+
+    def timed_reduce(grads):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reduce(grads)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t1) * 1e3)
+        return grads
+
+    train.all_reduce_gradients = timed_reduce
+    dist.barrier()          # rank 0's comparisons above are not timed
+    decoder_fwd_train_mega.launches = 0
+    decoder_bwd_chain_mega.launches = 0
+    attention_tail.launches = 0
+    try:
+        losses, walls, digests = dp_steps(state, cfg, tx, local, True)
+    finally:
+        train.all_reduce_gradients = reduce
+    out["train_launches"] = (decoder_fwd_train_mega.launches,
+                             decoder_bwd_chain_mega.launches,
+                             attention_tail.launches)
+    out.update(losses=losses, step_ms=walls, allreduce_ms=reduce_ms,
+               counters=(state.step, state.loss_step))
+
+    # one eval_step: the tail on every teacher-forced step, each call held
+    # to the plain version on its own inputs
+    launch_tail = attention_kernel._forward
+    tail_errs = []
+
+    def checked_tail(*ins):
+        o = launch_tail(*ins)
+        tail_errs.append(max_err(
+            o, attention_kernel.attention_tail_reference(*ins)))
+        return o
+
+    attention_tail.launches = 0
+    conv_bn_act.launches = 0
+    attention_kernel._forward = checked_tail
+    try:
+        l, _, entropy = train.eval_step(state, local, cfg=cfg,
+                                        sigma_warmup_steps=cfg.
+                                        guided_attention.sigma_warmup_steps)
+    finally:
+        attention_kernel._forward = launch_tail
+    out.update(eval_tail_launches=attention_tail.launches, t_dec=t_dec,
+               eval_conv_launches=conv_bn_act.launches,
+               eval_tail_calls=len(tail_errs), eval_tail_err=max(tail_errs),
+               eval={k: float(v) for k, v in l._asdict().items()},
+               eval_entropy=float(entropy))
+    if rank == 0:
+        torch.save(cpu_copy(state.model.state_dict()),
+                   os.path.join(work, "weights_bfloat16.pt"))
+    del state
+
+    # the same steps in fp32, where the weights can be held to one process
+    state, cfg, tx = dp_state("float32", local, dev)
+    out["losses_fp32"], _, digests_fp32 = dp_steps(state, cfg, tx, local,
+                                                   True)
+    if rank == 0:
+        torch.save(cpu_copy(state.model.state_dict()),
+                   os.path.join(work, "weights_float32.pt"))
+    every = [None] * world
+    dist.all_gather_object(every, {"bfloat16": digests,
+                                   "float32": digests_fp32})
+    out["digests"] = every
+    out["libraries"] = sorted(str(_build.library_path(n))
+                              for n in _build._loaded)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(cmds, cwd: str, logs: str, what: str):
+    """Start every command of ``cmds`` (each in its own process group) and
+    wait, at most ``DP_WAIT_S``; on a failure or the time limit every
+    process group is killed and the phase fails with the logs' ends.
+    Returns the logs."""
+    import signal
+    paths = [os.path.join(logs, f"{what.replace(' ', '_')}_{i}.log")
+             for i in range(len(cmds))]
+    procs = []
+    for cmd, path in zip(cmds, paths):
+        with open(path, "w") as log:
+            procs.append(subprocess.Popen(
+                cmd, cwd=cwd, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True))
+    deadline = time.perf_counter() + DP_WAIT_S
+    while (any(p.poll() is None for p in procs)
+           and not any(p.returncode for p in procs)
+           and time.perf_counter() < deadline):
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+    texts = []
+    for path in paths:
+        with open(path) as f:
+            texts.append(f.read())
+    for p, text in zip(procs, texts):
+        check(p.returncode == 0, f"phase 19 {what}: exit {p.returncode} "
+              f"(killed after {DP_WAIT_S} s if -9):\n{text[-3000:]}")
+    return texts
+
+
+def dp_reference(dev):
+    """Phase 19's one process doing what the ranks do together, at B=16:
+    the first step's gradients, then ``DP_STEPS`` steps in bf16 and in
+    fp32.  Returns the gradients and per type the losses, wall ms and the
+    weights before and after."""
+    from tacotron2_torch.config import ModelConfig
+    batch = seeded_train_batch(ModelConfig())
+    out = {}
+    for precision in ("bfloat16", "float32"):
+        state, cfg, tx = dp_state(precision, batch, dev)
+        if precision == "bfloat16":
+            g = torch.Generator(device=dev).manual_seed(SEED + 7)
+            out["grads"] = cpu_copy(dp_first_grads(
+                state, cfg, batch, first_step_masks(
+                    cfg.model, batch["mel"].shape[0], batch["mel"].shape[2],
+                    g, dev), dev))
+        before = cpu_copy(state.model.state_dict())
+        losses, walls, _ = dp_steps(state, cfg, tx, batch, False)
+        out[precision] = (losses, walls, before,
+                          cpu_copy(state.model.state_dict()))
+        del state
+    lr = cfg.train.learning_rate * max(1.0, cfg.train.attention_lr_multiplier)
+    return out, lr
+
+
+def weight_gap(before, after_1, after_dp):
+    """The gap between the ranks' weights and one process's, summed over
+    every element of every tensor but the zero-gradient biases, as a
+    share of one process's update summed likewise; each tensor's own
+    share; the zero-gradient biases' largest gap."""
+    gap_sum = moved_sum = zero_gap = 0.0
+    shares = {}
+    for n, ref in after_1.items():
+        gap = (after_dp[n] - ref).abs()
+        if n in STRUCTURAL_ZERO:
+            zero_gap = max(zero_gap, float(gap.max()))
+            continue
+        moved = float((ref - before[n]).abs().sum())
+        gap_sum += float(gap.sum())
+        moved_sum += moved
+        shares[n] = float(gap.sum()) / max(moved, 1e-30)
+    return gap_sum / moved_sum, shares, zero_gap
+
+
+def dp_training(dev, root: str, tmp: str) -> dict:
+    """Phase 19 (a): two ranks on the card against one process."""
+    t1 = time.perf_counter()
+    ref, lr = dp_reference(dev)
+    ref_s = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    init = os.path.join(tmp, "store")
+    t1 = time.perf_counter()
+    logs = run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+          str(DP_WORLD), init, tmp] for r in range(DP_WORLD)],
+        root, tmp, "dp train")
+    ranks_s = time.perf_counter() - t1
+    outs = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    for o, log in zip(outs, logs):
+        said = [ln for ln in log.splitlines()
+                if ln.startswith(("[distributed]", "[dp rank"))]
+        print(f"[dp rank {o['rank']}] backend {o['backend']} on {o['device']};"
+              f" kernels loaded from the parent's build: "
+              f"{[os.path.basename(p) for p in o['libraries']]}; "
+              + " | ".join(said), flush=True)
+        check(o["backend"] == "gloo" and o["device"] == "cuda:0",
+              f"rank {o['rank']}: backend {o['backend']} on {o['device']}")
+        check(o["prebuilt"] and len(o["libraries"]) == 4,
+              f"rank {o['rank']}: kernels built before it started "
+              f"{o['prebuilt']}, loaded {o['libraries']}")
+
+    # every rank's state bit for bit after every step
+    for precision in ("bfloat16", "float32"):
+        for i in range(DP_STEPS):
+            got = {d[precision][i] for d in outs[0]["digests"]}
+            print(f"[dp {precision}] after step {i + 1}: the {DP_WORLD} "
+                  "ranks' weights, BatchNorm statistics, moments, counters "
+                  f"and generator {'bit for bit equal' if len(got) == 1 else 'DIFFER'}"
+                  f" (sha256 {min(got)[:16]})", flush=True)
+            check(len(got) == 1, f"phase 19: ranks differ after {precision} "
+                  f"step {i + 1}")
+    for o in outs:
+        fwd, bwd, tail = o["train_launches"]
+        print(f"[dp rank {o['rank']}] launches over {DP_STEPS} bf16 "
+              f"train_steps: decoder_fwd_train_mega={fwd} "
+              f"decoder_bwd_chain_mega={bwd} attention_tail={tail}; eval_step"
+              f" attention_tail={o['eval_tail_launches']} ("
+              f"{o['eval_tail_calls']} teacher-forced steps, each within "
+              f"{o['eval_tail_err']:.2e} of the plain version, tol "
+              f"{TAIL_TOL}), conv_bn_act={o['eval_conv_launches']}",
+              flush=True)
+        check((fwd, bwd, tail) == (DP_STEPS, DP_STEPS, 0),
+              f"rank {o['rank']}: train launches {o['train_launches']}")
+        check(o["eval_tail_launches"] == o["eval_tail_calls"] == o["t_dec"]
+              and o["eval_tail_err"] <= TAIL_TOL,
+              f"rank {o['rank']}: eval tail {o['eval_tail_launches']} "
+              f"launches, {o['eval_tail_calls']} calls, err "
+              f"{o['eval_tail_err']}")
+        check(o["eval_conv_launches"] == 8,
+              f"rank {o['rank']}: eval conv launches {o['eval_conv_launches']}")
+        check(o["counters"] == [DP_STEPS, DP_STEPS], f"counters {o['counters']}")
+    check(outs[0]["eval"] == outs[1]["eval"],
+          f"phase 19: the ranks' global eval losses differ: {outs[0]['eval']}"
+          f" vs {outs[1]['eval']}")
+
+    # two ranks against one process: gradients, losses, weights
+    grads_dp = torch.load(os.path.join(tmp, "grads.pt"))
+    check(set(grads_dp) == set(ref["grads"]), "the ranks' gradients cover "
+          "other parameters than one process's")
+    errs = grad_errors(grads_dp, ref["grads"], 1e-2)
+    worst = max(errs, key=errs.get)
+    print(f"[dp] first step's gradients summed over the ranks vs one process "
+          f"at B=16 (bf16, the same masks): {len(errs)} tensors, worst "
+          f"{worst} {errs[worst]:.2e} (limit {GRAD_TOL})", flush=True)
+    check(errs[worst] <= GRAD_TOL, f"phase 19 gradients: {worst} "
+          f"{errs[worst]}")
+    for precision, key in (("bfloat16", "losses"), ("float32", "losses_fp32")):
+        losses_1, walls_1, before, after_1 = ref[precision]
+        gap = max(abs(a[k] - b_[k]) / max(abs(b_[k]), 1e-6)
+                  for a, b_ in zip(outs[0][key], losses_1) for k in b_)
+        share, shares, zero_gap = weight_gap(
+            before, after_1,
+            torch.load(os.path.join(tmp, f"weights_{precision}.pt")))
+        top = sorted(shares, key=shares.get)[-3:]
+        print(f"[dp {precision}] losses of the {DP_STEPS} steps, rank 0 "
+              f"{[round(x['total'], 5) for x in outs[0][key]]} vs one process "
+              f"{[round(x['total'], 5) for x in losses_1]}: largest relative "
+              f"gap over every term {gap:.2e} (limit {GRAD_TOL}); weights "
+              f"and BatchNorm statistics after step {DP_STEPS}: the gap "
+              f"summed over every element {share:.2e} of one process's "
+              f"update summed likewise ("
+              + (f"limit {GRAD_TOL}" if precision == "float32" else
+                 "not held: Adam steps each element by about lr whatever "
+                 "its gradient's size, so elements whose gradients sit at "
+                 "bf16 noise step by noise")
+              + "), largest by tensor " + ", ".join(
+                  f"{n} {shares[n]:.2e}" for n in top)
+              + f"; the zero-gradient biases {zero_gap:.2e} (limit "
+              f"{2 * lr * DP_STEPS:g})", flush=True)
+        check(gap <= GRAD_TOL, f"phase 19 {precision} losses part by {gap}")
+        check(zero_gap <= 2 * lr * DP_STEPS, f"phase 19 {precision} biases: "
+              f"{zero_gap}")
+        if precision == "float32":
+            check(max(shares.values()) <= GRAD_TOL,
+                  f"phase 19 fp32 weights part by {max(shares.values())}")
+    walls_1 = ref["bfloat16"][1]
+    print(f"[dp] bf16 train_step wall, ms: 1 process at B=16 "
+          f"{[round(x, 1) for x in walls_1]}; {DP_WORLD} ranks of 8 on the "
+          f"one card (gloo) " + "; ".join(
+              f"rank {x['rank']} {[round(y, 1) for y in x['step_ms']]}"
+              for x in outs)
+          + f"; the gradient all-reduce (gloo, through the host, "
+          f"{sum(t.numel() for t in ref['grads'].values()) * 4 / 1e6:.1f} MB"
+          ") " + "; ".join(f"rank {x['rank']} "
+                           f"{[round(y, 1) for y in x['allreduce_ms']]}"
+                           for x in outs)
+          + f"; one process's part {ref_s:.1f} s, the ranks' {ranks_s:.1f} s"
+          " with their start", flush=True)
+    o = outs[0]
+    return {"fwd": o.get("fwd_max_abs_err"), "bwd": o.get("bwd_max_abs_err"),
+            "launches": o["train_launches"],
+            "eval_tail_launches": o["eval_tail_launches"],
+            "eval_conv_launches": o["eval_conv_launches"]}
+
+
+def dp_cli(dev, root: str, tmp: str) -> None:
+    """Phase 19 (b): ``train_torch.py`` under torchrun, two ranks on the
+    card: two epochs unbroken, then the second again resumed from the
+    first epoch's checkpoint, bit for bit."""
+    from tacotron2_torch.data.synth_corpus import write_corpus
+    from tacotron2_torch.utils.weight_files import load_file
+
+    train_csv, val_csv = write_corpus(os.path.join(tmp, "corpus"), 32,
+                                      seed=SEED, n_val=8, device=dev)
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(DP_WORLD), "train_torch.py"]
+    flags = ["--batch_size", "4", "--epochs", "2", "--val_metadata", val_csv]
+    runs = {}
+    for name, extra in (
+            ("unbroken", []),
+            ("resumed", ["--resume", os.path.join(tmp, "unbroken",
+                                                  "tacotron2_epoch_1")])):
+        t1 = time.perf_counter()
+        log = run_ranks([torchrun + [train_csv, os.path.join(tmp, name)]
+                         + flags + extra], root, tmp, f"cli {name}")[0]
+        runs[name] = time.perf_counter() - t1
+        with open(os.path.join(tmp, name, "training_log.txt")) as f:
+            written = f.read()
+        dp_line = "Data parallel: 2 devices, 2 processes, global micro-batch 8"
+        # the ranks print into torchrun's one output, lines may interleave
+        said = sorted(re.findall(r"\[distributed\] initialized: rank "
+                                 r"(\d+)/\d+, backend (\w+)", log))
+        print(f"[dp cli] torchrun --standalone --nproc_per_node {DP_WORLD} "
+              f"train_torch.py {name}: exit 0 in {runs[name]:.1f} s; ranks "
+              f"and backends {said}; its log: "
+              f"{written.count(dp_line)} x {dp_line!r}, "
+              f"{written.count('complete. Avg Loss')} epoch lines, "
+              f"{written.count('Validation |')} validations", flush=True)
+        check(said == [(str(r), "gloo") for r in range(DP_WORLD)],
+              f"{name}: {said}")
+        check(written.count(dp_line) == 1, f"{name}: log {written[-2000:]}")
+        want_epochs = 2 if name == "unbroken" else 1
+        check(written.count("complete. Avg Loss") == want_epochs
+              and written.count("Validation |") == want_epochs,
+              f"{name}: rank 0 alone did not write the log: "
+              f"{written[-2000:]}")
+        left = [f for _, _, fs in os.walk(os.path.join(tmp, name))
+                for f in fs if ".tmp" in f]
+        check(not left, f"{name}: temporary files left {left}")
+    a = load_file(os.path.join(tmp, "unbroken", "tacotron2_epoch_2",
+                               "train_state.pt"))
+    b = load_file(os.path.join(tmp, "resumed", "tacotron2_epoch_2",
+                               "train_state.pt"))
+    same = {
+        "weights and statistics": all(torch.equal(a["model"][k], b["model"][k])
+                                      for k in a["model"]),
+        "moments": all(torch.equal(a["opt_state"][m][k], b["opt_state"][m][k])
+                       for m in ("mu", "nu") for k in a["opt_state"][m]),
+        "counters": (a["step"], a["loss_step"], a["opt_state"]["count"])
+        == (b["step"], b["loss_step"], b["opt_state"]["count"]),
+        "generator": torch.equal(a["generator"], b["generator"])}
+    print(f"[dp cli] two epochs unbroken ({a['step']} steps) vs the second "
+          f"resumed from the first's checkpoint, both on {DP_WORLD} ranks, "
+          f"bit for bit: {same}", flush=True)
+    check(all(same.values()) and a["step"] == 6, f"resumed run differs: "
+          f"{same}, {a['step']} steps")
+
+
+def trained_decode(model, fn, tok, lens, dev):
+    """``fn`` (the decode kernel or the plain step loop) on padded token
+    rows, stop mode "all", ``TRAINED_MAX_STEPS`` frames at most."""
+    from tacotron2_torch.models.encoder import encoder_apply
+    from tacotron2_torch.models.tacotron2 import (_condition_memory,
+                                                  make_pad_mask)
+    tok = torch.from_numpy(tok).long().to(dev)
+    lens = torch.from_numpy(lens).to(dev)
+    with torch.no_grad():
+        memory = _condition_memory(model, encoder_apply(model.encoder, tok),
+                                   None)
+        return fn(model.decoder, memory, TRAINED_MAX_STEPS,
+                  model.cfg.gate_threshold, True,
+                  make_pad_mask(lens, tok.shape[1]), "all", None)
+
+
+def shard_decodes(model, tokens, lengths, per: int, dev):
+    """Each shard's decode (rows ``[i * per, (i + 1) * per)`` of the padded
+    batch) by the kernel and by the plain step loop, and each row by the
+    plain step loop alone.  Returns [(kernel, plain, [plain alone, ...]),
+    ...] a shard."""
+    from tacotron2_torch.ops.decoder_megakernel import (
+        decoder_infer_mega, decoder_infer_mega_reference)
+
+    out = []
+    for i in range(DP_WORLD):
+        rows = slice(i * per, (i + 1) * per)
+        out.append((trained_decode(model, decoder_infer_mega, tokens[rows],
+                                   lengths[rows], dev),
+                    trained_decode(model, decoder_infer_mega_reference,
+                                   tokens[rows], lengths[rows], dev),
+                    [trained_decode(model, decoder_infer_mega_reference,
+                                    tokens[r:r + 1], lengths[r:r + 1], dev)
+                     for r in range(i * per, (i + 1) * per)]))
+    return out
+
+
+def batch_makeup(model, texts, tokens, lengths, plain_alone, dev) -> None:
+    """Prints how far the batch's makeup moves the trained fp32 decode:
+    the whole batch against each row alone, padded as in the batch and
+    padded on its own, by the decode kernel and, as a second witness, by
+    the plain step loop (``plain_alone``: its rows alone, padded as in
+    the batch, from :func:`shard_decodes`).  For each row the frame ends
+    (batched / alone) and the largest mel difference over the frames both
+    keep."""
+    from tacotron2_torch.ops.decoder_megakernel import (
+        decoder_infer_mega, decoder_infer_mega_reference)
+    from tacotron2_torch.text import pad_sequences, text_to_sequence
+
+    for name, fn in (("kernel", decoder_infer_mega),
+                     ("plain step loop", decoder_infer_mega_reference)):
+        whole = trained_decode(model, fn, tokens, lengths, dev)
+        for pad in ("as in the batch", "on its own"):
+            rows = []
+            for r, text in enumerate(texts):
+                if pad == "on its own":
+                    tok, lens = pad_sequences([text_to_sequence(text)],
+                                              pad_multiple=16)
+                    alone = trained_decode(model, fn, tok, lens, dev)
+                elif fn is decoder_infer_mega:
+                    alone = trained_decode(model, fn, tokens[r:r + 1],
+                                           lengths[r:r + 1], dev)
+                else:
+                    alone = plain_alone[r]
+                end_b, end_a = int(whole[4][r]), int(alone[4][0])
+                k = min(end_b, end_a)
+                gap = float((whole[0][r, :k] - alone[0][0, :k]).abs().max())
+                rows.append(f"{end_b}/{end_a} {gap:.1e}")
+            print(f"[dp batch makeup B={len(texts)}] {name}, fp32, each row "
+                  f"alone padded {pad} (T_enc {tokens.shape[1]} in the "
+                  f"batch): frame ends batched/alone and mels max gap "
+                  f"{rows} (printed, not held)", flush=True)
+
+
+def row_gaps(a, b, row_a: int, row_b: int):
+    """{output: largest difference over the frames both decodes share}
+    for one row of two decodes, or None where they stop apart."""
+    end_a, end_b = int(a[4][row_a]), int(b[4][row_b])
+    if end_a != end_b:
+        return None
+    return {name: float((x[row_a, :end_a] - y[row_b, :end_a]).abs().max())
+            for name, x, y in zip(DEC_OUTPUTS, a[:3], b[:3])}
+
+
+def dp_serving(dev) -> dict:
+    """Phase 19 (c): ``ShardedSynthesizer`` over two replicas on the card.
+    Returns each serving kernel's launches on the sharded calls.
+
+    Trained fp32 decodes carry rounding through the autoregressive loop:
+    the same sentence decoded in another batch parts by more than
+    ``DEC_TOL`` and ``DP_WAV_TOL`` (tests/test_parallel.py's limit, set on
+    a small seeded model; trained waveforms peak near 6.5, and Griffin-Lim
+    turns a 1e-5 move of the mels into 1e-3 of the waveform).  So each
+    limit is also at least twice what the unsharded path gives when the
+    same sentences run one at a time: sharding may part the results no
+    further than batching does."""
+    from tacotron2_torch.config import Config
+    from tacotron2_torch.dsp import griffinlim
+    from tacotron2_torch.infer import ShardedSynthesizer
+    from tacotron2_torch.infer.fused import (synthesize_wav,
+                                             synthesize_wav_fused)
+    from tacotron2_torch.infer.sharded import _pad_rows
+    from tacotron2_torch.infer.synthesize import load_model
+    from tacotron2_torch.ops.convbn_kernel import conv_bn_act
+    from tacotron2_torch.ops.decoder_megakernel import decoder_infer_mega
+    from tacotron2_torch.parallel import make_mesh
+    from tacotron2_torch.text import pad_sequences, text_to_sequence
+
+    model = load_model(TRAINED_CKPT, device=dev)
+    acfg = Config().audio
+    hop = acfg.hop_length
+    mesh = make_mesh(devices=["cuda:0"] * DP_WORLD)
+    eight = list(SMOKE_TEXTS) + list(DP_EXTRA_TEXTS)
+    launches = {"decoder_infer_mega": 0, "conv_bn_act": 0}
+    with ShardedSynthesizer(model, mesh, gl_iters=DP_GL_ITERS) as synth:
+        for texts in (eight, eight[:3]):
+            n = len(texts)
+            batched = synthesize_wav(model, texts,
+                                     max_steps=TRAINED_MAX_STEPS,
+                                     gl_iters=DP_GL_ITERS, device=dev)
+            decoder_infer_mega.launches = 0
+            conv_bn_act.launches = 0
+            wavs = synth(texts, max_steps=TRAINED_MAX_STEPS)
+            got = (decoder_infer_mega.launches, conv_bn_act.launches)
+            launches["decoder_infer_mega"] += got[0]
+            launches["conv_bn_act"] += got[1]
+            # the unsharded path one sentence at a time, each padded as in
+            # the batch (the encoder's BiLSTM runs over the padding) and on
+            # its row of the batch's initial phase
+            tokens, lengths = pad_sequences(
+                [text_to_sequence(t) for t in texts], pad_multiple=16)
+            phase = griffinlim._initial_phase(
+                (n, acfg.n_fft // 2 + 1, TRAINED_MAX_STEPS), 0, dev)
+            alone = []
+            for r in range(n):
+                w, _, e = synthesize_wav_fused(
+                    model, acfg, tokens[r:r + 1], lengths[r:r + 1],
+                    max_steps=TRAINED_MAX_STEPS, gl_iters=DP_GL_ITERS,
+                    init_phase=phase[r:r + 1], device=dev)
+                alone.append(w[0, :int(e[0]) * hop].cpu().numpy())
+            row_gap = [float(np.abs(a - b_).max()) if a.shape == b_.shape
+                       else None for a, b_ in zip(alone, batched)]
+            spread = max((g for g in row_gap if g is not None), default=0.0)
+            wav_tol = min(max(DP_WAV_TOL, 2 * spread), DP_WAV_CAP)
+            gaps = [None if g is None else float(f"{g:.2e}") for g in row_gap]
+            print(f"[dp batch makeup B={n}] synthesize_wav, each sentence "
+                  f"alone (padded as in the batch, its row's Griffin-Lim "
+                  f"phase) against batched: frame ends alone "
+                  f"{[len(a) // hop for a in alone]}, waveform max gap by "
+                  f"row {gaps} (None: the ends part)", flush=True)
+            ends = [len(w) // hop for w in wavs]
+            ends_1 = [len(w) // hop for w in batched]
+            err = max(float(np.abs(w - r).max()) for w, r in
+                      zip(wavs, batched))
+            mean = max(float(np.abs(w - r).mean()) for w, r in
+                       zip(wavs, batched))
+            # walls in turns: unsharded, sharded, sharded, unsharded
+            walls = {"unsharded": [], "sharded": []}
+            for name in ("unsharded", "sharded", "sharded", "unsharded"):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if name == "sharded":
+                    synth(texts, max_steps=TRAINED_MAX_STEPS)
+                else:
+                    synthesize_wav(model, texts, max_steps=TRAINED_MAX_STEPS,
+                                   gl_iters=DP_GL_ITERS, device=dev)
+                walls[name].append((time.perf_counter() - t1) * 1e3)
+            print(f"[dp sharded B={n}] {DP_WORLD} replicas on cuda:0 (fp32 "
+                  f"r4_synth_bf16, {DP_GL_ITERS} Griffin-Lim rounds): frame "
+                  f"ends {ends} vs unsharded {ends_1}; wav max err "
+                  f"{err:.2e} (tol {wav_tol:.3g}: {DP_WAV_TOL:g} or twice "
+                  f"the unsharded path one sentence at a time against "
+                  f"batched, {spread:.2e}, at most {DP_WAV_CAP:g}), mean "
+                  f"{mean:.2e} (tol "
+                  f"{DP_WAV_MEAN:g}), peak {max(np.abs(w).max() for w in wavs):.2f}; "
+                  f"launches decoder_infer_mega={got[0]} conv_bn_act="
+                  f"{got[1]}; wall ms sharded "
+                  f"{[round(x, 1) for x in walls['sharded']]}, unsharded "
+                  f"{[round(x, 1) for x in walls['unsharded']]} (one card: "
+                  f"no speed-up expected)", flush=True)
+            check(ends == ends_1, f"sharded frame ends {ends} vs {ends_1}")
+            check(err <= wav_tol and mean <= DP_WAV_MEAN,
+                  f"sharded wavs: {err}, {mean}")
+            check(got == (DP_WORLD, 8 * DP_WORLD),
+                  f"sharded launches {got}, expected one decode and eight "
+                  "conv layers a shard")
+
+            # each shard's decode against the plain step loop, and its
+            # eight conv layers
+            per = -(-n // DP_WORLD)
+            tokens = _pad_rows(tokens, per * DP_WORLD)
+            lengths = _pad_rows(lengths, per * DP_WORLD)
+            shards = shard_decodes(model, tokens, lengths, per, dev)
+            spreads = [row_gaps(p, a, r, 0) for _, p, alone_ in shards
+                       for r, a in enumerate(alone_)]
+            dec_spread = {k: max((s[k] for s in spreads if s), default=0.0)
+                          for k in DEC_OUTPUTS}
+            errs = {k: 0.0 for k in DEC_OUTPUTS}
+            for i, (k_out, p_out, _) in enumerate(shards):
+                g_end, r_end = k_out[4].tolist(), p_out[4].tolist()
+                check(all(abs(a - b_) <= STOP_SLACK
+                          for a, b_ in zip(g_end, r_end)),
+                      f"shard {i}: frame ends {g_end} vs plain {r_end}")
+                tol = {k: min(max(DEC_TOL[torch.float32][k],
+                                  2 * dec_spread[k]), DP_DEC_CAP)
+                       for k in ("mels", "gates")}
+                tol["aligns"] = DEC_ALIGN_SHARE[torch.float32] * float(
+                    p_out[2][:, :max(r_end)].abs().mean())
+                for row, (a, b_) in enumerate(zip(g_end, r_end)):
+                    for name, g_, r_ in zip(DEC_OUTPUTS, k_out[:3], p_out[:3]):
+                        e = float((g_[row, :min(a, b_)]
+                                   - r_[row, :min(a, b_)]).abs().max())
+                        errs[name] = max(errs[name], e)
+                        check(e <= tol[name], f"shard {i} row {row}: decode "
+                              f"{name} error {e} > {tol[name]}")
+                shares, _ = model_conv_layers(
+                    model, torch.from_numpy(tokens[i * per:(i + 1) * per])
+                    .long().to(dev), k_out[0])
+                check(max(shares) <= CONV_TOL[torch.float32],
+                      f"shard {i} conv_bn_act {shares}")
+            print(f"[dp sharded B={n}] each shard (B={per}) against the plain "
+                  f"versions: decode " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" (tol mels/gates {DEC_TOL[torch.float32]['mels']:g} or"
+                  f" twice the plain step loop's own gap between the shard "
+                  f"and each row alone, mels {dec_spread['mels']:.2e}, "
+                  f"gates {dec_spread['gates']:.2e}, at most "
+                  f"{DP_DEC_CAP:g}; aligns "
+                  f"{DEC_ALIGN_SHARE[torch.float32]:g} of their mean), eight "
+                  f"conv layers each within {CONV_TOL[torch.float32]:g} of "
+                  f"the mean size", flush=True)
+            if n == len(eight):
+                batch_makeup(model, texts, tokens, lengths,
+                             [a for _, _, al in shards for a in al], dev)
+    return launches
+
+
+def data_parallel_phase(dev, smi: str) -> dict:
+    """Phase 19.  Returns each kernel's launches on the data-parallel
+    training path (``dp_path_launches``, each rank's) and on the sharded
+    serving path (``sharded_path_launches``)."""
+    import shutil
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode,name,power.limit",
+         "--format=csv,noheader", f"--id={torch.cuda.current_device()}"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,process_name",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    mps = [ln for ln in apps.splitlines() if "mps" in ln.lower()]
+    print(f"[dp] compute mode, card, power limit: {mode}; MPS server: "
+          f"{mps or 'none'} (the decoder kernels' grid barriers need every "
+          "block resident: two contexts time-slice the card, MPS would "
+          "share its SMs)", flush=True)
+    check(mode.split(",")[0].strip() == "Default", f"compute mode {mode}")
+    check(not mps, f"an MPS server is active: {mps}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    phase0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    try:
+        for sub in ("train", "cli"):
+            os.makedirs(os.path.join(tmp, sub))
+        train_out = dp_training(dev, root, os.path.join(tmp, "train"))
+        torch.cuda.empty_cache()
+        dp_cli(dev, root, os.path.join(tmp, "cli"))
+        sharded = dp_serving(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[dp] phase 19 wall {time.perf_counter() - phase0:.1f} s ({smi})",
+          flush=True)
+    fwd, bwd, _ = train_out["launches"]
+    return {"decoder_fwd_train_mega": {"dp_path_launches": fwd,
+                                       "dp_path_max_abs_err": train_out["fwd"]},
+            "decoder_bwd_chain_mega": {"dp_path_launches": bwd,
+                                       "dp_path_max_abs_err": train_out["bwd"]},
+            "attention_tail": {"dp_path_launches":
+                               train_out["eval_tail_launches"]},
+            "decoder_infer_mega": {"sharded_path_launches":
+                                   sharded["decoder_infer_mega"]},
+            "conv_bn_act": {"dp_path_launches":
+                            train_out["eval_conv_launches"],
+                            "sharded_path_launches": sharded["conv_bn_act"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels run "
@@ -3344,11 +4188,14 @@ def main() -> int:
     odd_widths_phase(dev)
     # 18. the data path on the trained multi-speaker checkpoint
     quality = data_path_phase(dev, smi)
+    # 19. data parallelism: two ranks and two replicas on the one card
+    parallel = data_parallel_phase(dev, smi)
     kernels += train_kernels + [conv_kernel]
     for entry in kernels:
         if entry["name"] in serve_launches:
             entry["serve_path_launches"] = serve_launches[entry["name"]]
         entry.update(quality.get(entry["name"], {}))
+        entry.update(parallel.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3357,4 +4204,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6]))
     sys.exit(main())

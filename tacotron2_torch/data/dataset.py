@@ -4,9 +4,9 @@ An own copy of ``tacotron2_tpu/data/dataset.py`` (numpy only):
 :class:`TextMelDataset` reads the ``.npy`` caches a metadata CSV lists,
 :func:`collate` pads a batch to quantised shapes, and :class:`BatchLoader`
 iterates an epoch.  For one seed, each epoch's order and padded shapes
-are the JAX loader's.  The loader serves one process (the JAX loader's
-multi-host split is queue A16's work); :meth:`BatchLoader.skip_epochs`
-lets a resumed run see the epochs an unbroken run would.
+are the JAX loader's, and so is its split of every global batch over the
+processes of a data-parallel run; :meth:`BatchLoader.skip_epochs` lets a
+resumed run see the epochs an unbroken run would.
 """
 
 from __future__ import annotations
@@ -118,34 +118,53 @@ class BatchLoader:
     False so a small set still evaluates); a training loader that would
     yield no batch raises unless ``allow_empty``.  Up to ``PREFETCH``
     batches are assembled ahead on a background thread.  Shuffled indices
-    are sorted by text length in pools of 32 batches, then the batch order
-    is shuffled."""
+    are sorted by text length in pools of 32 global batches, then the
+    batch order is shuffled.
+
+    Data parallelism: with ``process_count`` > 1 every process derives the
+    same global order from the seed, and of each global batch of
+    ``batch_size * process_count`` rows loads only its own ``batch_size``
+    (rows ``[process_index * batch_size, ...)``).  The padded dims come
+    from the length headers of the whole global batch, so every process
+    collates to the same shapes.  ``drop_last`` is forced: every process
+    must see every step."""
 
     PREFETCH = 2
 
     def __init__(self, dataset: TextMelDataset, batch_size: int,
                  seed: int = 1234, shuffle: bool = True,
                  text_pad_multiple: int = 32, mel_pad_multiple: int = 64,
-                 drop_last: bool = True, allow_empty: bool = False):
+                 drop_last: bool = True, allow_empty: bool = False,
+                 process_index: int = 0, process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} not in "
+                             f"[0, {process_count})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.text_pad_multiple = text_pad_multiple
         self.mel_pad_multiple = mel_pad_multiple
-        self.drop_last = drop_last
-        if drop_last and len(dataset) < batch_size:
-            msg = (f"dataset has {len(dataset)} examples but the batch is "
-                   f"{batch_size} with drop_last: every epoch yields zero "
-                   "batches")
+        self.process_index = process_index
+        self.process_count = process_count
+        self.drop_last = drop_last or process_count > 1
+        if self.drop_last and len(dataset) < self.global_batch_size:
+            msg = (f"dataset has {len(dataset)} examples but the global "
+                   f"batch is {self.global_batch_size} (batch_size "
+                   f"{batch_size} x {process_count} processes) with "
+                   "drop_last: every epoch yields zero batches")
             if not allow_empty:
                 raise ValueError(msg)
             print(f"[loader] WARNING: {msg}")
         self._rng = np.random.default_rng(seed)
 
+    @property
+    def global_batch_size(self) -> int:
+        return self.batch_size * self.process_count
+
     def __len__(self) -> int:
         if self.drop_last:
-            return len(self.dataset) // self.batch_size
-        return -(-len(self.dataset) // self.batch_size)
+            return len(self.dataset) // self.global_batch_size
+        return -(-len(self.dataset) // self.global_batch_size)
 
     def skip_epochs(self, n: int) -> None:
         """Draw the shuffles of ``n`` epochs without loading anything, so
@@ -160,8 +179,8 @@ class BatchLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(idx)
-        if len(idx) > self.batch_size:
-            pool = self.batch_size * 32
+        if len(idx) > self.global_batch_size:
+            pool = self.global_batch_size * 32
             chunks = []
             for s in range(0, len(idx), pool):
                 chunk = idx[s:s + pool]
@@ -173,15 +192,22 @@ class BatchLoader:
 
     def _iter_sync(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._epoch_order()
-        batch_starts = np.arange(len(self)) * self.batch_size
+        gb = self.global_batch_size
+        batch_starts = np.arange(len(self)) * gb
         if self.shuffle:
             self._rng.shuffle(batch_starts)
         for s in batch_starts:
-            members = [self.dataset[int(i)]
-                       for i in idx[s:s + self.batch_size]]
-            if members:
-                yield collate(members, self.text_pad_multiple,
-                              self.mel_pad_multiple)
+            rows = idx[s:s + gb]
+            # the whole global batch's padded dims, from length headers
+            t_text = _round_up(max(self.dataset.text_length(int(i))
+                                   for i in rows), self.text_pad_multiple)
+            t_mel = _round_up(max(self.dataset.mel_length(int(i))
+                                  for i in rows), self.mel_pad_multiple)
+            lo = self.process_index * self.batch_size
+            yield collate([self.dataset[int(i)]
+                           for i in rows[lo:lo + self.batch_size]],
+                          self.text_pad_multiple, self.mel_pad_multiple,
+                          fixed_text_len=t_text, fixed_mel_len=t_mel)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         # one producer thread an epoch behind a bounded queue

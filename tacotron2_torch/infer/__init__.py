@@ -1,0 +1,3 @@
+from .sharded import ShardedSynthesizer
+
+__all__ = ["ShardedSynthesizer"]

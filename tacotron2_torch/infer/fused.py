@@ -52,7 +52,9 @@ Device = Union[str, torch.device]
 
 
 def _griffin_lim_wav(mel: torch.Tensor, acfg: AudioConfig,
-                     gl_iters: int) -> torch.Tensor:
+                     gl_iters: int,
+                     init_phase: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """(B, S, n_mels) masked log-power mel -> (B, S * hop) waveform."""
     mel_lin = torch.exp(mel.transpose(1, 2))               # (B, n_mels, S)
     linear = mel_to_linear(mel_lin, sr=acfg.sampling_rate, n_fft=acfg.n_fft,
@@ -60,7 +62,8 @@ def _griffin_lim_wav(mel: torch.Tensor, acfg: AudioConfig,
                            fmax=acfg.fmax)
     return griffin_lim(linear, n_fft=acfg.n_fft, hop_length=acfg.hop_length,
                        win_length=acfg.win_length, n_iter=gl_iters,
-                       length=mel.shape[1] * acfg.hop_length)
+                       length=mel.shape[1] * acfg.hop_length,
+                       init_phase=init_phase)
 
 
 def _fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
@@ -82,6 +85,7 @@ def synthesize_wav_fused(model: Tacotron2, acfg: AudioConfig, tokens,
                          gate_threshold: Optional[float] = None,
                          stop_mode: str = "any", gl_iters: int = 60,
                          forced_stop_at: Optional[int] = None,
+                         init_phase: Optional[torch.Tensor] = None,
                          device: Device = "cuda"
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tokens (B, T_enc) -> (wav (B, S*hop), n_frames, frame_ends), all on
@@ -90,14 +94,17 @@ def synthesize_wav_fused(model: Tacotron2, acfg: AudioConfig, tokens,
     Waveforms are Griffin-Lim reconstructions of the postnet mels; sample
     b's audio is valid up to ``frame_ends[b] * hop_length``.
     ``forced_stop_at`` force-fires the gate at that frame — see
-    models/decoder.py::decoder_infer.
+    models/decoder.py::decoder_infer.  ``init_phase`` (B, n_fft // 2 + 1,
+    S) is Griffin-Lim's initial phase (default: drawn from seed 0 for
+    this batch).
     """
     mel, n_frames, frame_ends = decode_mel_fused(
         model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
         gate_threshold=gate_threshold, stop_mode=stop_mode,
         forced_stop_at=forced_stop_at, device=device)     # (B, S, n_mels)
     mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
-    return _griffin_lim_wav(mel, acfg, gl_iters), n_frames, frame_ends
+    return (_griffin_lim_wav(mel, acfg, gl_iters, init_phase), n_frames,
+            frame_ends)
 
 
 def synthesize_wav_fused_hifigan(model: Tacotron2, hifigan_params: HiFiGAN,

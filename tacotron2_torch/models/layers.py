@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_sum_grad, is_distributed
+
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -77,7 +79,11 @@ class BatchNorm(nn.Module):
     Eval mode normalises with the running statistics.  Train mode
     (``train=True``) normalises with the batch's statistics over batch and
     time (one-pass fp32 moments, biased variance clamped at 0) and updates
-    the running statistics in place with the unbiased variance."""
+    the running statistics in place with the unbiased variance.  Under a
+    data-parallel group the moments are the global batch's: ``sum x``,
+    ``sum x^2`` and the count are summed over the ranks, whose backward
+    sums too (``parallel/collectives.py::all_reduce_sum_grad``), and the
+    running statistics take the global count in the unbiased factor."""
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -91,14 +97,25 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2))
-            var = (xf.square().mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
-            n = x.shape[0] * x.shape[2]
+            if is_distributed():
+                n_local = x.shape[0] * x.shape[2]
+                moments = all_reduce_sum_grad(torch.stack([
+                    xf.sum(dim=(0, 2)), xf.square().sum(dim=(0, 2)),
+                    xf.new_full((x.shape[1],), float(n_local))]))
+                n = moments[2].detach()
+                mean = moments[0] / n
+                var = (moments[1] / n - mean * mean).clamp_min(0.0)
+                unbiased = n / (n - 1).clamp_min(1.0)
+            else:
+                mean = xf.mean(dim=(0, 2))
+                var = (xf.square().mean(dim=(0, 2))
+                       - mean * mean).clamp_min(0.0)
+                n = x.shape[0] * x.shape[2]
+                unbiased = n / max(n - 1, 1)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(
-                    m * var * (n / max(n - 1, 1)))
+                self.running_var.mul_(1 - m).add_(m * var * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var.float() + self.eps)

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..parallel.collectives import all_reduce_replicated, is_distributed
 from ..utils.device import check_module_device, resolve_device
 from .decoder import Decoder, decoder_infer, decoder_teacher_forced
 from .encoder import Encoder, encoder_apply
@@ -122,11 +123,19 @@ def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 @torch.no_grad()
 def init_projection_bias(model: Tacotron2, mel_targets: ArrayLike) -> None:
     """Set the decoder projection bias, in place, to the per-channel means
-    of a batch of mel targets (B, n_mels, T)."""
+    of a batch of mel targets (B, n_mels, T); under a data-parallel group,
+    of the global batch (each rank holds its rows)."""
     bias = model.decoder.linear_projection.bias
     if not torch.is_tensor(mel_targets):
         mel_targets = torch.from_numpy(np.asarray(mel_targets))
-    bias.copy_(mel_targets.to(bias.device).float().mean(dim=(0, 2)))
+    mel = mel_targets.to(bias.device).float()
+    if not is_distributed():
+        bias.copy_(mel.mean(dim=(0, 2)))
+        return
+    sums = all_reduce_replicated(torch.cat([
+        mel.sum(dim=(0, 2)),
+        mel.new_full((1,), float(mel.shape[0] * mel.shape[2]))]))
+    bias.copy_(sums[:-1] / sums[-1])
 
 
 _warned_default_speaker = False

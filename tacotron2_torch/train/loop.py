@@ -14,14 +14,25 @@ behaviour on one device:
     mel L1 < ``debug_success_mel_l1``, a heatmap every 10 iterations, then
     the model, the batch and autoregressive inference artifacts exported.
 
-Where the port differs: it trains on the one device it is given
-(``tensor_parallel`` above 1 and data parallelism are queue A16's work
-and raise; decoder rematerialisation is an XLA policy with no
-counterpart).  A full checkpoint records the epochs completed, and a run
-resumed from an epoch's or the best checkpoint starts at the next epoch
-with the data order an unbroken run would have had
-(:meth:`BatchLoader.skip_epochs`); the JAX loop stores the index of the
-epoch that just ended and runs it again on resume.
+Data parallelism: launched as ``torchrun --nproc_per_node N train_torch.py
+...``, each rank trains on its card (``cuda:LOCAL_RANK``; ranks that share
+a card use gloo, ``parallel/distributed.py``) on its own rows of every
+global batch of ``batch_size * N`` (the loader is process-sharded), and
+every step is the one a single process takes on the whole global batch
+(``train/step.py``).  Rank 0 alone writes the log, the checkpoints and the
+plots; the others wait for each save and resume from the same files.
+``--debug`` stays on rank 0 alone while the others wait.  The JAX loop
+also drives several chips from one process; PyTorch runs one process per
+card, so without torchrun the port trains on the one device it is given,
+however many cards are visible.
+
+Where the port differs: tensor parallelism (``tensor_parallel`` above 1)
+is not ported and raises (ROADMAP A16-TP); decoder rematerialisation is
+an XLA policy with no counterpart.  A full checkpoint records the epochs
+completed, and a run resumed from an epoch's or the best checkpoint
+starts at the next epoch with the data order an unbroken run would have
+had (:meth:`BatchLoader.skip_epochs`); the JAX loop stores the index of
+the epoch that just ended and runs it again on resume.
 """
 
 from __future__ import annotations
@@ -41,6 +52,10 @@ from ..config import Config
 from ..data.dataset import BatchLoader, TextMelDataset, collate
 from ..dsp.wav import save_wav
 from ..models.tacotron2 import init_projection_bias, tacotron2_infer
+from ..parallel.collectives import (barrier, broadcast_object,
+                                    data_axis_size, local_only, rank)
+from ..parallel.distributed import initialize_distributed, rank_device
+from ..parallel.mesh import TP_LEFT_OUT, shard_train_state
 from ..text import sequence_to_text
 from ..utils.device import resolve_device
 from ..utils.logging import TrainingLogger
@@ -144,13 +159,13 @@ def train(metadata_path: str, checkpoint_dir: str, *,
           tensor_parallel: int = 1,
           keep_epoch_ckpts: Optional[int] = None,
           device: Union[str, torch.device] = "cuda") -> TrainState:
-    """Main training routine on ``device``; the arguments are those of
+    """Main training routine on ``device`` (under a data-parallel group,
+    this rank's card); the arguments are those of
     ``tacotron2_tpu/train/loop.py::train`` without ``remat``.  Returns the
     final state."""
     if tensor_parallel != 1:
         raise NotImplementedError(
-            f"tensor_parallel={tensor_parallel}: the port trains on one "
-            "device; tensor and data parallelism are queue A16's work")
+            f"tensor_parallel={tensor_parallel}: {TP_LEFT_OUT}")
     cfg = cfg or Config()
     if precision is not None:
         precision = {"bf16": "bfloat16", "fp32": "float32"}.get(precision,
@@ -165,10 +180,15 @@ def train(metadata_path: str, checkpoint_dir: str, *,
             **({"precision": precision} if precision else {}))
         cfg = dataclasses.replace(cfg, train=tr)
     compute_dtype_of(cfg.train.precision)   # validate before any work
-    device = resolve_device(device)
+    # the process group first (a no-op without torchrun's WORLD_SIZE)
+    initialize_distributed(
+        backend="gloo" if torch.device(device).type == "cpu" else None)
+    world, is_lead = data_axis_size(), rank() == 0
+    device = resolve_device(rank_device(device))
 
     os.makedirs(checkpoint_dir, exist_ok=True)
-    logger = TrainingLogger(checkpoint_dir)
+    # the ranks share checkpoint_dir: only rank 0 writes the log file
+    logger = TrainingLogger(checkpoint_dir, enabled=is_lead)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"Device: {device} ({name})")
@@ -208,8 +228,24 @@ def train(metadata_path: str, checkpoint_dir: str, *,
     projection_bias_done = bool(resume)
 
     if debug_overfit:
-        return _debug_overfit(dataset, state, tx, cfg, checkpoint_dir,
-                              sigma_warmup, iters=tcfg.epochs * 20)
+        if world == 1:
+            return _debug_overfit(dataset, state, tx, cfg, checkpoint_dir,
+                                  sigma_warmup, iters=tcfg.epochs * 20)
+        if is_lead:
+            logger.log(f"NOTE: --debug runs on rank 0 alone (a single-device "
+                       f"diagnostic); the other {world - 1} ranks wait")
+            with local_only():
+                state = _debug_overfit(dataset, state, tx, cfg,
+                                       checkpoint_dir, sigma_warmup,
+                                       iters=tcfg.epochs * 20)
+        barrier()
+        return state
+
+    # every rank starts from rank 0's state, bit for bit
+    state = shard_train_state(state)
+    if world > 1:
+        logger.log(f"Data parallel: {world} devices, {world} processes, "
+                   f"global micro-batch {tcfg.batch_size * world}")
 
     accum_steps = max(1, accum_steps)
     # with accumulation the loader draws accum_steps micro-batches at once
@@ -217,16 +253,20 @@ def train(metadata_path: str, checkpoint_dir: str, *,
     loader = BatchLoader(dataset, tcfg.batch_size * accum_steps,
                          seed=tcfg.seed,
                          text_pad_multiple=tcfg.text_pad_multiple,
-                         mel_pad_multiple=tcfg.mel_pad_multiple)
+                         mel_pad_multiple=tcfg.mel_pad_multiple,
+                         process_index=rank(), process_count=world)
     loader.skip_epochs(start_epoch)
     val_loader = None
     if val_metadata:
+        # allow_empty: a val set smaller than the global batch skips
+        # validation (validate() reports 'batches': 0)
         val_loader = BatchLoader(TextMelDataset(val_metadata),
                                  tcfg.batch_size, shuffle=False,
                                  seed=tcfg.seed,
                                  text_pad_multiple=tcfg.text_pad_multiple,
                                  mel_pad_multiple=tcfg.mel_pad_multiple,
-                                 drop_last=False, allow_empty=True)
+                                 drop_last=False, allow_empty=True,
+                                 process_index=rank(), process_count=world)
         logger.log(f"Loaded {len(val_loader.dataset)} validation samples.")
 
     timer = StepTimer(device=device)
@@ -301,9 +341,10 @@ def train(metadata_path: str, checkpoint_dir: str, *,
                 os.path.join(checkpoint_dir, f"tacotron2_epoch_{epoch + 1}"),
                 state, epoch + 1, best_val_mel, logger):
             run_saved_epochs.append(epoch + 1)
-        _prune_epoch_ckpts(checkpoint_dir, tcfg.keep_epoch_ckpts, logger,
-                           run_saved_epochs)
-        if alignments is not None:
+        if is_lead:
+            _prune_epoch_ckpts(checkpoint_dir, tcfg.keep_epoch_ckpts, logger,
+                               run_saved_epochs)
+        if alignments is not None and is_lead:
             save_alignment_plot(alignments, os.path.join(
                 checkpoint_dir, f"alignment_epoch_{epoch + 1}.png"))
     print("\nTraining complete.")
@@ -314,14 +355,17 @@ def _save_best_effort(path: str, state: TrainState, epoch: int,
                       best_val_mel: float, logger) -> bool:
     """Save a cadence checkpoint; a failed save (a full disk, a quota) is
     logged and training goes on.  ``epoch`` is the epoch a resume starts
-    at."""
-    try:
-        save_checkpoint(path, state, epoch, best_val_mel)
-        return True
-    except (OSError, RuntimeError) as e:
-        logger.log(f"[WARN] checkpoint save failed for {path}: "
-                   f"{type(e).__name__}: {e} — training continues")
-        return False
+    at.  Under a data-parallel group rank 0 writes and the others wait
+    for its outcome, which every rank returns."""
+    ok = True
+    if rank() == 0:
+        try:
+            save_checkpoint(path, state, epoch, best_val_mel)
+        except (OSError, RuntimeError) as e:
+            logger.log(f"[WARN] checkpoint save failed for {path}: "
+                       f"{type(e).__name__}: {e} — training continues")
+            ok = False
+    return broadcast_object(ok)
 
 
 def _prune_epoch_ckpts(checkpoint_dir: str, keep: int, logger,

@@ -17,6 +17,15 @@ Counterpart of ``tacotron2_tpu/train/loss.py``, formula for formula:
 
 Decoder time is padded to quantised lengths, so every reduction is masked
 to the batch's true max mel length.
+
+Under a data-parallel group every batch reduction is the global batch's,
+as GSPMD makes it on the JAX side: the max mel length is a MAX over the
+ranks, and the numerators and denominators (the L1 terms' valid count,
+the gate window, the KL's batch size, the entropy's rows and the mean
+sigma) are summed over the ranks in one
+``parallel/collectives.py::global_sums`` call with an identity backward.
+Every rank then computes the same total, and every ``LossOutput`` field
+equals the one-process value on the whole batch.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..config import GuidedAttentionConfig
+from ..parallel.collectives import all_reduce_max, global_sums
 
 
 class LossOutput(NamedTuple):
@@ -50,10 +60,10 @@ def diagonal_attention_target(text_lengths: torch.Tensor, t_dec_max: int,
                               loss_step: int, g: GuidedAttentionConfig,
                               sigma_warmup_steps: int
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Closed-form diagonal Gaussian targets (B, T_dec, T_enc) and the mean
-    sigma.  Per-sample initial sigma = clamp(0.05 * L, 3, 20), annealed
-    linearly to 1.0; expected position floor(t * L / T) clipped to L - 1;
-    normalised over the true encoder length.  ``eff_steps`` is the batch's
+    """Closed-form diagonal Gaussian targets (B, T_dec, T_enc) and each
+    sample's sigma (B,).  Per-sample initial sigma = clamp(0.05 * L, 3,
+    20), annealed linearly to 1.0; expected position floor(t * L / T)
+    clipped to L - 1; normalised over the true encoder length.  ``eff_steps`` is the batch's
     true max decoder length; rows t >= eff_steps are zero."""
     dev = text_lengths.device
     lb = text_lengths.float()[:, None, None]                     # (B,1,1)
@@ -71,7 +81,7 @@ def diagonal_attention_target(text_lengths: torch.Tensor, t_dec_max: int,
     gauss = torch.where(pos < lb, gauss, torch.zeros_like(gauss))
     gauss = gauss / (gauss.sum(dim=2, keepdim=True) + 1e-8)
     target = torch.where(t < eff, gauss, torch.zeros_like(gauss))
-    return target, sigma.mean()
+    return target, sigma.reshape(-1)
 
 
 def sigmoid_binary_cross_entropy(logits: torch.Tensor,
@@ -96,22 +106,13 @@ def tacotron2_loss(mel_postnet: torch.Tensor, mel_coarse: torch.Tensor,
     tgt = mel_target.transpose(1, 2)                      # (B, T, n_mels)
     steps = torch.arange(t_dec, device=dev)[None, :]
 
-    # masked mean L1 (x2)
     fv = (steps < mel_lengths[:, None])[..., None].float()
-    n_valid = fv.sum() * n_mels
-    l1_coarse = ((mel_coarse - tgt).abs() * fv).sum() / n_valid
-    l1_post = ((mel_postnet - tgt).abs() * fv).sum() / n_valid
-    loss_mel = l1_coarse + l1_post
-
-    # gate BCE over the batch-max mel window
-    max_mel = mel_lengths.max()
+    max_mel = all_reduce_max(mel_lengths.max())
     gate_window = (steps < max_mel).expand(b, t_dec).float()
     per_elem = sigmoid_binary_cross_entropy(
         gate_logits, build_gate_target(mel_lengths, t_dec))
-    loss_gate = (per_elem * gate_window).sum() / (gate_window.sum() + 1e-8)
-
-    # guided-attention KL
-    if text_lengths is not None and t_dec > 1:
+    with_kl = text_lengths is not None and t_dec > 1
+    if with_kl:
         target, sigma = diagonal_attention_target(
             text_lengths, t_dec, alignments.shape[2], max_mel, loss_step, g,
             sigma_warmup_steps)
@@ -121,20 +122,41 @@ def tacotron2_loss(mel_postnet: torch.Tensor, mel_coarse: torch.Tensor,
         tlogt = torch.where(target > 0,
                             target * torch.log(target.clamp_min(1e-30)),
                             torch.zeros_like(target))
-        kl = (tlogt - target * log_pred).sum() / b
-        kl = torch.clamp(kl / max_mel.float(), max=g.kl_clamp)
-        # entropy over valid decoder rows
+        kl_sum = (tlogt - target * log_pred).sum()
         ent_rows = -(attn_safe * log_pred).sum(dim=2)         # (B, T)
-        entropy = (ent_rows * gate_window).sum() / gate_window.sum()
+        ent_sum = (ent_rows * gate_window).sum()
+    else:
+        kl_sum = ent_sum = torch.zeros((), device=dev)
+        sigma = torch.zeros(b, device=dev)
+
+    # the batch's sums; global ones under a data-parallel group
+    (n_valid, l1c_sum, l1p_sum, gate_sum, window_sum, kl_sum, ent_sum,
+     sigma_sum, b_sum) = global_sums(
+        fv.sum(), ((mel_coarse - tgt).abs() * fv).sum(),
+        ((mel_postnet - tgt).abs() * fv).sum(),
+        (per_elem * gate_window).sum(), gate_window.sum(), kl_sum, ent_sum,
+        sigma.sum(), torch.full((), float(b), device=dev))
+
+    # masked mean L1 (x2)
+    n_valid = n_valid * n_mels
+    loss_mel = l1c_sum / n_valid + l1p_sum / n_valid
+
+    # gate BCE over the batch-max mel window
+    loss_gate = gate_sum / (window_sum + 1e-8)
+
+    # guided-attention KL
+    if with_kl:
+        kl = torch.clamp(kl_sum / b_sum / max_mel.float(), max=g.kl_clamp)
+        # entropy over valid decoder rows
+        entropy = ent_sum / window_sum
+        sigma = sigma_sum / b_sum
         weight = torch.where(
             entropy <= g.entropy_target,
             torch.clamp(g.weight_start * entropy.clamp_min(0.0)
                         / g.entropy_target, min=g.min_weight),
             torch.full_like(entropy, g.weight_start))
     else:
-        kl = torch.zeros((), device=dev)
-        entropy = torch.zeros((), device=dev)
-        sigma = torch.zeros((), device=dev)
+        kl = entropy = sigma = torch.zeros((), device=dev)
         weight = torch.full((), g.weight_start, device=dev)
 
     total = loss_mel + loss_gate + weight * kl

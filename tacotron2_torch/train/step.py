@@ -10,6 +10,15 @@ there.
 
 Gradient accumulation averages the micro-batches' gradients and applies
 the optimizer once; the criterion's counter advances once per micro-batch.
+
+Under a data-parallel group each rank steps on its own rows of the global
+batch, and the step is the one a single process takes on the whole
+batch: BatchNorm and the loss reduce over the global batch
+(``models/layers.py``, ``train/loss.py``), the gradients are summed over
+the ranks in one flat all-reduce before the clip, so every rank applies
+the same Adam step, and the dropout masks are drawn for the global batch
+from each rank's generator (identical on every rank) and cut to the
+rank's rows (:func:`global_dropout_masks`).
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ import torch
 
 from ..config import Config
 from ..models.tacotron2 import Tacotron2, tacotron2_forward
+from ..parallel.collectives import (all_reduce_gradients, data_axis_size,
+                                    global_sums, is_distributed, rank)
 from .loss import LossOutput, tacotron2_loss
 from .optim import Optimizer
 from .state import TrainState
@@ -67,13 +78,49 @@ def _to_device(batch: Batch, device: torch.device) -> Batch:
     return out
 
 
+def global_dropout_masks(model: Tacotron2, batch: Batch,
+                         generator: torch.Generator, use_postnet: bool
+                         ) -> Dict[str, object]:
+    """This rank's rows of the keep-masks a single process would draw for
+    the whole global batch, drawn from ``generator`` in the forward's own
+    order: the prenet's two layers (B, T_dec, prenet_dim), the attention-
+    and decoder-LSTM states (T_dec, B, H), then each postnet layer
+    (B, C, T_dec); none where a rate is 0."""
+    cfg = model.cfg
+    world, r = data_axis_size(), rank()
+    b, _, t_dec = batch["mel"].shape
+    gb = b * world
+    dev = batch["mel"].device
+    rows = slice(r * b, (r + 1) * b)
+
+    def keep(shape, rate, batch_dim):
+        if rate <= 0.0:
+            return None
+        m = torch.rand(shape, generator=generator, device=dev) < 1.0 - rate
+        return m[rows] if batch_dim == 0 else m[:, rows]
+
+    h = cfg.decoder_rnn_dim
+    masks = {"prenet": [keep((gb, t_dec, cfg.prenet_dim),
+                             cfg.p_prenet_dropout, 0) for _ in range(2)],
+             "attention": keep((t_dec, gb, h), cfg.p_attention_dropout, 1),
+             "decoder": keep((t_dec, gb, h), cfg.p_decoder_dropout, 1)}
+    if use_postnet:
+        masks["postnet"] = [
+            keep((gb, conv.weight.shape[0], t_dec), cfg.p_postnet_dropout, 0)
+            for conv in model.postnet.convs]
+    return masks
+
+
 def _forward_loss(model: Tacotron2, cfg: Config, batch: Batch,
                   generator: Optional[torch.Generator], loss_step: int,
                   use_postnet: bool, sigma_warmup_steps: int,
                   masks: Optional[Dict[str, object]] = None):
     """Train-mode forward and loss on the compute-dtype cast of the
     parameters.  Returns (total, (losses, alignments)); BatchNorm running
-    statistics are updated in place."""
+    statistics are updated in place.  Under a data-parallel group the
+    masks not handed in are the global draw's rows."""
+    if masks is None and is_distributed():
+        masks = global_dropout_masks(model, batch, generator, use_postnet)
     params = cast_params_for_compute(
         model, compute_dtype_of(cfg.train.precision))
     out = tacotron2_forward(
@@ -94,6 +141,7 @@ def _detach(losses: LossOutput) -> LossOutput:
 
 
 def _grads(model: Tacotron2, total: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """This rank's gradients of ``total`` by parameter name."""
     names, params = zip(*model.named_parameters())
     gs = torch.autograd.grad(total, params, allow_unused=True)
     return {n: g for n, g in zip(names, gs) if g is not None}
@@ -108,14 +156,16 @@ def train_step(state: TrainState, batch: Batch, *, cfg: Config,
     ``batch`` holds ``text`` (B, T_enc), ``text_lengths``, ``mel``
     (B, n_mels, T_dec), ``mel_lengths`` and optionally ``speaker_ids`` as
     arrays or tensors (``data/dataset.py::collate``).  ``masks`` hands in
-    the dropout masks instead of drawing them from the state's generator.
-    Returns (state, losses, alignments (B, T_dec, T_enc)).
+    the dropout masks instead of drawing them from the state's generator
+    (under a data-parallel group: this rank's rows of them).  Returns
+    (state, losses, alignments (B, T_dec, T_enc)).
     """
     batch = _to_device(batch, _device_of(state.model))
     total, (losses, alignments) = _forward_loss(
         state.model, cfg, batch, state.generator, state.loss_step,
         use_postnet, sigma_warmup_steps, masks)
-    tx.update(state.model, state.opt_state, _grads(state.model, total))
+    tx.update(state.model, state.opt_state,
+              all_reduce_gradients(_grads(state.model, total)))
     state.step += 1
     state.loss_step += 1
     return state, _detach(losses), alignments.detach()
@@ -140,6 +190,7 @@ def train_step_accum(state: TrainState, batch: Batch, *, cfg: Config,
         for n, g in _grads(state.model, total).items():
             acc[n] = acc[n] + g if n in acc else g
         state.loss_step += 1
+    all_reduce_gradients(acc)
     tx.update(state.model, state.opt_state,
               {n: g / accum_steps for n, g in acc.items()})
     state.step += 1
@@ -155,7 +206,8 @@ def eval_step(state: TrainState, batch: Batch, *, cfg: Config,
     alignments, mean attention entropy).  The entropy is deliberately
     UNMASKED over all decoder rows, and so distinct from
     ``losses.attention_entropy``, which is masked to the gate window
-    because it drives the adaptive KL weight."""
+    because it drives the adaptive KL weight.  Under a data-parallel group
+    the entropy is the global batch's mean."""
     device = _device_of(state.model)
     batch = _to_device(batch, device)
     out = tacotron2_forward(
@@ -168,5 +220,7 @@ def eval_step(state: TrainState, batch: Batch, *, cfg: Config,
         state.loss_step, cfg.guided_attention,
         sigma_warmup_steps=sigma_warmup_steps)
     a = out.alignments.float().clamp_min(1e-8)
-    entropy = -(a * torch.log(a)).sum(dim=-1).mean()
-    return losses, out.alignments, entropy
+    rows = -(a * torch.log(a)).sum(dim=-1)
+    ent_sum, n_rows = global_sums(
+        rows.sum(), torch.full((), float(rows.numel()), device=device))
+    return losses, out.alignments, ent_sum / n_rows

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """How far two decodes of the trained checkpoint part, on one CUDA card.
 
-    python3 tools/trained_decode_gap.py [--checkpoint DIR]
+    python3 tools/trained_decode_gap.py [--checkpoint DIR] [--text T ...]
 
 For each sentence of ``chip_smoke.py``'s ``TRAINED_FRAME_ENDS``, in fp32
 (as ``load_model`` serves) and in bf16 (``cast_params_bf16``), one at a
@@ -14,6 +14,10 @@ over the shared frames, the first frame where they part by more than
 argmax paths part.  The plain loop against itself on the CPU is the
 scale of rounding: a kernel whose gap is of that size agrees with the
 plain version as far as the dtype lets two orders of summation agree.
+
+``--text`` takes other sentences instead, such as the four that phase 19
+of ``chip_smoke.py`` adds (``DP_EXTRA_TEXTS``): PERF.md's card-against-CPU
+gap for "The rain stays in the plain." was read this way.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkpoint", default=os.path.join(
         ROOT, "checkpoints", "r4_synth_bf16"))
+    ap.add_argument("--text", action="append", default=None,
+                    help="a sentence to decode (repeatable; default: "
+                         "chip_smoke.py's trained sentences)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trained_decode_gap: needs a CUDA card", file=sys.stderr)
@@ -77,7 +84,7 @@ def main() -> int:
     for cpu_model in (model32, cast_params_bf16(model32)):
         card_model = copy.deepcopy(cpu_model).to(cuda)
         dtype = str(cpu_model.decoder.attention_lstm.weight_ih.dtype)[6:]
-        for text in TRAINED_FRAME_ENDS:
+        for text in args.text or TRAINED_FRAME_ENDS:
             tokens, lengths = pad_sequences([text_to_sequence(text)],
                                             pad_multiple=16)
             out = {}

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Train the PyTorch port of Tacotron 2 on one CUDA card.
+"""Train the PyTorch port of Tacotron 2 on one CUDA card, or data-parallel
+on N cards.
 
 The flags are ``train.py``'s, with the same meanings but one, plus
 ``--device``:
@@ -10,13 +11,26 @@ The flags are ``train.py``'s, with the same meanings but one, plus
         [--accum_steps N] [--precision bf16|fp32] [--keep_epoch_ckpts N] \\
         [--tp 1] [--device cuda|cpu]
 
+On N cards, the same flags under torchrun, one rank a card (NCCL); each
+rank loads ``--batch_size`` rows of every global batch of
+``batch_size * N``, and each step is the one a single process takes on
+the global batch:
+
+    torchrun --nproc_per_node N train_torch.py processed/metadata.csv \\
+        checkpoints/run1 --batch_size 16 ...
+
+More ranks than cards share the cards over gloo (two ranks on one card
+check the path; they are no faster than one process).  Rank 0 writes the
+log and the checkpoints.
+
 ``--resume`` takes a checkpoint directory of the port, an Orbax checkpoint
 directory of the JAX package or the reference's PyTorch checkpoint file.
 It differs from ``train.py``'s in one point: resumed from
 ``tacotron2_epoch_N`` (or a ``best_model`` saved after epoch N), the port
 goes on at epoch N + 1, where ``train.py`` runs epoch N again; so
 ``--epochs E`` from there trains E - N epochs here and E - N + 1 there.
-``--remat`` is not ported (an XLA policy), and ``--tp`` takes 1 only.
+``--remat`` is not ported (an XLA policy), and ``--tp`` takes 1 only
+(tensor parallelism is not ported).
 """
 
 import argparse
@@ -51,7 +65,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "(default 5; 0 keeps all).")
     parser.add_argument("--tp", type=int, default=1,
                         help="Tensor-parallel width; the port takes 1 only "
-                             "(more devices are queue A16's work).")
+                             "(tensor parallelism is not ported; for data "
+                             "parallelism launch under torchrun "
+                             "--nproc_per_node N).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Device to train on (default cuda).")
     return parser.parse_args(argv)
