@@ -226,12 +226,34 @@ it fails:
     the batch's makeup moves a decode (the whole batch against each row
     alone, by the kernel and by the plain step loop), printed, not held.
 
+20. tensor parallelism on the one card, against phase 19's one process:
+    (a) two ranks of this script (``--tp-rank``) on ``cuda:0`` over gloo,
+    a grid of data 1 x model 2, each on the whole B=16 batch with its
+    shards of the decoder LSTMs and heads: the first step's gradients
+    (gathered), ``DP_STEPS`` bf16 ``train_step``s (#1 on every step of
+    each forward, #2-#4 never: off under tensor parallelism, as in the
+    JAX package; the model-axis collectives counted and timed), an
+    ``eval_step`` (#1 on every step within ``TAIL_TOL``, #5 eight times),
+    then the same steps in fp32; after every step the ranks' replicated
+    state bit for bit; the gathered gradients, losses and fp32 weights
+    by phase 19's rules, and the gathered weights the shards joined; (b)
+    ``train_torch.py --tp 2`` under ``torchrun --nproc_per_node 4`` on
+    phase 15's corpus: two epochs, then the second resumed, bit for bit,
+    the checkpoint read by ``load_model``; (c)
+    ``ShardedSynthesizer(tensor_parallel=True)`` on ``r4_synth_bf16``
+    (fp32) over a 1x2 and a 2x2 grid of ``cuda:0``: frame ends equal to
+    the unsharded synthesizer's, each data shard's decode against the
+    unsharded step loop (``DP_DEC_CAP``), #1 on every decode step, #5
+    eight times a data shard, #2 never, the walls of both in turns.
+
 Phases 11-14 and 17 run after phase 7, before the training phases,
-phases 15 and 16 after phase 10, then phase 18 and phase 19 last.  The
+phases 15 and 16 after phase 10, then phases 18, 19 and 20 last.  The
 ``kernels`` line has five entries; the serving path's three carry
 ``serve_path_launches``, the data path's three ``quality_path_launches``,
-the data-parallel training path's four ``dp_path_launches`` (one rank's)
-and the sharded serving path's two ``sharded_path_launches``.  The last
+the data-parallel training path's four ``dp_path_launches`` (one rank's),
+the sharded serving path's two ``sharded_path_launches``, the
+tensor-parallel training path's ``tp_path_launches`` (one rank's) and
+its serving path's ``tp_sharded_path_launches``.  The last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``tacotron2_tpu``, and reads no weights file from the repository but the
 checkpoints of phases 14 and 18.
@@ -3024,22 +3046,29 @@ STRUCTURAL_ZERO = tuple(f"{part}.convs.{i}.bias" for part, n in
 
 def state_digest(state) -> str:
     """sha256 over every bit of a train state: weights, BatchNorm
-    statistics, Adam moments and count, counters, generator."""
+    statistics, Adam moments and count, counters, generator; under tensor
+    parallelism its replicated part (the shards differ by rank)."""
     import hashlib
+
+    from tacotron2_torch.parallel.mesh import sharded_names
+    skip = sharded_names(state.model)
     h = hashlib.sha256()
     opt = state.opt_state
-    for t in [*state.model.state_dict().values(),
-              *(opt[m][n] for m in ("mu", "nu") for n in sorted(opt[m]))]:
+    for t in [*(t for n, t in state.model.state_dict().items()
+                if n not in skip),
+              *(opt[m][n] for m in ("mu", "nu") for n in sorted(opt[m])
+                if n not in skip)]:
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
     h.update(repr((state.step, state.loss_step, opt["count"])).encode())
     h.update(state.generator.get_state().numpy().tobytes())
     return h.hexdigest()
 
 
-def dp_state(precision: str, batch, dev):
+def dp_state(precision: str, batch, dev, tensor_parallel: bool = False):
     """A full-width train state in ``precision`` (seed ``SEED``, under a
-    group rank 0's on every rank) with the projection bias from the mels
-    of ``batch`` (this rank's rows).  Returns (state, cfg, tx)."""
+    group rank 0's on every rank; with ``tensor_parallel`` this rank's
+    shards of it) with the projection bias from the mels of ``batch``
+    (this rank's rows).  Returns (state, cfg, tx)."""
     from tacotron2_torch.config import Config, TrainConfig
     from tacotron2_torch.models.tacotron2 import init_projection_bias
     from tacotron2_torch.parallel import shard_train_state
@@ -3048,7 +3077,8 @@ def dp_state(precision: str, batch, dev):
     cfg = Config(train=TrainConfig(precision=precision))
     tx = make_optimizer(cfg.train)
     state = shard_train_state(create_train_state(cfg, seed=SEED, tx=tx,
-                                                 device=dev))
+                                                 device=dev),
+                              tensor_parallel=tensor_parallel)
     init_projection_bias(state.model, batch["mel"])
     return state, cfg, tx
 
@@ -3058,12 +3088,14 @@ def dp_first_grads(state, cfg, batch, masks, dev):
     ``masks``, the postnet bypassed; the BatchNorm statistics are left as
     they were."""
     from tacotron2_torch.parallel import all_reduce_gradients
+    from tacotron2_torch.parallel.mesh import sharded_names
     from tacotron2_torch.train import step as train
     buffers = {n: x.clone() for n, x in state.model.named_buffers()}
     total, _ = train._forward_loss(
         state.model, cfg, train._to_device(batch, dev), None, 0, False,
         cfg.guided_attention.sigma_warmup_steps, masks)
-    grads = all_reduce_gradients(train._grads(state.model, total))
+    grads = all_reduce_gradients(train._grads(state.model, total),
+                                 sharded_names(state.model))
     with torch.no_grad():
         for n, x in state.model.named_buffers():
             x.copy_(buffers[n])
@@ -3179,10 +3211,10 @@ def dp_rank(rank: int, world: int, init_file: str, work: str) -> int:
     reduce = train.all_reduce_gradients
     reduce_ms = []
 
-    def timed_reduce(grads):
+    def timed_reduce(grads, *args):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        reduce(grads)
+        reduce(grads, *args)
         torch.cuda.synchronize()
         reduce_ms.append((time.perf_counter() - t1) * 1e3)
         return grads
@@ -3280,7 +3312,7 @@ def run_ranks(cmds, cwd: str, logs: str, what: str):
         with open(path) as f:
             texts.append(f.read())
     for p, text in zip(procs, texts):
-        check(p.returncode == 0, f"phase 19 {what}: exit {p.returncode} "
+        check(p.returncode == 0, f"{what}: exit {p.returncode} "
               f"(killed after {DP_WAIT_S} s if -9):\n{text[-3000:]}")
     return texts
 
@@ -3329,12 +3361,10 @@ def weight_gap(before, after_1, after_dp):
     return gap_sum / moved_sum, shares, zero_gap
 
 
-def dp_training(dev, root: str, tmp: str) -> dict:
-    """Phase 19 (a): two ranks on the card against one process."""
-    t1 = time.perf_counter()
-    ref, lr = dp_reference(dev)
-    ref_s = time.perf_counter() - t1
-    torch.cuda.empty_cache()
+def dp_training(dev, root: str, tmp: str, reference) -> dict:
+    """Phase 19 (a): two ranks on the card against one process
+    (``reference``: :func:`dp_reference`'s results and seconds)."""
+    ref, lr, ref_s = reference
     init = os.path.join(tmp, "store")
     t1 = time.perf_counter()
     logs = run_ranks(
@@ -3472,7 +3502,7 @@ def dp_cli(dev, root: str, tmp: str) -> None:
                                                   "tacotron2_epoch_1")])):
         t1 = time.perf_counter()
         log = run_ranks([torchrun + [train_csv, os.path.join(tmp, name)]
-                         + flags + extra], root, tmp, f"cli {name}")[0]
+                         + flags + extra], root, tmp, f"dp cli {name}")[0]
         runs[name] = time.perf_counter() - t1
         with open(os.path.join(tmp, name, "training_log.txt")) as f:
             written = f.read()
@@ -3753,10 +3783,11 @@ def dp_serving(dev) -> dict:
     return launches
 
 
-def data_parallel_phase(dev, smi: str) -> dict:
-    """Phase 19.  Returns each kernel's launches on the data-parallel
-    training path (``dp_path_launches``, each rank's) and on the sharded
-    serving path (``sharded_path_launches``)."""
+def data_parallel_phase(dev, smi: str, reference) -> dict:
+    """Phase 19 (``reference``: one process's run, :func:`dp_reference`).
+    Returns each kernel's launches on the data-parallel training path
+    (``dp_path_launches``, each rank's) and on the sharded serving path
+    (``sharded_path_launches``)."""
     import shutil
     mode = subprocess.run(
         ["nvidia-smi", "--query-gpu=compute_mode,name,power.limit",
@@ -3778,7 +3809,8 @@ def data_parallel_phase(dev, smi: str) -> dict:
     try:
         for sub in ("train", "cli"):
             os.makedirs(os.path.join(tmp, sub))
-        train_out = dp_training(dev, root, os.path.join(tmp, "train"))
+        train_out = dp_training(dev, root, os.path.join(tmp, "train"),
+                                reference)
         torch.cuda.empty_cache()
         dp_cli(dev, root, os.path.join(tmp, "cli"))
         sharded = dp_serving(dev)
@@ -3798,6 +3830,486 @@ def data_parallel_phase(dev, smi: str) -> dict:
             "conv_bn_act": {"dp_path_launches":
                             train_out["eval_conv_launches"],
                             "sharded_path_launches": sharded["conv_bn_act"]}}
+
+# phase 20: tensor parallelism, ranks and shards sharing the one card
+TP = 2
+TP_CLI_PROCS = 4
+
+
+def whole_grads(model, grads):
+    """This rank's gradients with each shard's put back together over the
+    model group (a collective)."""
+    from tacotron2_torch.parallel.collectives import gather_model_axis
+    from tacotron2_torch.parallel.mesh import param_shardings, sharded_names
+    names = sharded_names(model)
+    specs = param_shardings(model, True)
+    return {n: gather_model_axis(g, specs[n].index("model")) if n in names
+            else g for n, g in grads.items()}
+
+
+def tp_rank(rank: int, world: int, init_file: str, work: str) -> int:
+    """One rank of phase 20 (a), started by the phase as ``chip_smoke.py
+    --tp-rank RANK WORLD INIT_FILE WORK_DIR``: a grid of data 1 x model
+    WORLD, every rank on the training main path's whole batch.  The first
+    step's gradients (gathered whole), the counted run (``DP_STEPS`` bf16
+    ``train_step``s with the model-axis collectives timed, an
+    ``eval_step``), then the same steps in fp32.  Writes
+    ``WORK_DIR/rank<RANK>.json``, this rank's shards after the fp32 steps
+    and, rank 0, the gathered gradients and weights."""
+    import torch.distributed as dist
+
+    from tacotron2_torch.config import ModelConfig
+    from tacotron2_torch.ops import _build, attention_kernel
+    from tacotron2_torch.ops.attention_kernel import attention_tail
+    from tacotron2_torch.ops.convbn_kernel import conv_bn_act
+    from tacotron2_torch.ops.decoder_bwd_kernel import decoder_bwd_chain_mega
+    from tacotron2_torch.ops.decoder_megakernel import decoder_infer_mega
+    from tacotron2_torch.ops.decoder_train_kernel import decoder_fwd_train_mega
+    from tacotron2_torch.parallel import (collectives, gather_train_state,
+                                          init_tensor_parallel,
+                                          initialize_distributed, rank_device)
+    from tacotron2_torch.parallel.mesh import sharded_names
+    from tacotron2_torch.train import step as train
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    prebuilt = all(_build.library_path(n).exists()
+                   for n in _build.CUDA_SOURCES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=f"file://{init_file}",
+                           world_size=world, rank=rank)
+    init_tensor_parallel(world)
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev),
+           "prebuilt": prebuilt}
+    batch = seeded_train_batch(ModelConfig())
+    b, t_enc = batch["text"].shape
+    t_dec = batch["mel"].shape[2]
+    state, cfg, tx = dp_state("bfloat16", batch, dev, tensor_parallel=True)
+    names = sharded_names(state.model)
+    out["shard_shapes"] = {n: list(state.model.get_parameter(n).shape)
+                           for n in sorted(names)}
+
+    # the first step's gradients on phase 19's masks, gathered whole
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    grads = whole_grads(state.model, dp_first_grads(
+        state, cfg, batch, first_step_masks(cfg.model, b, t_dec, g, dev),
+        dev))
+    if rank == 0:
+        torch.save(cpu_copy(grads), os.path.join(work, "grads.pt"))
+    del grads
+
+    # the counted run, the model-axis collectives timed and counted
+    timed = {"n": 0, "ms": 0.0}
+
+    def timing(fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timed["ms"] += (time.perf_counter() - t1) * 1e3
+            timed["n"] += 1
+            return y
+        return wrapper
+
+    plain = (collectives._model_sum, collectives.gather_model_axis)
+    collectives._model_sum = timing(plain[0])
+    collectives.gather_model_axis = timing(plain[1])
+    dist.barrier()
+    for kernel in (decoder_fwd_train_mega, decoder_bwd_chain_mega,
+                   decoder_infer_mega, attention_tail):
+        kernel.launches = 0
+    try:
+        losses, walls, digests = dp_steps(state, cfg, tx, batch, True)
+    finally:
+        collectives._model_sum, collectives.gather_model_axis = plain
+    out["train_launches"] = (decoder_fwd_train_mega.launches,
+                             decoder_bwd_chain_mega.launches,
+                             decoder_infer_mega.launches,
+                             attention_tail.launches)
+    out.update(losses=losses, step_ms=walls, collectives=timed,
+               counters=(state.step, state.loss_step))
+
+    # one eval_step: the tail on every teacher-forced step, each call held
+    # to the plain version on its own inputs; the conv kernel eight times
+    launch_tail = attention_kernel._forward
+    tail_errs = []
+
+    def checked_tail(*ins):
+        o = launch_tail(*ins)
+        tail_errs.append(max_err(
+            o, attention_kernel.attention_tail_reference(*ins)))
+        return o
+
+    attention_tail.launches = 0
+    conv_bn_act.launches = 0
+    attention_kernel._forward = checked_tail
+    try:
+        l, _, entropy = train.eval_step(
+            state, batch, cfg=cfg,
+            sigma_warmup_steps=cfg.guided_attention.sigma_warmup_steps)
+    finally:
+        attention_kernel._forward = launch_tail
+    out.update(eval_tail_launches=attention_tail.launches, t_dec=t_dec,
+               eval_conv_launches=conv_bn_act.launches,
+               eval_tail_calls=len(tail_errs), eval_tail_err=max(tail_errs),
+               eval={k: float(v) for k, v in l._asdict().items()},
+               eval_entropy=float(entropy))
+    del state
+
+    # the same steps in fp32; the weights gathered, and this rank's shards
+    state, cfg, tx = dp_state("float32", batch, dev, tensor_parallel=True)
+    out["losses_fp32"], _, digests_fp32 = dp_steps(state, cfg, tx, batch,
+                                                   True)
+    whole = gather_train_state(state)
+    torch.save({n: state.model.get_parameter(n).detach().cpu()
+                for n in names}, os.path.join(work, f"shards{rank}.pt"))
+    if rank == 0:
+        torch.save(cpu_copy(whole.model.state_dict()),
+                   os.path.join(work, "weights_float32.pt"))
+    every = [None] * world
+    dist.all_gather_object(every, {"bfloat16": digests,
+                                   "float32": digests_fp32})
+    out["digests"] = every
+    out["libraries"] = sorted(str(_build.library_path(n))
+                              for n in _build._loaded)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_training(dev, root: str, tmp: str, reference) -> dict:
+    """Phase 20 (a): ``TP`` ranks of one data index on the card against
+    one process (phase 19's, ``reference``)."""
+    from tacotron2_torch.parallel import tp_spec_for_name
+    ref, lr, _ = reference
+    init = os.path.join(tmp, "store")
+    t1 = time.perf_counter()
+    logs = run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+          str(TP), init, tmp] for r in range(TP)], root, tmp, "tp train")
+    ranks_s = time.perf_counter() - t1
+    outs = []
+    for r in range(TP):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    for o, log in zip(outs, logs):
+        said = [ln for ln in log.splitlines() if ln.startswith("[distributed]")]
+        print(f"[tp rank {o['rank']}] backend {o['backend']} on {o['device']};"
+              f" kernels loaded from the parent's build: "
+              f"{[os.path.basename(p) for p in o['libraries']]}; shards "
+              f"{o['shard_shapes']}; " + " | ".join(said), flush=True)
+        check(o["backend"] == "gloo" and o["device"] == "cuda:0",
+              f"tp rank {o['rank']}: backend {o['backend']} on {o['device']}")
+        check(o["prebuilt"], f"tp rank {o['rank']}: kernels not prebuilt")
+        check(len(o["shard_shapes"]) == 10, f"tp rank {o['rank']}: shards "
+              f"{o['shard_shapes']}")
+
+    for precision in ("bfloat16", "float32"):
+        for i in range(DP_STEPS):
+            got = {d[precision][i] for d in outs[0]["digests"]}
+            print(f"[tp {precision}] after step {i + 1}: the {TP} ranks' "
+                  "replicated weights, BatchNorm statistics, moments, "
+                  "counters and generator "
+                  f"{'bit for bit equal' if len(got) == 1 else 'DIFFER'}"
+                  f" (sha256 {min(got)[:16]})", flush=True)
+            check(len(got) == 1, f"phase 20: ranks differ after {precision} "
+                  f"step {i + 1}")
+    for o in outs:
+        fwd, bwd, infer, tail = o["train_launches"]
+        c = o["collectives"]
+        print(f"[tp rank {o['rank']}] launches over {DP_STEPS} bf16 "
+              f"train_steps: decoder_fwd_train_mega={fwd} "
+              f"decoder_bwd_chain_mega={bwd} decoder_infer_mega={infer} "
+              f"attention_tail={tail} ({o['t_dec']} a forward); eval_step "
+              f"attention_tail={o['eval_tail_launches']} "
+              f"({o['eval_tail_calls']} teacher-forced steps, each within "
+              f"{o['eval_tail_err']:.2e} of the plain version, tol "
+              f"{TAIL_TOL}), conv_bn_act={o['eval_conv_launches']}; "
+              f"model-axis collectives (gloo) {c['n'] / DP_STEPS:.0f} and "
+              f"{c['ms'] / DP_STEPS:.1f} ms a step; step wall ms "
+              f"{[round(x, 1) for x in o['step_ms']]}", flush=True)
+        check((fwd, bwd, infer, tail) == (0, 0, 0, DP_STEPS * o["t_dec"]),
+              f"tp rank {o['rank']}: train launches {o['train_launches']}")
+        check(o["eval_tail_launches"] == o["eval_tail_calls"] == o["t_dec"]
+              and o["eval_tail_err"] <= TAIL_TOL,
+              f"tp rank {o['rank']}: eval tail {o['eval_tail_launches']} "
+              f"launches, {o['eval_tail_calls']} calls, err "
+              f"{o['eval_tail_err']}")
+        check(o["eval_conv_launches"] == 8,
+              f"tp rank {o['rank']}: eval conv launches "
+              f"{o['eval_conv_launches']}")
+        check(o["counters"] == [DP_STEPS, DP_STEPS],
+              f"counters {o['counters']}")
+    check(outs[0]["eval"] == outs[1]["eval"],
+          f"phase 20: the ranks' eval losses differ: {outs[0]['eval']} vs "
+          f"{outs[1]['eval']}")
+
+    # the gathered state against one process; the shards against the gather
+    grads_tp = torch.load(os.path.join(tmp, "grads.pt"))
+    check(set(grads_tp) == set(ref["grads"]), "the ranks' gathered gradients "
+          "cover other parameters than one process's")
+    errs = grad_errors(grads_tp, ref["grads"], 1e-2)
+    worst = max(errs, key=errs.get)
+    print(f"[tp] first step's gradients gathered from the {TP} ranks vs one "
+          f"process at B=16 (bf16, the same masks): {len(errs)} tensors, "
+          f"worst {worst} {errs[worst]:.2e} (limit {GRAD_TOL})", flush=True)
+    check(errs[worst] <= GRAD_TOL, f"phase 20 gradients: {worst} "
+          f"{errs[worst]}")
+    weights = torch.load(os.path.join(tmp, "weights_float32.pt"))
+    shards = [torch.load(os.path.join(tmp, f"shards{r}.pt"))
+              for r in range(TP)]
+    joined = all(torch.equal(
+        torch.cat([sh[n] for sh in shards],
+                  dim=tp_spec_for_name(n).index("model")), weights[n])
+        for n in shards[0])
+    print(f"[tp] the fp32 weights gathered by rank 0 are the {TP} ranks' "
+          f"shards concatenated ({len(shards[0])} tensors): {joined}",
+          flush=True)
+    check(joined, "phase 20: gathered weights are not the shards joined")
+    for precision, key in (("bfloat16", "losses"), ("float32", "losses_fp32")):
+        losses_1, walls_1, before, after_1 = ref[precision]
+        gap = max(abs(a[k] - b_[k]) / max(abs(b_[k]), 1e-6)
+                  for a, b_ in zip(outs[0][key], losses_1) for k in b_)
+        line = (f"[tp {precision}] losses of the {DP_STEPS} steps, rank 0 "
+                f"{[round(x['total'], 5) for x in outs[0][key]]} vs one "
+                f"process {[round(x['total'], 5) for x in losses_1]}: largest"
+                f" relative gap over every term {gap:.2e} (limit {GRAD_TOL})")
+        if precision == "float32":
+            share, shares, zero_gap = weight_gap(before, after_1, weights)
+            top = sorted(shares, key=shares.get)[-3:]
+            line += (f"; gathered weights and BatchNorm statistics after step "
+                     f"{DP_STEPS}: the gap summed over every element "
+                     f"{share:.2e} of one process's update summed likewise, "
+                     "largest by tensor " + ", ".join(
+                         f"{n} {shares[n]:.2e}" for n in top)
+                     + f" (limit {GRAD_TOL}); the zero-gradient biases "
+                     f"{zero_gap:.2e} (limit {2 * lr * DP_STEPS:g})")
+            check(max(shares.values()) <= GRAD_TOL,
+                  f"phase 20 fp32 weights part by {max(shares.values())}")
+            check(zero_gap <= 2 * lr * DP_STEPS, f"phase 20 biases: "
+                  f"{zero_gap}")
+        print(line, flush=True)
+        check(gap <= GRAD_TOL, f"phase 20 {precision} losses part by {gap}")
+    print(f"[tp] bf16 train_step wall, ms: 1 process at B=16 (decoder "
+          f"kernels) {[round(x, 1) for x in ref['bfloat16'][1]]}; {TP} "
+          "ranks of model=2 (step loop, gloo) " + "; ".join(
+              f"rank {x['rank']} {[round(y, 1) for y in x['step_ms']]}"
+              for x in outs) + f"; the ranks' {ranks_s:.1f} s with their "
+          "start", flush=True)
+    o = outs[0]
+    fwd, bwd, infer, tail = o["train_launches"]
+    return {"tail": tail + o["eval_tail_launches"],
+            "conv": o["eval_conv_launches"], "fwd": fwd, "bwd": bwd,
+            "infer": infer}
+
+
+def tp_cli(dev, root: str, tmp: str) -> None:
+    """Phase 20 (b): ``train_torch.py --tp 2`` under torchrun, four ranks
+    on the card (data 2 x model 2): two epochs unbroken, then the second
+    again resumed from the first epoch's checkpoint, bit for bit; the
+    checkpoint, written in the unsharded layout, loads in this process."""
+    from tacotron2_torch.data.synth_corpus import write_corpus
+    from tacotron2_torch.infer.synthesize import load_model
+    from tacotron2_torch.utils.weight_files import load_file
+
+    train_csv, val_csv = write_corpus(os.path.join(tmp, "corpus"), 32,
+                                      seed=SEED, n_val=8, device=dev)
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(TP_CLI_PROCS), "train_torch.py"]
+    flags = ["--batch_size", "2", "--epochs", "2", "--val_metadata", val_csv,
+             "--tp", str(TP)]
+    tp_line = (f"SPMD mesh: data={TP_CLI_PROCS // TP} x model={TP} (tensor "
+               f"parallel), {TP_CLI_PROCS} processes, global micro-batch 8")
+    for name, extra in (
+            ("unbroken", []),
+            ("resumed", ["--resume", os.path.join(tmp, "unbroken",
+                                                  "tacotron2_epoch_1")])):
+        t1 = time.perf_counter()
+        log = run_ranks([torchrun + [train_csv, os.path.join(tmp, name)]
+                         + flags + extra], root, tmp, f"tp cli {name}")[0]
+        wall = time.perf_counter() - t1
+        with open(os.path.join(tmp, name, "training_log.txt")) as f:
+            written = f.read()
+        said = sorted(re.findall(r"\[distributed\] initialized: rank "
+                                 r"(\d+)/\d+, backend (\w+)", log))
+        print(f"[tp cli] torchrun --standalone --nproc_per_node "
+              f"{TP_CLI_PROCS} train_torch.py --tp {TP} {name}: exit 0 in "
+              f"{wall:.1f} s; ranks and backends {said}; its log: "
+              f"{written.count(tp_line)} x {tp_line!r}, "
+              f"{written.count('complete. Avg Loss')} epoch lines, "
+              f"{written.count('Validation |')} validations", flush=True)
+        check(said == [(str(r), "gloo") for r in range(TP_CLI_PROCS)],
+              f"tp cli {name}: {said}")
+        check(written.count(tp_line) == 1, f"tp cli {name}: log "
+              f"{written[-2000:]}")
+        want = 2 if name == "unbroken" else 1
+        check(written.count("complete. Avg Loss") == want
+              and written.count("Validation |") == want,
+              f"tp cli {name}: {written[-2000:]}")
+    a = load_file(os.path.join(tmp, "unbroken", "tacotron2_epoch_2",
+                               "train_state.pt"))
+    b = load_file(os.path.join(tmp, "resumed", "tacotron2_epoch_2",
+                               "train_state.pt"))
+    same = {
+        "weights and statistics": all(torch.equal(a["model"][k], b["model"][k])
+                                      for k in a["model"]),
+        "moments": all(torch.equal(a["opt_state"][m][k], b["opt_state"][m][k])
+                       for m in ("mu", "nu") for k in a["opt_state"][m]),
+        "counters": (a["step"], a["loss_step"], a["opt_state"]["count"])
+        == (b["step"], b["loss_step"], b["opt_state"]["count"]),
+        "generator": torch.equal(a["generator"], b["generator"])}
+    model = load_model(os.path.join(tmp, "unbroken", "tacotron2_epoch_2"),
+                       device=dev)
+    loaded = all(torch.equal(t.cpu(), a["model"][k])
+                 for k, t in model.state_dict().items())
+    print(f"[tp cli] two epochs unbroken ({a['step']} steps) vs the second "
+          f"resumed from the first's checkpoint, both on {TP_CLI_PROCS} "
+          f"ranks of data {TP_CLI_PROCS // TP} x model {TP}, bit for bit: "
+          f"{same}; the checkpoint (unsharded layout, "
+          f"{tuple(a['model']['decoder.attention_lstm.weight_ih'].shape)} "
+          f"attention-LSTM weights) loaded by load_model in one process, "
+          f"equal: {loaded}", flush=True)
+    check(all(same.values()) and a["step"] == 6, f"tp cli resumed run "
+          f"differs: {same}, {a['step']} steps")
+    check(loaded, "tp cli: load_model's weights differ from the checkpoint")
+
+
+def tp_serving(dev) -> dict:
+    """Phase 20 (c): ``ShardedSynthesizer(tensor_parallel=True)`` on
+    ``r4_synth_bf16`` (fp32) and the four smoke sentences, over a 1x2 and a
+    2x2 grid of ``cuda:0``: frame ends equal to the unsharded
+    synthesizer's, each data shard's decode against the unsharded model's
+    step loop on the same rows (phase 19's sharded limits), the tail on
+    every decode step, the conv kernel on eight layers a data shard, the
+    decode kernel never.  Returns the launches of both layouts."""
+    from tacotron2_torch.config import Config
+    from tacotron2_torch.infer import ShardedSynthesizer
+    from tacotron2_torch.infer.fused import synthesize_wav
+    from tacotron2_torch.infer.synthesize import load_model
+    from tacotron2_torch.models.decoder import decoder_infer, decoder_infer_steps
+    from tacotron2_torch.ops.attention_kernel import attention_tail
+    from tacotron2_torch.ops.convbn_kernel import conv_bn_act
+    from tacotron2_torch.ops.decoder_megakernel import decoder_infer_mega
+    from tacotron2_torch.parallel import make_mesh
+    from tacotron2_torch.text import pad_sequences, text_to_sequence
+
+    model = load_model(TRAINED_CKPT, device=dev)
+    hop = Config().audio.hop_length
+    texts = list(SMOKE_TEXTS)
+    n = len(texts)
+    tokens, lengths = pad_sequences([text_to_sequence(t) for t in texts],
+                                    pad_multiple=16)
+    unsharded = synthesize_wav(model, texts, max_steps=TRAINED_MAX_STEPS,
+                               gl_iters=DP_GL_ITERS, device=dev)
+    ends_1 = [len(w) // hop for w in unsharded]
+    launches = {"attention_tail": 0, "conv_bn_act": 0,
+                "decoder_infer_mega": 0}
+    for n_data in (1, 2):
+        mesh = make_mesh(n_data, TP, ["cuda:0"] * (n_data * TP))
+        with ShardedSynthesizer(model, mesh, gl_iters=DP_GL_ITERS,
+                                tensor_parallel=True) as synth:
+            for kernel in (attention_tail, conv_bn_act, decoder_infer_mega):
+                kernel.launches = 0
+            wavs = synth(texts, max_steps=TRAINED_MAX_STEPS)
+            got = {k.__name__: k.launches for k in
+                   (attention_tail, conv_bn_act, decoder_infer_mega)}
+            for k, v in got.items():
+                launches[k] += v
+            ends = [len(w) // hop for w in wavs]
+            per = n // n_data
+            want_tail = sum(max(ends[d * per:(d + 1) * per]) + 1
+                            for d in range(n_data))
+            err = max(float(np.abs(w - r).max()) for w, r in
+                      zip(wavs, unsharded))
+            walls = {"unsharded": [], "sharded": []}
+            for name in ("unsharded", "sharded", "sharded", "unsharded"):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if name == "sharded":
+                    synth(texts, max_steps=TRAINED_MAX_STEPS)
+                else:
+                    synthesize_wav(model, texts, max_steps=TRAINED_MAX_STEPS,
+                                   gl_iters=DP_GL_ITERS, device=dev)
+                walls[name].append((time.perf_counter() - t1) * 1e3)
+            # each data shard's decode (its replica: shards, step loop)
+            # against the unsharded model's step loop on the same rows
+            errs = {k: 0.0 for k in DEC_OUTPUTS}
+            stops = []
+            for d, replica in enumerate(synth.replicas):
+                rows = slice(d * per, (d + 1) * per)
+                k_out = trained_decode(replica, decoder_infer, tokens[rows],
+                                       lengths[rows], dev)
+                p_out = trained_decode(model, decoder_infer_steps,
+                                       tokens[rows], lengths[rows], dev)
+                stops.append((k_out[4].tolist(), p_out[4].tolist()))
+                check(k_out[4].tolist() == p_out[4].tolist(),
+                      f"tp shard {d}: frame ends {stops[-1]}")
+                end = int(p_out[4].max())
+                tol = {"mels": DP_DEC_CAP, "gates": DP_DEC_CAP,
+                       "aligns": DEC_ALIGN_SHARE[torch.float32] * float(
+                           p_out[2][:, :end].abs().mean())}
+                for name, g_, r_ in zip(DEC_OUTPUTS, k_out[:3], p_out[:3]):
+                    e = float((g_[:, :end] - r_[:, :end]).abs().max())
+                    errs[name] = max(errs[name], e)
+                    check(e <= tol[name], f"tp shard {d}: decode {name} "
+                          f"error {e} > {tol[name]}")
+        print(f"[tp sharded {n_data}x{TP}] ShardedSynthesizer("
+              f"tensor_parallel=True) over {n_data * TP} x cuda:0 (fp32 "
+              f"r4_synth_bf16, {DP_GL_ITERS} Griffin-Lim rounds): frame ends "
+              f"{ends} vs unsharded {ends_1}; wav max err {err:.2e} (not "
+              f"held: the unsharded path decodes by the kernel); each data "
+              f"shard's decode vs the unsharded step loop on its rows: ends "
+              f"{stops}, " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol mels/gates {DP_DEC_CAP:g}, aligns "
+              f"{DEC_ALIGN_SHARE[torch.float32]:g} of their mean); launches "
+              f"{got} (attention_tail expected {want_tail}: every decode "
+              f"step); wall ms sharded {[round(x, 1) for x in walls['sharded']]}"
+              f", unsharded {[round(x, 1) for x in walls['unsharded']]} (one "
+              f"card)", flush=True)
+        check(ends == ends_1, f"tp sharded frame ends {ends} vs {ends_1}")
+        check(got == {"attention_tail": want_tail, "conv_bn_act": 8 * n_data,
+                      "decoder_infer_mega": 0}, f"tp sharded launches {got}")
+    return launches
+
+
+def tensor_parallel_phase(dev, smi: str, reference) -> dict:
+    """Phase 20.  Returns each kernel's launches on the tensor-parallel
+    training path (``tp_path_launches``, each rank's: the train steps'
+    forwards and an ``eval_step``) and serving path
+    (``tp_sharded_path_launches``)."""
+    import shutil
+    root = os.path.dirname(os.path.abspath(__file__))
+    phase0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    try:
+        for sub in ("train", "cli"):
+            os.makedirs(os.path.join(tmp, sub))
+        train_out = tp_training(dev, root, os.path.join(tmp, "train"),
+                                reference)
+        torch.cuda.empty_cache()
+        tp_cli(dev, root, os.path.join(tmp, "cli"))
+        sharded = tp_serving(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[tp] phase 20 wall {time.perf_counter() - phase0:.1f} s ({smi})",
+          flush=True)
+    return {"attention_tail": {"tp_path_launches": train_out["tail"],
+                               "tp_sharded_path_launches":
+                                   sharded["attention_tail"]},
+            "conv_bn_act": {"tp_path_launches": train_out["conv"],
+                            "tp_sharded_path_launches":
+                                sharded["conv_bn_act"]},
+            "decoder_infer_mega": {"tp_path_launches": train_out["infer"],
+                                   "tp_sharded_path_launches":
+                                       sharded["decoder_infer_mega"]},
+            "decoder_fwd_train_mega": {"tp_path_launches": train_out["fwd"]},
+            "decoder_bwd_chain_mega": {"tp_path_launches": train_out["bwd"]}}
 
 
 def main() -> int:
@@ -4188,14 +4700,21 @@ def main() -> int:
     odd_widths_phase(dev)
     # 18. the data path on the trained multi-speaker checkpoint
     quality = data_path_phase(dev, smi)
-    # 19. data parallelism: two ranks and two replicas on the one card
-    parallel = data_parallel_phase(dev, smi)
+    # 19. data parallelism: two ranks and two replicas on the one card,
+    # against one process (also phase 20's reference)
+    t1 = time.perf_counter()
+    ref, lr = dp_reference(dev)
+    reference = (ref, lr, time.perf_counter() - t1)
+    torch.cuda.empty_cache()
+    parallel = data_parallel_phase(dev, smi, reference)
+    # 20. tensor parallelism: two and four ranks, two and four shards
+    tensor = tensor_parallel_phase(dev, smi, reference)
     kernels += train_kernels + [conv_kernel]
     for entry in kernels:
         if entry["name"] in serve_launches:
             entry["serve_path_launches"] = serve_launches[entry["name"]]
-        entry.update(quality.get(entry["name"], {}))
-        entry.update(parallel.get(entry["name"], {}))
+        for phase in (quality, parallel, tensor):
+            entry.update(phase.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4206,4 +4725,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6]))
     sys.exit(main())

@@ -15,8 +15,19 @@ megakernel stops per shard (``tacotron2_tpu/ops/decoder_megakernel.py:
 
 Replicas may share a card (``make_mesh(devices=["cuda:0", "cuda:0"])``):
 that runs the split, the padding, the trim and the per-shard launches, and
-gives no speed-up, as the shards then queue on one card.  Tensor
-parallelism (``tensor_parallel=True``) is not ported.
+gives no speed-up, as the shards then queue on one card.
+
+``tensor_parallel=True`` over a ``make_mesh(n_data, n_model, devices)``
+grid (``n_model`` at least 2) shards the decoder's LSTM gates and output
+heads of each data shard's replica over its row of devices, in the JAX
+package's layout (``parallel/mesh.py::param_shardings``): device ``(d,
+0)``, the lead, holds everything replicated and shard 0, device ``(d, m)``
+shard m, each moved there once.  The decode then runs the step loop (the
+decode kernel holds those weights whole), its products on their shards,
+the gate slices gathered and the head partials summed on the lead
+(``parallel/model_axis.py::DeviceAxis``); the attention tail's kernel runs
+on every step and the conv kernel on every encoder and postnet layer, as
+without tensor parallelism.
 """
 
 from __future__ import annotations
@@ -31,7 +42,8 @@ import torch
 from ..config import Config
 from ..dsp import griffinlim
 from ..models.tacotron2 import Tacotron2, make_speaker_ids
-from ..parallel.mesh import TP_LEFT_OUT, Mesh
+from ..parallel.mesh import Mesh, param_shardings, shard_of
+from ..parallel.model_axis import DeviceAxis
 from ..text import pad_sequences, text_to_sequence
 from .fused import _fetch, synthesize_wav_fused, synthesize_wav_fused_hifigan
 
@@ -53,14 +65,39 @@ def _on(device: torch.device):
             else contextlib.nullcontext())
 
 
+@torch.no_grad()
+def _tp_replica(model: Tacotron2, devices: Sequence[torch.device]
+                ) -> Tacotron2:
+    """A replica of ``model`` on ``devices[0]`` whose decoder holds shard
+    0 of each tensor-parallel tensor, with a model axis holding shard m on
+    ``devices[m]``."""
+    n = len(devices)
+    replica = copy.deepcopy(model)
+    peers = {}
+    for name, spec in param_shardings(model, True).items():
+        if not spec:
+            continue
+        whole = model.get_parameter(name).data
+        replica.get_parameter(name).data = shard_of(whole, spec, 0, n, name)
+        peers[name] = [shard_of(whole, spec, m, n, name).to(devices[m])
+                       for m in range(1, n)]
+    replica = replica.to(devices[0])
+    replica.decoder.model_axis = DeviceAxis(devices, peers)
+    return replica
+
+
 class ShardedSynthesizer:
-    """Batched texts -> waveforms, data-parallel over device replicas.
+    """Batched texts -> waveforms, data-parallel over device replicas, and
+    with ``tensor_parallel`` each replica's decoder sharded over its row
+    of the grid.
 
     Usage::
 
         mesh = make_mesh(devices=["cuda:0", "cuda:1"])
         with ShardedSynthesizer(model, mesh, cfg) as synth:
             wavs = synth(["First text.", "Second text.", ...])
+        grid = make_mesh(n_data=2, n_model=2, devices=[...])  # 4 devices
+        synth = ShardedSynthesizer(model, grid, cfg, tensor_parallel=True)
 
     ``hifigan_params`` (a ``models/hifigan.py::HiFiGAN``) switches the
     vocoder from Griffin-Lim to HiFi-GAN.  Batches whose size is not a
@@ -74,18 +111,20 @@ class ShardedSynthesizer:
         if "data" not in getattr(mesh, "axis_names", ()):
             raise ValueError(f"mesh must have a 'data' axis, has "
                              f"{getattr(mesh, 'axis_names', mesh)}")
-        if tensor_parallel:
+        if tensor_parallel and mesh.shape.get("model", 1) < 2:
             raise ValueError("tensor_parallel needs a 'model' mesh axis "
-                             f"wider than 1, mesh: {mesh.shape}; "
-                             + TP_LEFT_OUT)
+                             f"wider than 1, mesh: {mesh.shape}")
         self.cfg = cfg or Config()
         self.mesh = mesh
         self.n_data = mesh.shape["data"]
         self.gl_iters = gl_iters
-        self.replicas = [copy.deepcopy(model).to(d) for d in mesh.devices]
+        self.leads = [row[0] for row in mesh.devices]
+        self.replicas = [_tp_replica(model, row) if tensor_parallel
+                         else copy.deepcopy(model).to(row[0])
+                         for row in mesh.devices]
         self.vocoders = [None if hifigan_params is None
                          else copy.deepcopy(hifigan_params).to(d)
-                         for d in mesh.devices]
+                         for d in self.leads]
 
     def close(self):
         """Drop the replicas.  Idempotent."""
@@ -132,7 +171,7 @@ class ShardedSynthesizer:
         # queue every shard before fetching any result
         outs = []
         for i, (dev, model, voc) in enumerate(zip(
-                self.mesh.devices, self.replicas, self.vocoders)):
+                self.leads, self.replicas, self.vocoders)):
             rows = slice(i * per, (i + 1) * per)
             args = (tokens[rows], lengths[rows],
                     None if spk is None else spk[rows])

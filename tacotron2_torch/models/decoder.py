@@ -9,10 +9,21 @@ kernel (``ops/decoder_megakernel.py``), otherwise as the step loop here,
 whose attention tail is a CUDA kernel.  :func:`decoder_teacher_forced`
 is the training forward: all frames through the prenet at once, then
 ``ops/decoder_bptt.py::decoder_scan_bptt``.
+
+Under tensor parallelism (``Decoder.model_axis`` set by
+``parallel/mesh.py`` or ``infer/sharded.py``) the two LSTM cells and the
+fused heads run on their shards (``models/layers.py``), and both decodes
+take the step loop with the CUDA attention tail on every step: the decode
+kernel and the teacher-forced kernel pair hold the very weights that are
+sharded, whole, as the JAX package's kernels do, which it turns off on a
+mesh with a ``model`` axis (``tacotron2_tpu/ops/decoder_megakernel.py::
+megakernel_enabled``, ``decoder_train_kernel.py::
+train_megakernel_enabled``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -21,7 +32,14 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.attention_kernel import attention_tail
 from .attention import Attention, TailFn, attention_step, precompute_memory
-from .layers import Linear, LSTMCell, dropout, linear
+from ..parallel.model_axis import LOCAL
+from .layers import Linear, LSTMCell, dropout, linear_on_axis, lstm_cell_on_axis
+
+ATTENTION_LSTM = tuple(f"decoder.attention_lstm.{n}" for n in
+                       ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+DECODER_LSTM = tuple(n.replace("attention_lstm", "decoder_lstm")
+                     for n in ATTENTION_LSTM)
+HEADS = ("decoder.linear_projection.weight", "decoder.gate_layer.weight")
 
 
 class DecoderCarry(NamedTuple):
@@ -47,6 +65,9 @@ class Decoder(nn.Module):
         self.decoder_lstm = LSTMCell(h + e, h)
         self.linear_projection = Linear(h + e, cfg.n_mels)
         self.gate_layer = Linear(h + e, 1)
+        # the axis the LSTMs' gates and the heads' inputs are split over;
+        # parallel/mesh.py and infer/sharded.py set a sharded one
+        self.model_axis = LOCAL
 
 
 def prenet_apply(dec: Decoder, x: torch.Tensor, train: bool = False,
@@ -86,24 +107,52 @@ def decode_step(dec: Decoder, prenet_out: torch.Tensor, carry: DecoderCarry,
     Returns (new_carry, (mel (B, n_mels), gate_logit (B,), attn (B, T_enc))).
     """
     cfg = dec.cfg
+    axis = dec.model_axis
     mka, mkd = step_masks if train else (None, None)
     attn_in = torch.cat([prenet_out, carry.context], dim=-1)
-    h_att, c_att = dec.attention_lstm(attn_in, carry.h_att, carry.c_att)
+    h_att, c_att = lstm_cell_on_axis(dec.attention_lstm, ATTENTION_LSTM, axis,
+                                     attn_in, carry.h_att, carry.c_att)
     h_att = dropout(h_att, cfg.p_attention_dropout, train, mask=mka)
     context, attn, cum = attention_step(
         dec.attention, h_att, memory, processed_memory, carry.prev_attn,
         carry.cum_attn, mask, tail)
     dec_in = torch.cat([h_att, context], dim=-1)
-    h_dec, c_dec = dec.decoder_lstm(dec_in, carry.h_dec, carry.c_dec)
+    h_dec, c_dec = lstm_cell_on_axis(dec.decoder_lstm, DECODER_LSTM, axis,
+                                     dec_in, carry.h_dec, carry.c_dec)
     h_dec = dropout(h_dec, cfg.p_decoder_dropout, train, mask=mkd)
     proj_in = torch.cat([h_dec, context], dim=-1)
     # fused output heads: one (B, 1536) x (1536, n_mels + 1) product
-    w_heads = torch.cat([dec.linear_projection.weight,
-                         dec.gate_layer.weight], dim=0)
     b_heads = torch.cat([dec.linear_projection.bias, dec.gate_layer.bias])
-    out = linear(proj_in, w_heads, b_heads)
+    out = linear_on_axis((dec.linear_projection.weight,
+                          dec.gate_layer.weight), HEADS, axis, proj_in,
+                         b_heads)
     new_carry = DecoderCarry(h_att, c_att, h_dec, c_dec, context, attn, cum)
     return new_carry, (out[:, :-1], out[:, -1], attn)
+
+
+@contextlib.contextmanager
+def _standing_in(module: nn.Module, tensors: Dict[str, torch.Tensor]):
+    """``tensors`` stand in for ``module``'s parameters of those names
+    within, as ``torch.func.functional_call`` puts them."""
+    saved = []
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner)
+        saved.append((sub, leaf, sub._parameters[leaf]))
+        sub._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for sub, leaf, t in saved:
+            sub._parameters[leaf] = t
+
+
+def _step_weights(dec: Decoder) -> Dict[str, torch.Tensor]:
+    """The low-precision tensors every decoder step reads (the prenet and
+    the memory layer run once, before the steps)."""
+    return {n: t for n, t in dec.named_parameters()
+            if t.dtype != torch.float32
+            and not n.startswith(("prenet.", "attention.memory_layer."))}
 
 
 def decoder_teacher_forced(dec: Decoder, memory: torch.Tensor,
@@ -127,9 +176,9 @@ def decoder_teacher_forced(dec: Decoder, memory: torch.Tensor,
         (mels (B, T_dec, n_mels), gate_logits (B, T_dec),
          alignments (B, T_dec, T_enc))
 
-    Train mode with ``cfg.decoder_split_bptt`` runs
-    ``decoder_scan_bptt`` (the kernel pair on CUDA tensors); otherwise the
-    plain step loop, differentiated by ``torch.autograd``.
+    Train mode with ``cfg.decoder_split_bptt`` on an unsharded decoder
+    runs ``decoder_scan_bptt`` (the kernel pair on CUDA tensors);
+    otherwise the plain step loop, differentiated by ``torch.autograd``.
     """
     from ..ops.decoder_bptt import (core_params, decoder_scan_bptt,
                                     step_dropout_masks)
@@ -155,7 +204,7 @@ def decoder_teacher_forced(dec: Decoder, memory: torch.Tensor,
         else:
             mka_s, mkd_s = step_dropout_masks(cfg, t_dec, b, generator,
                                               memory.device)
-        if cfg.decoder_split_bptt:
+        if cfg.decoder_split_bptt and not dec.model_axis.sharded:
             mels, gates, aligns = decoder_scan_bptt(
                 cfg, core_params(dec), prenet_out, memory, processed_memory,
                 mask, mka_s, mkd_s)
@@ -163,13 +212,21 @@ def decoder_teacher_forced(dec: Decoder, memory: torch.Tensor,
                     aligns.transpose(0, 1))
 
     carry = init_carry(b, t_enc, cfg, memory.device)
+    # Under autograd a weight that every step reads sums its gradient over
+    # the steps in its own dtype, and a bf16 sum of T_dec terms loses their
+    # low bits (the split BPTT sums its weight gradients in fp32).  So each
+    # step reads its own cast of one fp32 copy, whose gradient sums in fp32.
+    low = _step_weights(dec) if train else {}
+    copies = {n: t.float() for n, t in low.items()}
     outs = []
     for t in range(t_dec):
         step_masks = (None if mka_s is None else mka_s[t],
                       None if mkd_s is None else mkd_s[t])
-        carry, out = decode_step(dec, prenet_out[t], carry, memory,
-                                 processed_memory, mask, train=train,
-                                 step_masks=step_masks)
+        with _standing_in(dec, {n: c.to(low[n].dtype)
+                                for n, c in copies.items()}):
+            carry, out = decode_step(dec, prenet_out[t], carry, memory,
+                                     processed_memory, mask, train=train,
+                                     step_masks=step_masks)
         outs.append(out)
     mels, gates, aligns = (torch.stack(x, dim=1) for x in zip(*outs))
     return mels, gates, aligns
@@ -199,7 +256,8 @@ def decoder_infer(dec: Decoder, memory: torch.Tensor, max_steps: int,
         raise ValueError(f"stop_mode must be 'any' or 'all', got {stop_mode}")
     args = (dec, memory, max_steps, gate_threshold, drop_first_frame, mask,
             stop_mode, forced_stop_at)
-    if dec.cfg.decoder_megakernel and memory.is_cuda:
+    if dec.cfg.decoder_megakernel and memory.is_cuda \
+            and not dec.model_axis.sharded:
         from ..ops.decoder_megakernel import decoder_infer_mega
         return decoder_infer_mega(*args)
     return decoder_infer_steps(*args, tail=attention_tail)

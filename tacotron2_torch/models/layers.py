@@ -8,11 +8,18 @@ bf16.  The LSTM cell state stays fp32.  Weight layouts are PyTorch's:
 linear ``(out, in)``, LSTM ``(4H, in)`` in gate order i, f, g, o, conv
 ``(out, in, k)``; ``utils/weights.py`` transposes the JAX package's
 ``(in, out)`` layouts on load.
+
+:func:`lstm_cell_on_axis` and :func:`linear_on_axis` run the decoder's two
+LSTM cells and its fused heads over the decoder's model axis
+(``parallel/model_axis.py``): under tensor parallelism (``parallel/
+mesh.py``) each shard multiplies by its own weights only and the axis
+gathers the gate slices or sums the partial head products; on an
+unsharded decoder the axis is one shard and the four are identities.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -160,10 +167,16 @@ class LSTMCell(nn.Module):
 
     def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        i, f, g, o = self.gates(x, h).chunk(4, dim=-1)
-        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h_new = torch.sigmoid(o) * torch.tanh(c_new)
-        return h_new, c_new
+        return lstm_update(self.gates(x, h), c)
+
+
+def lstm_update(gates: torch.Tensor, c: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cell's new (h, c) from its pre-activation gates (B, 4H)."""
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
 
 
 class BiLSTM(nn.Module):
@@ -192,3 +205,31 @@ class BiLSTM(nn.Module):
         """(B, T, in) -> (B, T, 2H)."""
         return torch.cat([self._scan(self.fwd, xs, False),
                           self._scan(self.bwd, xs, True)], dim=-1)
+
+
+def lstm_cell_on_axis(cell: LSTMCell, names: Sequence[str], axis,
+                      x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:class:`LSTMCell`'s step with its four tensors split on the 4H gate
+    axis over ``axis``: each shard's gate slice from its own weights, the
+    slices gathered in model order (i, f, g, o whole again), the cell
+    replicated.  ``names`` are the cell's four sharded tensors
+    (``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh``).  On an
+    unsharded axis this is ``cell(x, h, c)``, operation for operation."""
+    local = (cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh)
+    parts = [linear(xm, wi) + linear(hm, wh) + bi.float() + bh.float()
+             for (wi, wh, bi, bh), (xm, hm) in zip(axis.shards(names, local),
+                                                   axis.copy_in(x, h))]
+    return lstm_update(axis.gather_out(parts), c)
+
+
+def linear_on_axis(weights: Tuple[torch.Tensor, ...], names: Sequence[str],
+                   axis, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``x @ cat(weights).T + bias`` with the weights (``(out_i, in)``
+    each, stacked on ``out``) split on their input axis over ``axis``:
+    each shard's partial product on its slice of ``x``, the partials
+    summed, then the replicated bias.  On an unsharded axis this is
+    ``linear(x, cat(weights), bias)``, operation for operation."""
+    parts = [linear(xm, torch.cat(ws, dim=0))
+             for ws, xm in zip(axis.shards(names, weights), axis.split_in(x))]
+    return axis.reduce_out(parts) + bias.float()

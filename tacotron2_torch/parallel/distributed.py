@@ -12,6 +12,12 @@ gloo when ranks share a card (two ranks on one card: NCCL refuses two
 ranks on one device) or run on the CPU.  Under gloo the kernels still run
 on the card; only the collectives go through the host.
 
+Tensor parallelism (``--tp N``): :func:`init_tensor_parallel` lays the
+ranks out on a ``data`` x ``model`` grid, rank ``r`` at ``(r // N, r % N)``
+(the JAX package's ``make_mesh`` reshapes its devices the same way), and
+makes the two subgroups every collective of ``parallel/collectives.py``
+needs.
+
 The JAX package's ``global_batch_from_local`` has no counterpart: PyTorch
 has no global array.  Each rank keeps only its own rows, and every
 reduction over the batch that the JAX package gets global from GSPMD is
@@ -25,6 +31,8 @@ from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
+
+from .collectives import GridLayout, set_grid_layout, world_size
 
 
 def distributed_env_configured() -> bool:
@@ -91,3 +99,28 @@ def rank_device(device: Union[str, torch.device]) -> torch.device:
             or not torch.cuda.is_available():
         return device
     return torch.device("cuda", _local_rank() % torch.cuda.device_count())
+
+
+def init_tensor_parallel(tp: int) -> Optional[GridLayout]:
+    """Lay the group's ranks out on a ``data`` x ``model`` grid of width
+    ``tp`` along ``model`` and install it (``parallel/collectives.py``);
+    ``tp`` 1 goes back to data parallelism over every rank (returns None).
+    Every rank must call this with the same ``tp``: each makes every
+    subgroup, in the same order, as ``dist.new_group`` requires.  Raises
+    when ``tp`` does not divide the number of ranks."""
+    world = world_size()
+    if tp < 1 or world % tp:
+        raise ValueError(f"tensor-parallel width {tp} does not divide the "
+                         f"{world} ranks")
+    if tp == 1:
+        set_grid_layout(None)
+        return None
+    n_data, me = world // tp, dist.get_rank()
+    d, m = divmod(me, tp)
+    data_groups = [dist.new_group([dd * tp + mm for dd in range(n_data)])
+                   for mm in range(tp)]
+    model_groups = [dist.new_group([dd * tp + mm for mm in range(tp)])
+                    for dd in range(n_data)]
+    layout = GridLayout(n_data, tp, d, m, data_groups[m], model_groups[d])
+    set_grid_layout(layout)
+    return layout

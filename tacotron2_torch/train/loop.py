@@ -26,9 +26,21 @@ also drives several chips from one process; PyTorch runs one process per
 card, so without torchrun the port trains on the one device it is given,
 however many cards are visible.
 
-Where the port differs: tensor parallelism (``tensor_parallel`` above 1)
-is not ported and raises (ROADMAP A16-TP); decoder rematerialisation is
-an XLA policy with no counterpart.  A full checkpoint records the epochs
+Tensor parallelism (``tensor_parallel=N``, ``train_torch.py --tp N``
+under ``torchrun --nproc_per_node D*N``): the ranks form a ``data=D`` x
+``model=N`` grid (``parallel/distributed.py::init_tensor_parallel``),
+each rank keeps its shard of the decoder's LSTM gates and output heads
+and of their Adam moments (``parallel/mesh.py``), and the step is still
+the one a single process takes on the global batch, as GSPMD's is.  The
+global micro-batch stays ``batch_size`` times the number of processes, as
+in the JAX loop, so ``--tp`` changes where the products run and not the
+step: each data index loads ``batch_size * N`` rows, which its N model
+peers share.  A save gathers the shards (every rank takes part) and rank 0
+writes a checkpoint of the unsharded layout, which any ``--tp``, one
+process and ``load_model`` read; a resume re-shards it.
+
+Where the port differs: decoder rematerialisation is an XLA policy with
+no counterpart.  A full checkpoint records the epochs
 completed, and a run resumed from an epoch's or the best checkpoint
 starts at the next epoch with the data order an unbroken run would have
 had (:meth:`BatchLoader.skip_epochs`); the JAX loop stores the index of
@@ -52,10 +64,11 @@ from ..config import Config
 from ..data.dataset import BatchLoader, TextMelDataset, collate
 from ..dsp.wav import save_wav
 from ..models.tacotron2 import init_projection_bias, tacotron2_infer
-from ..parallel.collectives import (barrier, broadcast_object,
-                                    data_axis_size, local_only, rank)
-from ..parallel.distributed import initialize_distributed, rank_device
-from ..parallel.mesh import TP_LEFT_OUT, shard_train_state
+from ..parallel.collectives import (barrier, broadcast_object, local_only,
+                                    rank, world_rank, world_size)
+from ..parallel.distributed import (init_tensor_parallel,
+                                    initialize_distributed, rank_device)
+from ..parallel.mesh import gather_train_state, shard_train_state
 from ..text import sequence_to_text
 from ..utils.device import resolve_device
 from ..utils.logging import TrainingLogger
@@ -147,6 +160,25 @@ def export_debug_inference(state: TrainState, batch: Dict[str, np.ndarray],
     print(f"Paired metadata written: {pairs}")
 
 
+def tensor_parallel_grid(n_devices: int, tp: int,
+                         global_micro_batch: int) -> int:
+    """The ``data`` axis's width of a grid of ``n_devices`` with ``tp``
+    along ``model``; raises, in the JAX loop's words, when ``tp`` does not
+    divide the devices or the global micro-batch does not split over the
+    data axis (the port's loop hands it ``batch_size`` times the number of
+    processes, which always does)."""
+    if n_devices % tp:
+        raise RuntimeError(f"--tp {tp} does not divide the "
+                           f"{n_devices} visible devices")
+    n_data = n_devices // tp
+    if global_micro_batch % n_data:
+        raise RuntimeError(
+            f"global batch {global_micro_batch} not divisible by the "
+            f"data-axis width {n_data} (= {n_devices} devices / tp {tp}) — "
+            f"adjust --batch_size or --tp")
+    return n_data
+
+
 def train(metadata_path: str, checkpoint_dir: str, *,
           cfg: Optional[Config] = None, epochs: Optional[int] = None,
           batch_size: Optional[int] = None,
@@ -159,13 +191,10 @@ def train(metadata_path: str, checkpoint_dir: str, *,
           tensor_parallel: int = 1,
           keep_epoch_ckpts: Optional[int] = None,
           device: Union[str, torch.device] = "cuda") -> TrainState:
-    """Main training routine on ``device`` (under a data-parallel group,
-    this rank's card); the arguments are those of
+    """Main training routine on ``device`` (under a process group, this
+    rank's card); the arguments are those of
     ``tacotron2_tpu/train/loop.py::train`` without ``remat``.  Returns the
-    final state."""
-    if tensor_parallel != 1:
-        raise NotImplementedError(
-            f"tensor_parallel={tensor_parallel}: {TP_LEFT_OUT}")
+    final state (under tensor parallelism, this rank's shards)."""
     cfg = cfg or Config()
     if precision is not None:
         precision = {"bf16": "bfloat16", "fp32": "float32"}.get(precision,
@@ -183,7 +212,8 @@ def train(metadata_path: str, checkpoint_dir: str, *,
     # the process group first (a no-op without torchrun's WORLD_SIZE)
     initialize_distributed(
         backend="gloo" if torch.device(device).type == "cpu" else None)
-    world, is_lead = data_axis_size(), rank() == 0
+    world, is_lead = world_size(), world_rank() == 0
+    tp = max(1, tensor_parallel)
     device = resolve_device(rank_device(device))
 
     os.makedirs(checkpoint_dir, exist_ok=True)
@@ -228,6 +258,10 @@ def train(metadata_path: str, checkpoint_dir: str, *,
     projection_bias_done = bool(resume)
 
     if debug_overfit:
+        if tp > 1:
+            logger.log("NOTE: --tp ignored in --debug overfit mode "
+                       "(single-device diagnostic)")
+        init_tensor_parallel(1)
         if world == 1:
             return _debug_overfit(dataset, state, tx, cfg, checkpoint_dir,
                                   sigma_warmup, iters=tcfg.epochs * 20)
@@ -241,32 +275,41 @@ def train(metadata_path: str, checkpoint_dir: str, *,
         barrier()
         return state
 
-    # every rank starts from rank 0's state, bit for bit
-    state = shard_train_state(state)
-    if world > 1:
+    # the grid, then every rank from rank 0's state, bit for bit (under
+    # tensor parallelism, its shards of it)
+    global_micro_batch = tcfg.batch_size * world
+    n_data = tensor_parallel_grid(world, tp, global_micro_batch)
+    init_tensor_parallel(tp)
+    state = shard_train_state(state, tensor_parallel=tp > 1)
+    if tp > 1:
+        logger.log(f"SPMD mesh: data={n_data} x model={tp} (tensor "
+                   f"parallel), {world} processes, global micro-batch "
+                   f"{global_micro_batch}")
+    elif world > 1:
         logger.log(f"Data parallel: {world} devices, {world} processes, "
-                   f"global micro-batch {tcfg.batch_size * world}")
+                   f"global micro-batch {global_micro_batch}")
+    rows = global_micro_batch // n_data     # a data index's rows
 
     accum_steps = max(1, accum_steps)
     # with accumulation the loader draws accum_steps micro-batches at once
     # (one padded shape), taken one after another by train_step_accum
-    loader = BatchLoader(dataset, tcfg.batch_size * accum_steps,
+    loader = BatchLoader(dataset, rows * accum_steps,
                          seed=tcfg.seed,
                          text_pad_multiple=tcfg.text_pad_multiple,
                          mel_pad_multiple=tcfg.mel_pad_multiple,
-                         process_index=rank(), process_count=world)
+                         process_index=rank(), process_count=n_data)
     loader.skip_epochs(start_epoch)
     val_loader = None
     if val_metadata:
         # allow_empty: a val set smaller than the global batch skips
         # validation (validate() reports 'batches': 0)
         val_loader = BatchLoader(TextMelDataset(val_metadata),
-                                 tcfg.batch_size, shuffle=False,
+                                 rows, shuffle=False,
                                  seed=tcfg.seed,
                                  text_pad_multiple=tcfg.text_pad_multiple,
                                  mel_pad_multiple=tcfg.mel_pad_multiple,
                                  drop_last=False, allow_empty=True,
-                                 process_index=rank(), process_count=world)
+                                 process_index=rank(), process_count=n_data)
         logger.log(f"Loaded {len(val_loader.dataset)} validation samples.")
 
     timer = StepTimer(device=device)
@@ -355,12 +398,14 @@ def _save_best_effort(path: str, state: TrainState, epoch: int,
                       best_val_mel: float, logger) -> bool:
     """Save a cadence checkpoint; a failed save (a full disk, a quota) is
     logged and training goes on.  ``epoch`` is the epoch a resume starts
-    at.  Under a data-parallel group rank 0 writes and the others wait
-    for its outcome, which every rank returns."""
+    at.  Under a process group every rank gathers the shards (under tensor
+    parallelism), rank 0 writes and the others wait for its outcome, which
+    every rank returns."""
     ok = True
-    if rank() == 0:
+    whole = gather_train_state(state)
+    if world_rank() == 0:
         try:
-            save_checkpoint(path, state, epoch, best_val_mel)
+            save_checkpoint(path, whole, epoch, best_val_mel)
         except (OSError, RuntimeError) as e:
             logger.log(f"[WARN] checkpoint save failed for {path}: "
                        f"{type(e).__name__}: {e} — training continues")

@@ -17,17 +17,24 @@ Counterpart of ``tacotron2_tpu/train/optim.py``, which builds it from optax:
 
 A parameter that got no gradient counts as a zero gradient, as it does in
 the JAX package (its moments decay and it may still move).
+
+Under tensor parallelism a rank holds the gradients of its shards and of
+the replicated parameters; the clip's norm is the whole gradient's, as
+optax's ``clip_by_global_norm`` reads it on the global arrays: the shards'
+squares summed over the model group, plus the replicated parameters'
+squares counted once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, FrozenSet, Sequence
 
 import torch
 from torch import nn
 
 from ..config import TrainConfig
+from ..parallel.collectives import model_axis_sum
 
 ATTENTION_PREFIX = "decoder.attention."
 
@@ -66,10 +73,14 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, model: nn.Module, opt_state: Dict[str, object],
-               grads: Dict[str, torch.Tensor]) -> None:
+               grads: Dict[str, torch.Tensor],
+               sharded: FrozenSet[str] = frozenset()) -> None:
         """One optimizer step, in place on the parameters and on
         ``opt_state``.  ``grads`` maps parameter names to gradients; a
-        missing gradient is zero."""
+        missing gradient is zero.  ``sharded`` names the parameters this
+        rank holds a model-axis shard of (``parallel/mesh.py::
+        sharded_names``); their squares are summed over the model group
+        for the clip's norm."""
         names, params, gs = [], [], []
         for n, p in model.named_parameters():
             g = grads.get(n)
@@ -77,7 +88,14 @@ class Optimizer:
             params.append(p)
             gs.append(torch.zeros_like(p, dtype=torch.float32) if g is None
                       else g.float())
-        g_norm = torch.sqrt(sum(g.square().sum() for g in gs))
+        if sharded:
+            squares = [g.square().sum() for g in gs]
+            g_norm = torch.sqrt(
+                model_axis_sum(sum(q for n, q in zip(names, squares)
+                                   if n in sharded))
+                + sum(q for n, q in zip(names, squares) if n not in sharded))
+        else:
+            g_norm = torch.sqrt(sum(g.square().sum() for g in gs))
         within = g_norm < self.max_grad_norm
         count = int(opt_state["count"])
         n = count + 1

@@ -19,6 +19,15 @@ the ranks in one flat all-reduce before the clip, so every rank applies
 the same Adam step, and the dropout masks are drawn for the global batch
 from each rank's generator (identical on every rank) and cut to the
 rank's rows (:func:`global_dropout_masks`).
+
+Under tensor parallelism (``parallel/mesh.py``) "rank" reads "data index":
+model peers hold the same rows, draw the same masks from generators in the
+same state, and compute the same replicated values; each holds the
+gradients of its own shards, which the data-axis all-reduce sums with the
+same shard's on the other data indices, the replicated gradients are
+model index 0's on every peer (``parallel/collectives.py::
+all_reduce_gradients``), and the clip reads the whole gradient's norm
+(``train/optim.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from ..config import Config
 from ..models.tacotron2 import Tacotron2, tacotron2_forward
 from ..parallel.collectives import (all_reduce_gradients, data_axis_size,
                                     global_sums, is_distributed, rank)
+from ..parallel.mesh import sharded_names
 from .loss import LossOutput, tacotron2_loss
 from .optim import Optimizer
 from .state import TrainState
@@ -81,8 +91,8 @@ def _to_device(batch: Batch, device: torch.device) -> Batch:
 def global_dropout_masks(model: Tacotron2, batch: Batch,
                          generator: torch.Generator, use_postnet: bool
                          ) -> Dict[str, object]:
-    """This rank's rows of the keep-masks a single process would draw for
-    the whole global batch, drawn from ``generator`` in the forward's own
+    """This data index's rows of the keep-masks a single process would
+    draw for the whole global batch, drawn from ``generator`` in the forward's own
     order: the prenet's two layers (B, T_dec, prenet_dim), the attention-
     and decoder-LSTM states (T_dec, B, H), then each postnet layer
     (B, C, T_dec); none where a rate is 0."""
@@ -164,8 +174,10 @@ def train_step(state: TrainState, batch: Batch, *, cfg: Config,
     total, (losses, alignments) = _forward_loss(
         state.model, cfg, batch, state.generator, state.loss_step,
         use_postnet, sigma_warmup_steps, masks)
+    sharded = sharded_names(state.model)
     tx.update(state.model, state.opt_state,
-              all_reduce_gradients(_grads(state.model, total)))
+              all_reduce_gradients(_grads(state.model, total), sharded),
+              sharded)
     state.step += 1
     state.loss_step += 1
     return state, _detach(losses), alignments.detach()
@@ -190,9 +202,10 @@ def train_step_accum(state: TrainState, batch: Batch, *, cfg: Config,
         for n, g in _grads(state.model, total).items():
             acc[n] = acc[n] + g if n in acc else g
         state.loss_step += 1
-    all_reduce_gradients(acc)
+    sharded = sharded_names(state.model)
+    all_reduce_gradients(acc, sharded)
     tx.update(state.model, state.opt_state,
-              {n: g / accum_steps for n, g in acc.items()})
+              {n: g / accum_steps for n, g in acc.items()}, sharded)
     state.step += 1
     return state, _detach(losses), alignments.detach()
 

@@ -1,6 +1,7 @@
 """The reference implementation's PyTorch checkpoints.
 
-An own copy of ``params_from_torch_state_dict`` from
+An own copy of ``params_from_torch_state_dict`` and of its inverse
+``torch_state_dict_from_params`` from
 ``tacotron2_tpu/utils/torch_compat.py``: the reference's ``state_dict``
 (``encoder.convolutions.N.0.weight``, ``encoder.lstm.weight_ih_l0``, ...)
 becomes the JAX package's ``(params, state)`` tree of numpy arrays, which
@@ -103,6 +104,69 @@ def params_from_torch_state_dict(sd: Mapping[str, np.ndarray],
     params = {"encoder": enc_p, "decoder": dec_p, "postnet": post_p}
     state = {"encoder": enc_s, "postnet": post_s}
     return params, state
+
+
+def torch_state_dict_from_params(params: Dict[str, Any],
+                                 state: Dict[str, Any],
+                                 cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """(params, state) trees -> the reference's ``state_dict`` layout, the
+    inverse of :func:`params_from_torch_state_dict` (no speaker tables: the
+    reference has none)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def put_linear(prefix, p):
+        out[f"{prefix}.weight"] = _t(np.asarray(p["w"]))
+        if "b" in p:
+            out[f"{prefix}.bias"] = np.asarray(p["b"])
+
+    def put_conv(prefix, p):
+        out[f"{prefix}.weight"] = np.asarray(p["w"])
+        if "b" in p:
+            out[f"{prefix}.bias"] = np.asarray(p["b"])
+
+    def put_bn(prefix, p, s):
+        out[f"{prefix}.weight"] = np.asarray(p["scale"])
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+        out[f"{prefix}.running_mean"] = np.asarray(s["mean"])
+        out[f"{prefix}.running_var"] = np.asarray(s["var"])
+
+    def put_lstm(prefix, p, suffix=""):
+        out[f"{prefix}.weight_ih{suffix}"] = _t(np.asarray(p["wi"]))
+        out[f"{prefix}.weight_hh{suffix}"] = _t(np.asarray(p["wh"]))
+        out[f"{prefix}.bias_ih{suffix}"] = np.asarray(p["bi"])
+        out[f"{prefix}.bias_hh{suffix}"] = np.asarray(p["bh"])
+
+    enc_p, enc_s = params["encoder"], state["encoder"]
+    out["encoder.embedding.weight"] = np.asarray(enc_p["embedding"]["table"])
+    for i in range(cfg.encoder_n_convolutions):
+        put_conv(f"encoder.convolutions.{i}.0", enc_p["convs"][i])
+        put_bn(f"encoder.convolutions.{i}.1", enc_p["bn"][i],
+               enc_s["bn"][i])
+    put_lstm("encoder.lstm", enc_p["bilstm"]["fwd"], "_l0")
+    put_lstm("encoder.lstm", enc_p["bilstm"]["bwd"], "_l0_reverse")
+
+    dec = params["decoder"]
+    put_linear("decoder.prenet.layers.0", dec["prenet"][0])
+    put_linear("decoder.prenet.layers.1", dec["prenet"][1])
+    att = dec["attention"]
+    put_linear("decoder.attention.query_layer", att["query"])
+    put_linear("decoder.attention.memory_layer", att["memory"])
+    put_conv("decoder.attention.location_conv", att["location_conv"])
+    put_linear("decoder.attention.location_dense", att["location_dense"])
+    put_linear("decoder.attention.v", att["v"])
+    out["decoder.attention.energy_scale"] = np.asarray(
+        att["energy_scale"]).reshape(())
+    put_lstm("decoder.attention_lstm", dec["attn_lstm"])
+    put_lstm("decoder.decoder_lstm", dec["dec_lstm"])
+    put_linear("decoder.linear_projection", dec["proj"])
+    put_linear("decoder.gate_layer", dec["gate"])
+
+    post_p, post_s = params["postnet"], state["postnet"]
+    for i in range(cfg.postnet_n_convolutions):
+        put_conv(f"postnet.convolutions.{i}.0", post_p["convs"][i])
+        put_bn(f"postnet.convolutions.{i}.1", post_p["bn"][i],
+               post_s["bn"][i])
+    return out
 
 
 def is_reference_state_dict(sd: Mapping[str, Any]) -> bool:

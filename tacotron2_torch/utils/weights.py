@@ -52,10 +52,10 @@ def _bn(jp: Path, sp: Path, tn: str):
     yield sp + ("var",), tn + ".running_var", False
 
 
-def _pairs(model: Tacotron2) -> Iterator[Tuple[Path, str, bool]]:
-    """(JAX path, port state_dict key, transpose) for every tensor; paths
-    start with "params" or "state"."""
-    cfg = model.cfg
+def param_pairs(cfg) -> Iterator[Tuple[Path, str, bool]]:
+    """(JAX path, port state_dict key, transpose) for every tensor of a
+    model of ``cfg`` (a ``ModelConfig``); paths start with "params" or
+    "state"."""
     p, s = ("params",), ("state",)
     enc = p + ("encoder",)
     yield enc + ("embedding", "table"), "encoder.embedding.weight", False
@@ -107,7 +107,7 @@ def load_jax_params(model: Tacotron2, params: Dict[str, Any],
     trees = {"params": params, "state": state}
     sd = model.state_dict()
     n = 0
-    for path, key, transpose in _pairs(model):
+    for path, key, transpose in param_pairs(model.cfg):
         a = np.asarray(_get(trees[path[0]], path[1:])).astype(np.float32)
         if transpose:
             a = a.T
@@ -147,7 +147,7 @@ def export_jax_grads(model: Tacotron2,
     each parameter's ``.grad`` is read.  A missing gradient is zero."""
     named = dict(model.named_parameters())
     tree: Dict[str, Any] = {}
-    for path, key, transpose in _pairs(model):
+    for path, key, transpose in param_pairs(model.cfg):
         if path[0] != "params":
             continue
         g = named[key].grad if grads is None else grads.get(key)
@@ -163,7 +163,7 @@ def export_jax_params(model: Tacotron2
     package's ``(params, state)`` with fp32 numpy leaves."""
     trees: Dict[str, Any] = {"params": {}, "state": {}}
     sd = model.state_dict()
-    for path, key, transpose in _pairs(model):
+    for path, key, transpose in param_pairs(model.cfg):
         a = sd[key].detach().float().cpu().numpy()
         _set(trees, path, (a.T if transpose else a).copy())
     return _lists(trees["params"]), _lists(trees["state"])

@@ -141,9 +141,9 @@ def test_train_matches_jax(corpus, orbax_params, tmp_path, monkeypatch):
     updates = []
     plain_update = Optimizer.update
 
-    def update(self, model, opt_state, grads):
+    def update(self, model, opt_state, grads, *sharded):
         updates.append({n: g.detach().clone() for n, g in grads.items()})
-        return plain_update(self, model, opt_state, grads)
+        return plain_update(self, model, opt_state, grads, *sharded)
 
     monkeypatch.setattr(Optimizer, "update", update)
     recorded = {"jax": [], "port": []}
@@ -378,9 +378,16 @@ def test_debug_overfit_exports(corpus, tmp_path):
 
 
 def test_tensor_parallel_raises(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="A16"):
-        port_loop.train(corpus, str(tmp_path), tensor_parallel=2,
+    """The JAX loop's two errors (``tests/test_parallel.py::
+    test_tp_validation_errors``): a tensor-parallel width that does not
+    divide the devices (one process here), and a global batch the data
+    axis does not split (8 devices, tp 2, batch 6, as the JAX test)."""
+    with pytest.raises(RuntimeError, match="does not divide"):
+        port_loop.train(corpus, str(tmp_path), tensor_parallel=3,
                         device="cpu")
+    with pytest.raises(RuntimeError, match="not divisible by the data-axis"):
+        port_loop.tensor_parallel_grid(8, 2, 6)
+    assert port_loop.tensor_parallel_grid(8, 2, 8) == 4
 
 
 @pytest.mark.parametrize("argv", [
@@ -390,6 +397,7 @@ def test_tensor_parallel_raises(corpus, tmp_path):
     ["meta.csv", "ckpt", "--val_metadata", "val.csv", "--resume", "r",
      "--postnet_freeze_steps", "0", "--accum_steps", "2",
      "--keep_epoch_ckpts", "0", "--precision", "bf16", "--tp", "1"],
+    ["meta.csv", "ckpt", "--batch_size", "4", "--tp", "2"],
 ])
 def test_cli_flags_match_train_py(argv, monkeypatch):
     """``train_torch.py``'s flags give the port's ``train`` the arguments

@@ -602,7 +602,8 @@ def test_debug_runs_on_rank_0_alone(dp):
 
 def test_single_process_helpers(monkeypatch):
     """Without torchrun's variables ``initialize_distributed()`` does
-    nothing; the mesh and batch helpers; tensor parallelism raises."""
+    nothing; the mesh and batch helpers: a data mesh, and a 2x2 grid in the
+    JAX package's device order."""
     for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
     assert initialize_distributed() is False
@@ -610,8 +611,10 @@ def test_single_process_helpers(monkeypatch):
     assert rank_device("cpu") == torch.device("cpu")
     mesh = make_mesh(devices=["cpu"] * 3, n_data=2)
     assert mesh.shape == {"data": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="A16-TP"):
-        make_mesh(devices=["cpu"] * 2, n_model=2)
+    grid = make_mesh(n_model=2, devices=[f"cpu:{i}" for i in range(5)])
+    assert grid.shape == {"data": 2, "model": 2}
+    assert grid.devices == ((torch.device("cpu:0"), torch.device("cpu:1")),
+                            (torch.device("cpu:2"), torch.device("cpu:3")))
     with pytest.raises(ValueError, match="exceeds"):
         make_mesh(devices=["cpu"], n_data=2)
     b = dp8_batch()
@@ -699,7 +702,8 @@ def test_sharded_per_item_speakers(synth_models, jax_phase):
 def test_sharded_checks(synth_models):
     _, _, model, _, cfg = synth_models[1]
     mesh = make_mesh(devices=["cpu", "cpu"])
-    with pytest.raises(ValueError, match="model"):
+    with pytest.raises(ValueError, match="needs a 'model' mesh axis wider "
+                                         "than 1"):
         ShardedSynthesizer(model, mesh, cfg, tensor_parallel=True)
     with pytest.raises(ValueError, match="data"):
         ShardedSynthesizer(model, ("cpu", "cpu"), cfg)

@@ -97,9 +97,9 @@ def step_case(spec, rank):
     class Recorded:
         """The optimizer, keeping the gradients it is handed."""
         @staticmethod
-        def update(model, opt_state, grads):
+        def update(model, opt_state, grads, *sharded):
             out[f"grads_{what}"] = export_jax_grads(model, grads)
-            tx.update(model, opt_state, grads)
+            tx.update(model, opt_state, grads, *sharded)
 
     for what in ("step", "accum"):
         state, tx = _state(cfg, spec["params"], spec["model_state"],

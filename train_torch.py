@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Train the PyTorch port of Tacotron 2 on one CUDA card, or data-parallel
-on N cards.
+"""Train the PyTorch port of Tacotron 2 on one CUDA card, or data- and
+tensor-parallel on N cards.
 
 The flags are ``train.py``'s, with the same meanings but one, plus
 ``--device``:
@@ -9,7 +9,7 @@ The flags are ``train.py``'s, with the same meanings but one, plus
         --epochs 100 --batch_size 16 --lr 1e-3 [--debug] \\
         [--val_metadata V.csv] [--resume CKPT] [--postnet_freeze_steps N] \\
         [--accum_steps N] [--precision bf16|fp32] [--keep_epoch_ckpts N] \\
-        [--tp 1] [--device cuda|cpu]
+        [--tp N] [--device cuda|cpu]
 
 On N cards, the same flags under torchrun, one rank a card (NCCL); each
 rank loads ``--batch_size`` rows of every global batch of
@@ -19,9 +19,18 @@ the global batch:
     torchrun --nproc_per_node N train_torch.py processed/metadata.csv \\
         checkpoints/run1 --batch_size 16 ...
 
+With ``--tp N`` the ranks form a ``data=D x model=N`` grid (launch
+``--nproc_per_node D*N``; rank r at data index r // N, model index r % N):
+each rank holds its shard of the decoder LSTMs' gates and of the output
+heads, the global micro-batch stays ``batch_size`` times the number of
+processes, and the step is the one a single process takes on it:
+
+    torchrun --nproc_per_node 4 train_torch.py processed/metadata.csv \
+        checkpoints/run1 --batch_size 16 --tp 2 ...
+
 More ranks than cards share the cards over gloo (two ranks on one card
 check the path; they are no faster than one process).  Rank 0 writes the
-log and the checkpoints.
+log and the checkpoints, which have the unsharded layout whatever ``--tp``.
 
 ``--resume`` takes a checkpoint directory of the port, an Orbax checkpoint
 directory of the JAX package or the reference's PyTorch checkpoint file.
@@ -29,8 +38,7 @@ It differs from ``train.py``'s in one point: resumed from
 ``tacotron2_epoch_N`` (or a ``best_model`` saved after epoch N), the port
 goes on at epoch N + 1, where ``train.py`` runs epoch N again; so
 ``--epochs E`` from there trains E - N epochs here and E - N + 1 there.
-``--remat`` is not ported (an XLA policy), and ``--tp`` takes 1 only
-(tensor parallelism is not ported).
+``--remat`` is not ported (an XLA policy).
 """
 
 import argparse
@@ -64,10 +72,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Keep only the newest N per-epoch checkpoints "
                              "(default 5; 0 keeps all).")
     parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel width; the port takes 1 only "
-                             "(tensor parallelism is not ported; for data "
-                             "parallelism launch under torchrun "
-                             "--nproc_per_node N).")
+                        help="Tensor-parallel width N: the decoder's LSTM "
+                             "gates and output heads sharded over N ranks "
+                             "(launch under torchrun --nproc_per_node D*N "
+                             "for D data-parallel replicas; N must divide "
+                             "the ranks).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Device to train on (default cuda).")
     return parser.parse_args(argv)
