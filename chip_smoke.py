@@ -142,7 +142,21 @@ it fails:
     D=30 (and with a ``memory`` one element past a 16-byte boundary)
     against its plain version; the decode, conv and training kernels must
     each launch; and an encoder of 11 taps (the conv kernel's halo-8 build)
-    on the card against the CPU's plain encoder;
+    on the card against the CPU's plain encoder.  Then the configs each
+    kernel refused before the repair of C6 (``c6_widths``): a bf16
+    ``train_step`` at ``attention_dim`` 512 and one at 95 location taps
+    (B=8: the first step's gradients by both routes, ``GRAD_TOL``; #3 and
+    #4 against their plain versions on that step's inputs,
+    ``MAIN_PAIR_TOL``, the reverse chain's location phase in chunks of A;
+    one counted step, #3 and #4 once each); a model with 65-tap encoder
+    and postnet convs, ``attention_dim`` 512 and 95 location taps served
+    in fp32 (#2 with its location matrix in L2, #5 in three tap groups)
+    against the CPU's plain request, its eight conv layers against the
+    plain version, and its ``eval_step`` by the fused route against the
+    cuDNN route (``C6_EVAL_TOL``); ``conv_bn_act`` at 65 and 129 taps,
+    512->512, B=4, T=400, both types (``CONV_TOL``); ``attention_tail`` at
+    D=16392 fp32 (the wide kernel, ``TAIL_TOL``); each with its launches
+    and device time;
 17. serving, on the checkpoint of phase 14: ``serve()``'s handler on a
     ``BatchingTTSService`` (bf16, ``max_batch=8``) in a thread, with a
     seeded HiFi-GAN generator saved in NGC's weight-normed layout and
@@ -246,17 +260,31 @@ it fails:
     unsharded step loop (``DP_DEC_CAP``), #1 on every decode step, #5
     eight times a data shard, #2 never, the walls of both in turns.
 
+21. the neural letter-to-sound trainer, ``tools/train_lts_neural_torch.py``,
+    at full width on the whole CMUdict training split (103,953 words): the
+    first step (B=512, seeded weights, dropout 0, smoothing 0.1) on the
+    card against the CPU in fp32 (``LTS_LOSS_TOL``, ``LTS_GRAD_TOL``); ms a
+    step and the device's busy share over ``LTS_PROFILE_STEPS`` steps;
+    ``LTS_EPOCHS`` epochs through the CLI's ``main`` at the defaults
+    (finite loss, falling); the held-out greedy word accuracy beside the
+    committed ``tacotron2_tpu/text/data/lts_neural.npz``'s under the same
+    greedy on the same 1,500 words; the export read back by
+    ``text/lts_neural.py``.
+
 Phases 11-14 and 17 run after phase 7, before the training phases,
-phases 15 and 16 after phase 10, then phases 18, 19 and 20 last.  The
+phases 15 and 16 after phase 10, then phases 18, 19, 20 and 21 last.  The
 ``kernels`` line has five entries; the serving path's three carry
 ``serve_path_launches``, the data path's three ``quality_path_launches``,
 the data-parallel training path's four ``dp_path_launches`` (one rank's),
 the sharded serving path's two ``sharded_path_launches``, the
-tensor-parallel training path's ``tp_path_launches`` (one rank's) and
-its serving path's ``tp_sharded_path_launches``.  The last
+tensor-parallel training path's ``tp_path_launches`` (one rank's),
+its serving path's ``tp_sharded_path_launches``, and every kernel
+phase 16's ``c6_launches``, ``c6_max_abs_err`` and ``c6_device_ms`` (by
+config).  The last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``tacotron2_tpu``, and reads no weights file from the repository but the
-checkpoints of phases 14 and 18.
+checkpoints of phases 14 and 18 and, in phase 21, the committed LTS
+artifact.
 """
 
 from __future__ import annotations
@@ -2236,6 +2264,301 @@ def odd_widths_phase(dev) -> None:
                   f"{attention_tail.launches}", flush=True)
             check(attention_tail.launches == 1 and err <= TAIL_TOL,
                   "phase 16: attention_tail at A=14 D=30")
+
+
+# phase 16 (C6): widths whose location rows, location matrix, conv taps or
+# memory rows did not fit a block, each refused on the card before
+C6_TRAIN = ({"attention_dim": 512}, {"location_kernel_size": 95})
+C6_SERVE = dict(encoder_kernel_size=65, postnet_kernel_size=65,
+                attention_dim=512, location_kernel_size=95)
+C6_LONG_TAPS = 129      # a conv_bn_act past four tap groups
+C6_TAIL_D = 16392       # an fp32 memory row past a 64 KB ring stage
+C6_EVAL_TOL = 1e-4      # eval losses, fused route vs cuDNN route, relative
+
+
+def c6_batch(mc, b=8, t_enc=64, t_dec=160):
+    """A seeded ragged batch smaller than the main path's."""
+    from tacotron2_torch.data.dataset import Example, collate
+    rng = np.random.default_rng(SEED + 16)
+    text_lens = rng.integers(t_enc // 2, t_enc + 1, b)
+    mel_lens = rng.integers(t_dec // 2, t_dec + 1, b)
+    text_lens[0], mel_lens[1] = t_enc, t_dec
+    return collate([
+        Example(text=rng.integers(0, mc.n_symbols, n).astype(np.int32),
+                mel=(rng.standard_normal((mc.n_mels, m)) * 1.5 - 5.0
+                     ).astype(np.float32))
+        for n, m in zip(text_lens, mel_lens)])
+
+
+def c6_train_step(dev, widths: dict) -> dict:
+    """A bf16 training step at C6 widths: the first step's gradients by
+    the kernel route against the plain route (``GRAD_TOL``), both training
+    kernels against their plain versions on that step's inputs
+    (``MAIN_PAIR_TOL``) with their device times, then a counted
+    ``train_step``: #3 and #4 once each."""
+    from tacotron2_torch.config import Config, ModelConfig
+    from tacotron2_torch.models.tacotron2 import (init_projection_bias,
+                                                  replace_config)
+    from tacotron2_torch.ops import decoder_bptt
+    from tacotron2_torch.ops.decoder_bwd_kernel import (
+        chain_plan, decoder_bwd_chain_mega, decoder_bwd_chain_reference)
+    from tacotron2_torch.ops.decoder_megakernel import kernel_widths
+    from tacotron2_torch.ops.decoder_train_kernel import (
+        decoder_fwd_train_mega, decoder_fwd_train_reference, fwd_smem)
+    from tacotron2_torch.train import step as train
+    from tacotron2_torch.train.optim import make_optimizer
+    from tacotron2_torch.train.state import create_train_state
+
+    cfg = Config(model=ModelConfig(**widths))
+    mc = cfg.model
+    tx = make_optimizer(cfg.train)
+    state = create_train_state(cfg, seed=SEED, tx=tx, device=dev)
+    model = state.model
+    batch = c6_batch(mc)
+    b, t_enc = batch["text"].shape
+    t_dec = batch["mel"].shape[2]
+    init_projection_bias(model, batch["mel"])
+    kd = kernel_widths(mc)
+    k = mc.location_kernel_size
+    plan = chain_plan(kd, b, t_enc, k, torch.bfloat16)
+    smem, resident = fwd_smem(t_enc, kd["A"], k, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    masks = first_step_masks(mc, b, t_dec, g, dev)
+    tbatch = train._to_device(batch, dev)
+    buffers = {n: x.clone() for n, x in model.named_buffers()}
+    calls, grads = {}, {}
+
+    def record(name, fn):
+        def wrapper(*args):
+            calls[name] = (args, fn(*args))
+            return calls[name][1]
+        return wrapper
+
+    for on in (True, False):
+        replace_config(model, decoder_megakernel=on)
+        if on:
+            decoder_bptt.decoder_fwd_train_mega = record(
+                "fwd", decoder_fwd_train_mega)
+            decoder_bptt.decoder_bwd_chain_mega = record(
+                "bwd", decoder_bwd_chain_mega)
+        try:
+            total, _ = train._forward_loss(
+                model, cfg, tbatch, None, 0, False,
+                cfg.guided_attention.sigma_warmup_steps, masks)
+            grads[on] = train._grads(model, total)
+        finally:
+            decoder_bptt.decoder_fwd_train_mega = decoder_fwd_train_mega
+            decoder_bptt.decoder_bwd_chain_mega = decoder_bwd_chain_mega
+        with torch.no_grad():
+            for n, x in model.named_buffers():
+                x.copy_(buffers[n])
+    replace_config(model, decoder_megakernel=True)
+    errs = grad_errors(grads[True], grads[False], 1e-2)
+    worst = max(errs, key=errs.get)
+    name = " ".join(f"{k_}={v}" for k_, v in widths.items())
+    where = f"odd widths C6 {name} B={b} T_enc={t_enc} T_dec={t_dec} bf16"
+    print(f"[{where}] reverse chain's C3 in {plan.location_chunks} chunks "
+          f"of {plan.location_cols} columns ({plan.smem_bytes} bytes a "
+          f"block); forward's location matrix "
+          f"{'resident' if resident else 'in L2'} ({smem} bytes); first "
+          f"step's gradients, kernel route vs plain route: worst {worst} "
+          f"{errs[worst]:.2e} (limit {GRAD_TOL})", flush=True)
+    check(errs[worst] <= GRAD_TOL, f"phase 16 {name}: gradients {worst} "
+          f"off by {errs[worst]}")
+    detach = lambda xs: tuple(x.detach() if torch.is_tensor(x) else x
+                              for x in xs)
+    fwd_args, bwd_args = detach(calls["fwd"][0]), detach(calls["bwd"][0])
+    fwd_errs = compare_outputs(FWD_OUT, calls["fwd"][1],
+                               decoder_fwd_train_reference(*fwd_args),
+                               MAIN_PAIR_TOL, f"{where} decoder_fwd_train_mega")
+    bwd_errs = compare_outputs(BWD_OUT, calls["bwd"][1],
+                               decoder_bwd_chain_reference(*bwd_args),
+                               MAIN_PAIR_TOL, f"{where} decoder_bwd_chain_mega")
+    fwd_dev = device_ms(lambda: decoder_fwd_train_mega(*fwd_args), 3,
+                        "decoder_train_fwd_kernel")
+    bwd_dev = device_ms(lambda: decoder_bwd_chain_mega(*bwd_args), 3,
+                        "decoder_train_bwd_kernel")
+    del calls, grads
+    decoder_fwd_train_mega.launches = decoder_bwd_chain_mega.launches = 0
+    _, losses, _ = train.train_step(
+        state, batch, cfg=cfg, tx=tx, use_postnet=True,
+        sigma_warmup_steps=cfg.guided_attention.sigma_warmup_steps)
+    loss = float(losses.total)
+    launches = (decoder_fwd_train_mega.launches,
+                decoder_bwd_chain_mega.launches)
+    print(f"[{where}] train_step loss {loss:.4f}, launches "
+          f"decoder_fwd_train_mega={launches[0]} decoder_bwd_chain_mega="
+          f"{launches[1]}; device decoder_fwd_train_mega {fwd_dev:.3f} ms, "
+          f"decoder_bwd_chain_mega {bwd_dev:.3f} ms a launch", flush=True)
+    check(launches == (1, 1) and np.isfinite(loss),
+          f"phase 16 {name}: train_step launched {launches}, loss {loss}")
+    label = f"{name} bf16 B={b} T_enc={t_enc} T_dec={t_dec}"
+    return label, {
+        "decoder_fwd_train_mega": (1, max(fwd_errs.values()), fwd_dev),
+        "decoder_bwd_chain_mega": (1, max(bwd_errs.values()), bwd_dev)}
+
+
+def c6_widths(dev) -> dict:
+    """Phase 16, C6: the configs each kernel refused before.  Returns, per
+    kernel, ``c6_launches``, ``c6_max_abs_err`` and ``c6_device_ms`` (by
+    config) for the kernels line."""
+    from tacotron2_torch.config import Config, ModelConfig
+    from tacotron2_torch.models.encoder import encoder_apply
+    from tacotron2_torch.models.tacotron2 import (Tacotron2, init_weights,
+                                                  make_pad_mask,
+                                                  replace_config,
+                                                  tacotron2_infer)
+    from tacotron2_torch.ops.attention_kernel import (
+        attention_tail, attention_tail_reference, tail_plan)
+    from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
+                                                   conv_bn_act_reference,
+                                                   tap_groups)
+    from tacotron2_torch.ops.decoder_megakernel import (decode_smem,
+                                                        decoder_infer_mega)
+    from tacotron2_torch.train import step as train
+    from tacotron2_torch.train.optim import make_optimizer
+    from tacotron2_torch.train.state import create_train_state
+
+    out = {}
+
+    def add(kernel, config, launches, err, ms):
+        e = out.setdefault(kernel, {"c6_launches": 0, "c6_max_abs_err": 0.0,
+                                    "c6_device_ms": {}})
+        e["c6_launches"] += launches
+        e["c6_max_abs_err"] = max(e["c6_max_abs_err"], err)
+        if ms is not None:
+            e["c6_device_ms"][config] = ms
+
+    # (a) the training pair at attention_dim 512 and at 95 location taps
+    for widths in C6_TRAIN:
+        label, entries = c6_train_step(dev, widths)
+        for kernel, (n, err, ms) in entries.items():
+            add(kernel, label, n, err, ms)
+        torch.cuda.empty_cache()
+
+    # (b) serving and eval at 65-tap encoder and postnet convs, with the
+    # decode at A=512 and 95 location taps (fp32: its location matrix in
+    # L2), against the CPU's plain request
+    mc = ModelConfig(**C6_SERVE, p_attention_dropout=0.0,
+                     p_decoder_dropout=0.0, p_prenet_dropout=0.0,
+                     p_postnet_dropout=0.0)
+    model = init_weights(Tacotron2(mc), seed=SEED)
+    g = torch.Generator().manual_seed(SEED + 16)
+    tokens = torch.randint(0, mc.n_symbols, (2, 40), generator=g)
+    lengths = torch.tensor([40, 29])
+    kw = dict(max_steps=48, text_lengths=lengths, forced_stop_at=40)
+    ref = tacotron2_infer(model, tokens, device="cpu", **kw)
+    model = model.to(dev)
+    decoder_infer_mega.launches = conv_bn_act.launches = 0
+    with torch.no_grad():
+        got = tacotron2_infer(model, tokens, device=dev, **kw)
+    torch.cuda.synchronize()
+    launches = (decoder_infer_mega.launches, conv_bn_act.launches)
+    n = int(ref[1])
+    rel = max(float((getattr(got[0], f)[:, :n].float().cpu()
+                     - getattr(ref[0], f)[:, :n]).abs().max())
+              / (float(getattr(ref[0], f)[:, :n].abs().max()) + 1e-3)
+              for f in ("mel_coarse", "mel_postnet", "alignments"))
+    _, resident = decode_smem(2, 40, mc.attention_dim,
+                              mc.location_kernel_size, torch.float32)
+    print(f"[odd widths C6] serving {C6_SERVE} fp32 (conv taps in "
+          f"{tap_groups(65)[0]} groups of {tap_groups(65)[1]}; decode's "
+          f"location matrix {'resident' if resident else 'in L2'}): "
+          f"tacotron2_infer on the card vs the CPU's plain request {rel:.2e} "
+          f"(limit {ODD_TOL:g}), launches decoder_infer_mega={launches[0]} "
+          f"conv_bn_act={launches[1]}", flush=True)
+    check(launches == (1, 8) and int(got[1]) == n
+          and torch.equal(got[2].cpu(), ref[2]) and rel < ODD_TOL,
+          f"phase 16 C6 serving: launches {launches}, error {rel}")
+    with torch.no_grad():
+        memory = encoder_apply(model.encoder, tokens.to(dev))
+        dargs = (model.decoder, memory, kw["max_steps"], mc.gate_threshold,
+                 True, make_pad_mask(lengths, 40).to(dev), "any",
+                 kw["forced_stop_at"])
+        dec_ms = device_ms(lambda: decoder_infer_mega(*dargs), 2,
+                           "decoder_infer_kernel")
+    print(f"[odd widths C6] decoder_infer_mega B=2 T_enc=40 A=512 K=95 "
+          f"fp32: device {dec_ms:.3f} ms a decode of {kw['max_steps']} "
+          f"steps", flush=True)
+    add("decoder_infer_mega", "A=512 K=95 fp32 B=2 T_enc=40", 1, rel,
+        dec_ms)
+    with torch.no_grad():
+        shares, abs_errs = model_conv_layers(
+            model, tokens.to(dev), ref[0].mel_coarse[:, :n].to(dev))
+    print(f"[odd widths C6] the eight 65-tap conv layers on this request's "
+          f"inputs vs plain: shares {max(shares):.2e} (limit "
+          f"{CONV_MAIN_TOL:g}), max abs {max(abs_errs):.2e}", flush=True)
+    check(max(shares) <= CONV_MAIN_TOL, f"phase 16 C6 conv layers {shares}")
+
+    cfg = Config(model=mc)
+    state = create_train_state(cfg, seed=SEED, tx=make_optimizer(cfg.train),
+                               device=dev)
+    batch = c6_batch(mc, b=4, t_enc=40, t_dec=64)
+    evals = {}
+    for fused in (True, False):
+        replace_config(state.model, fused_convbn=fused)
+        conv_bn_act.launches = 0
+        losses, _, _ = train.eval_step(
+            state, batch, cfg=cfg,
+            sigma_warmup_steps=cfg.guided_attention.sigma_warmup_steps)
+        evals[fused] = (float(losses.total), conv_bn_act.launches)
+    gap = abs(evals[True][0] - evals[False][0]) / abs(evals[False][0])
+    print(f"[odd widths C6] eval_step with 65-tap convs: fused route loss "
+          f"{evals[True][0]:.6f} ({evals[True][1]} conv_bn_act launches) vs "
+          f"cuDNN route {evals[False][0]:.6f}: {gap:.2e} (limit "
+          f"{C6_EVAL_TOL:g})", flush=True)
+    check(evals[True][1] == 8 and evals[False][1] == 0 and gap <= C6_EVAL_TOL,
+          f"phase 16 C6 eval_step: {evals}")
+    add("conv_bn_act", "K=65 eval", 8 + 8, max(abs_errs), None)
+    del state, model
+
+    # (c) conv_bn_act at 65 and 129 taps, the postnet's shape, both types
+    x = torch.randn(4, 512, 400, generator=g).to(dev)
+    for k in (65, C6_LONG_TAPS):
+        for dtype in (torch.float32, torch.bfloat16):
+            conv, bn = conv_layer(512, 512, k, dtype, SEED + k, dev)
+            conv_bn_act.launches = 0
+            with torch.no_grad():
+                got = conv_bn_act(x, conv, bn, 1e-5, "tanh")
+                want = conv_bn_act_reference(x, conv, bn, 1e-5, "tanh")
+                torch.cuda.synchronize()
+                count = conv_bn_act.launches
+                ms = graph_ms(lambda: conv_bn_act(x, conv, bn, 1e-5,
+                                                  "tanh"), 20)
+            share = conv_share(got, want)
+            err = float((got - want).abs().max())
+            print(f"[odd widths C6] conv_bn_act K={k} ({tap_groups(k)[0]} "
+                  f"tap groups) 512->512 B=4 T=400 {str(dtype)[6:]}: "
+                  f"{share:.2e} of the mean (limit {CONV_TOL[dtype]:g}), "
+                  f"device {ms:.4f} ms (graph), launches {count}",
+                  flush=True)
+            check(count == 1 and share <= CONV_TOL[dtype],
+                  f"phase 16 C6 conv_bn_act K={k} {dtype}: {share}")
+            add("conv_bn_act", f"K={k} {str(dtype)[6:]} 512->512 B=4 T=400",
+                1, err, ms)
+
+    # (d) attention_tail with a 65568-byte fp32 memory row
+    f = lambda *shape: torch.randn(*shape, generator=g).to(dev)
+    ins = (f(4, 112, 128), f(128) * 0.3, f(()), torch.tensor(1.2, device=dev),
+           make_pad_mask(torch.tensor([112, 90, 57, 112]), 112).to(dev),
+           f(4, 112, C6_TAIL_D))
+    plan = tail_plan(4, 112, 128, C6_TAIL_D, torch.float32)
+    attention_tail.launches = 0
+    with torch.no_grad():
+        got = attention_tail(*ins)
+        want = attention_tail_reference(*ins)
+        torch.cuda.synchronize()
+        count = attention_tail.launches
+        ms = graph_ms(lambda: attention_tail(*ins), 20)
+    err = max_err(got, want)
+    print(f"[odd widths C6] attention_tail B=4 T_enc=112 A=128 "
+          f"D={C6_TAIL_D} fp32 (wide plan {plan.wide}, tiles of "
+          f"{plan.tile_rows} rows): {err:.2e} (limit {TAIL_TOL:g}), device "
+          f"{ms:.4f} ms (graph), launches {count}", flush=True)
+    check(plan.wide and count == 1 and err <= TAIL_TOL,
+          f"phase 16 C6 attention_tail: {err}")
+    add("attention_tail", f"B=4 T_enc=112 D={C6_TAIL_D} fp32", 1, err, ms)
+    return out
 
 
 # phase 17: the serving path on the trained checkpoint
@@ -4312,6 +4635,126 @@ def tensor_parallel_phase(dev, smi: str, reference) -> dict:
             "decoder_bwd_chain_mega": {"tp_path_launches": train_out["bwd"]}}
 
 
+# phase 21: the neural letter-to-sound trainer on the card
+LTS_EPOCHS = 2
+LTS_BATCH = 512
+LTS_LOSS_TOL = 1e-5     # first step's loss, card vs CPU fp32, relative
+LTS_GRAD_TOL = 1e-4     # its gradients, by grad_errors' rule (floor 1e-3)
+LTS_PROFILE_STEPS = 10
+LTS_WORDS = ("tacotron", "hello", "quokka", "zyxel")
+
+
+def lts_phase(dev, smi: str) -> None:
+    """Phase 21.  ``tools/train_lts_neural_torch.py`` at full width on the
+    whole training split: the first step from seeded weights at dropout 0
+    on the card against the CPU in plain fp32 (TF32 off: the loss and
+    every gradient leaf), ``LTS_EPOCHS`` epochs at the default dropout and
+    smoothing through the CLI's ``main`` (finite, falling loss), ms a step
+    and the device's busy share over ``LTS_PROFILE_STEPS`` steps, the
+    held-out greedy word accuracy beside the committed
+    ``tacotron2_tpu/text/data/lts_neural.npz``'s under the same greedy,
+    and the exported file loaded back through ``text/lts_neural.py``."""
+    import importlib.util
+    import shutil
+    from tacotron2_torch.text.lts_neural import NeuralLts
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "train_lts_neural_torch",
+        os.path.join(root, "tools", "train_lts_neural_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    phase0 = time.perf_counter()
+    letters, targets, symbols, rows, hold = tool.build_data()
+    n, v = len(letters), len(symbols)
+    print(f"[lts] {n} training words, {len(hold)} held out, {v} phone "
+          f"symbols", flush=True)
+    check((n, len(hold), v) == (103953, 11578, 72), "phase 21: the data")
+
+    # 1. the first step: card vs CPU, fp32, dropout 0
+    idx = np.random.default_rng(SEED).permutation(n)[:LTS_BATCH]
+    grads, losses = {}, {}
+    for where in (dev, "cpu"):
+        p = tool.init_params(SEED, v, where)
+        for x in p.values():
+            x.requires_grad_(True)
+        loss = tool.loss_fn(p, torch.from_numpy(letters[idx]).long().to(where),
+                            torch.from_numpy(targets[idx]).long().to(where),
+                            None, 0.1)
+        g = torch.autograd.grad(loss, list(p.values()))
+        losses[str(where)] = float(loss.detach())
+        grads[str(where)] = {k: x.cpu() for k, x in zip(p, g)}
+    errs = grad_errors(grads[str(dev)], grads["cpu"], 1e-3)
+    worst = max(errs, key=errs.get)
+    gap = abs(losses[str(dev)] / losses["cpu"] - 1)
+    print(f"[lts] first step B={LTS_BATCH}, seeded weights, dropout 0, "
+          f"smoothing 0.1: loss card {losses[str(dev)]:.6f} vs CPU "
+          f"{losses['cpu']:.6f} ({gap:.1e}, limit {LTS_LOSS_TOL:g}); "
+          f"{len(errs)} gradient leaves, worst {worst} {errs[worst]:.2e} "
+          f"(limit {LTS_GRAD_TOL:g})", flush=True)
+    check(gap <= LTS_LOSS_TOL and errs[worst] <= LTS_GRAD_TOL,
+          f"phase 21: first step, loss {gap}, {worst} {errs[worst]}")
+
+    # 2. the device's busy share of a step, at the defaults
+    p = tool.init_params(SEED, v, dev)
+    opt = tool.Adam(p, tool.warmup_cosine(2e-3, 1000))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    lb = torch.from_numpy(letters[idx]).long().to(dev)
+    tb = torch.from_numpy(targets[idx]).long().to(dev)
+
+    def steps():
+        for _ in range(LTS_PROFILE_STEPS):
+            masks = tool.dropout_masks(gen, 0.25, tb.shape[1], LTS_BATCH, dev)
+            tool.train_step(p, opt, lb, tb, masks, 0.1)
+
+    steps()
+    _, wall, by_kernel, busy = profile_step(steps)
+    print(f"[lts] {LTS_PROFILE_STEPS} train steps at B={LTS_BATCH}: wall "
+          f"{wall / LTS_PROFILE_STEPS:.2f} ms, device busy "
+          f"{busy / LTS_PROFILE_STEPS:.2f} ms a step ({busy / wall:.1%}), "
+          f"{len(by_kernel)} kernels by name", flush=True)
+    del p, opt
+
+    # 3. two epochs through the CLI, on the whole training split
+    tmp = tempfile.mkdtemp(prefix="t2_lts_")
+    try:
+        out = os.path.join(tmp, "lts_neural.npz")
+        run = tool.main(["--epochs", str(LTS_EPOCHS), "--eval-every",
+                         str(LTS_EPOCHS), "--out", out, "--device", "cuda"])
+        loss = run["losses"]
+        print(f"[lts] train_lts_neural_torch.py --epochs {LTS_EPOCHS}: "
+              f"{run['steps']} steps in {run['seconds']:.1f} s, "
+              f"{run['seconds'] * 1e3 / run['steps']:.2f} ms a step, epoch "
+              f"losses {[round(x, 4) for x in loss]}, held-out greedy word "
+              f"accuracy {run['heldout_acc'][0]:.4f} (stress-blind "
+              f"{run['heldout_acc'][1]:.4f}) ({smi})", flush=True)
+        check(all(np.isfinite(loss)) and loss[-1] < loss[0],
+              f"phase 21: epoch losses {loss}")
+        # the committed artifact under the same greedy, the same words
+        z = np.load(os.path.join(root, "tacotron2_tpu", "text", "data",
+                                 "lts_neural.npz"))
+        committed = tool.params_from_numpy(
+            {k: z[k] for k in z.files if k != "phone_symbols"}, dev)
+        hl, truths = tool.heldout_batch(hold, 1500)
+        acc = tool.word_accuracy(
+            tool.greedy(committed, torch.from_numpy(hl).long().to(dev))
+            .cpu().numpy(), truths, [str(s) for s in z["phone_symbols"]])
+        print(f"[lts] the committed lts_neural.npz, same greedy, same "
+              f"{len(truths)} held-out words: {acc[0]:.4f} (stress-blind "
+              f"{acc[1]:.4f})", flush=True)
+        # 4. the export, read back by the text frontend's module
+        model = NeuralLts(out)
+        said = {w: " ".join(model.pronounce(w) or ["-"]) for w in LTS_WORDS}
+        print(f"[lts] exported {os.path.getsize(out) / 1e6:.1f} MB, read by "
+              f"text/lts_neural.py: {said}", flush=True)
+        check(model.phone_symbols == symbols and all(
+            model.pronounce(w) for w in LTS_WORDS),
+              "phase 21: the export did not load")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[lts] phase 21 wall {time.perf_counter() - phase0:.1f} s ({smi})",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels run "
@@ -4696,8 +5139,9 @@ def main() -> int:
     # 15. the training loop
     (kernels[0]["loop_launches"], train_kernels[0]["loop_launches"],
      train_kernels[1]["loop_launches"]) = training_loop_phase(dev, smi)
-    # 16. widths the kernels were not written for
+    # 16. widths the kernels were not written for, and C6's configs
     odd_widths_phase(dev)
+    c6 = c6_widths(dev)
     # 18. the data path on the trained multi-speaker checkpoint
     quality = data_path_phase(dev, smi)
     # 19. data parallelism: two ranks and two replicas on the one card,
@@ -4709,11 +5153,13 @@ def main() -> int:
     parallel = data_parallel_phase(dev, smi, reference)
     # 20. tensor parallelism: two and four ranks, two and four shards
     tensor = tensor_parallel_phase(dev, smi, reference)
+    # 21. the neural letter-to-sound trainer
+    lts_phase(dev, smi)
     kernels += train_kernels + [conv_kernel]
     for entry in kernels:
         if entry["name"] in serve_launches:
             entry["serve_path_launches"] = serve_launches[entry["name"]]
-        for phase in (quality, parallel, tensor):
+        for phase in (quality, parallel, tensor, c6):
             entry.update(phase.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,13 @@
 // comments mark where tools/attention_tail_probe.py --phases reads the
 // clock.
 //
+// Memory rows too wide for a ring stage (64 KB) or a block's shared memory
+// with the partial context (encoder widths past about 16 K values) take a
+// third kernel, attention_tail_wide_kernel (below): the item's context
+// columns are cut across blocks, each block runs the energies of all rows
+// and its columns' online softmax, and reads memory straight from device
+// memory, so nothing in shared memory grows with D or T.
+//
 // Plain C interface (ctypes): each entry point returns a CUDA error code.
 
 #include <cooperative_groups.h>
@@ -100,6 +107,7 @@ enum Flags {
   VW_BF16 = 4,
   VB_BF16 = 8,
   SCALE_BF16 = 16,
+  WIDE = 32,   // the wide-row kernel (tail_plan's wide plan)
 };
 
 struct TailArgs {
@@ -576,6 +584,135 @@ __global__ void __launch_bounds__(THREADS, 1)
   // phase: attn written
 }
 
+// Context columns a block of the wide kernel takes: two a thread.
+constexpr int WIDE_COLS = 2 * THREADS;
+
+// The wide kernel's shared memory: the warps' max and sum in the head, the
+// tile's e and p.
+__host__ __device__ constexpr long long wide_smem(int tile_rows) {
+  return HEAD_BYTES + 2 * up16(4LL * tile_rows);
+}
+
+// memory value v as the plain version multiplies it: rounded to bf16
+// first where qsum is bf16 and memory fp32
+template <bool kRound>
+__device__ __forceinline__ float mem_value(float v) {
+  return kRound ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+template <bool kRound>
+__device__ __forceinline__ float mem_value(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Rows too wide for the ring: block (x, b) takes context columns
+// [x, x + 1) * WIDE_COLS of item b, a thread two of them (THREADS apart).
+// Every block of the item runs the energies of all T rows, tile by tile
+// (tile_rows rows, one warp a row, four loads a lane), in the same order,
+// so all hold the same bits; the running max and sum rescale the thread's
+// two partial sums, which take each row's p * memory read from device
+// memory (a row's columns coalesced over the block).  Block 0 of the item
+// keeps the energies in attn and writes attn = exp(e - M) / Z at the end.
+template <typename TQ, typename TM>
+__global__ void __launch_bounds__(THREADS, 1)
+    attention_tail_wide_kernel(const TailArgs a) {
+  constexpr bool kRound = std::is_same<TQ, __nv_bfloat16>::value &&
+                          std::is_same<TM, float>::value;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* warp_m = reinterpret_cast<float*>(smem + 32);
+  float* warp_s = reinterpret_cast<float*>(smem + 64);
+  float* e_tile = reinterpret_cast<float*>(smem + HEAD_BYTES);
+  float* p_tile = e_tile + up16(4LL * a.tile_rows) / 4;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool writer = blockIdx.x == 0;
+  const TQ* q = static_cast<const TQ*>(a.qsum) + (long long)b * a.T * a.A;
+  const TM* mem = static_cast<const TM*>(a.memory) + (long long)b * a.T * a.D;
+  const unsigned char* pad = a.mask + (long long)b * a.T;
+  float* attn = a.attn + (long long)b * a.T;
+  const int vw_bf16 = a.flags & VW_BF16;
+  const float v_b = scalar_at(a.v_b, 0, a.flags & VB_BF16);
+  const float scale = scalar_at(a.scale, 0, a.flags & SCALE_BF16);
+  const long long c0 = (long long)blockIdx.x * WIDE_COLS + tid;
+  const long long c1 = c0 + THREADS;
+  float acc0 = 0.f, acc1 = 0.f, m_run = -INFINITY, s_run = 0.f;
+  for (int t0 = 0; t0 < a.T; t0 += a.tile_rows) {
+    const int nk = min(a.tile_rows, a.T - t0);
+    float m_w = -INFINITY;
+    for (int i = warp; i < nk; i += WARPS) {
+      const TQ* row = q + (long long)(t0 + i) * a.A;
+      float acc = 0.f;
+      for (int c = 4 * lane; c < a.A; c += 128) {
+        const float4 w =
+            vw_bf16 ? load4_at<false>(
+                          static_cast<const __nv_bfloat16*>(a.v_w), c, a.A)
+                    : load4_at<false>(static_cast<const float*>(a.v_w), c,
+                                      a.A);
+        const float4 x = load4_at<false>(row, c, a.A);
+        acc = fmaf(fast_tanh(x.x), w.x, acc);
+        acc = fmaf(fast_tanh(x.y), w.y, acc);
+        acc = fmaf(fast_tanh(x.z), w.z, acc);
+        acc = fmaf(fast_tanh(x.w), w.w, acc);
+      }
+      const float v = warp_sum(acc);
+      const float e = pad[t0 + i] ? -1e9f : (v + v_b) * scale;
+      if (lane == 0) {
+        e_tile[i] = e;
+        if (writer) attn[t0 + i] = e;
+      }
+      m_w = fmaxf(m_w, e);
+    }
+    if (lane == 0) warp_m[warp] = m_w;
+    __syncthreads();   // the tile's e and every warp's max
+    float m_new = m_run;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) m_new = fmaxf(m_new, warp_m[w]);
+    const float alpha = expf(m_run - m_new);   // 0 on the first tile
+    m_run = m_new;
+    float s = 0.f;
+    for (int i = tid; i < nk; i += THREADS) {
+      const float p = expf(e_tile[i] - m_new);
+      p_tile[i] = p;
+      s += p;
+    }
+    s = warp_sum(s);
+    if (lane == 0) warp_s[warp] = s;
+    __syncthreads();   // p_tile and every warp's sum
+    float s_tile = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s_tile += warp_s[w];
+    s_run = s_run * alpha + s_tile;
+    acc0 *= alpha;
+    acc1 *= alpha;
+    for (int i = 0; i < nk; ++i) {
+      const TM* row = mem + (long long)(t0 + i) * a.D;
+      const float p = p_tile[i];
+      if (c0 < a.D) acc0 = fmaf(p, mem_value<kRound>(row[c0]), acc0);
+      if (c1 < a.D) acc1 = fmaf(p, mem_value<kRound>(row[c1]), acc1);
+    }
+    __syncthreads();   // e_tile, p_tile and the warps' slots are free again
+  }
+  const float inv_z = 1.f / s_run;
+  float* out = a.ctx + (long long)b * a.D;
+  if (c0 < a.D) out[c0] = acc0 * inv_z;
+  if (c1 < a.D) out[c1] = acc1 * inv_z;
+  if (writer) {
+    for (int i = tid; i < a.T; i += THREADS)
+      attn[i] = expf(attn[i] - m_run) * inv_z;
+  }
+}
+
+const void* wide_kernel_for(int flags) {
+  using bf16 = __nv_bfloat16;
+  if (flags & Q_BF16) {
+    return flags & MEM_BF16
+               ? (const void*)attention_tail_wide_kernel<bf16, bf16>
+               : (const void*)attention_tail_wide_kernel<bf16, float>;
+  }
+  return flags & MEM_BF16
+             ? (const void*)attention_tail_wide_kernel<float, bf16>
+             : (const void*)attention_tail_wide_kernel<float, float>;
+}
+
 template <bool kFast>
 const void* kernel_for(int flags) {
   using bf16 = __nv_bfloat16;
@@ -589,7 +726,7 @@ const void* kernel_for(int flags) {
              : (const void*)attention_tail_kernel<float, float, kFast>;
 }
 
-constexpr int N_KERNELS = 8;
+constexpr int N_KERNELS = 12;
 
 // Allow a kernel `smem` bytes of dynamic shared memory (once per kernel
 // and size: setting the attribute costs a CUDA API call).
@@ -623,13 +760,20 @@ extern "C" long long t2_attention_tail_smem(int D, int split, int rows,
       .total;
 }
 
+// Shared memory bytes a block of the wide kernel takes.
+extern "C" long long t2_attention_tail_wide_smem(int tile_rows) {
+  return wide_smem(tile_rows);
+}
+
 // qsum (B, T, A), v_w (A,), v_b and scale (one value each), mask (B, T)
 // bool, memory (B, T, D), all contiguous; attn (B, T) and ctx (B, D) fp32
 // outputs.  flags: Q_BF16 | MEM_BF16 | VW_BF16 | VB_BF16 | SCALE_BF16 (bf16
 // where set, else fp32).  split: blocks of an item's cluster (1-8), rows:
 // rows a block takes (every block at least one), tile_rows: memory rows a
 // ring stage holds.  Any A and D: the build (vector loads and bulk copy,
-// or not) is picked here from A, D and the pointers' alignment.  Items
+// or not) is picked here from A, D and the pointers' alignment.  With
+// WIDE in flags (split 1, rows T) the wide kernel runs, blocks of
+// WIDE_COLS context columns along the grid's x.  Items
 // past the grid's 65535 rows go in further launches of MAX_ITEMS each
 // (ops/attention_kernel.py counts them).  Launches on `stream`, does not
 // synchronise.  Returns the CUDA error code (0 = ok).
@@ -640,14 +784,18 @@ extern "C" int t2_attention_tail(const void* qsum, const void* v_w,
                                  int D, int split, int rows, int tile_rows,
                                  int flags, void* stream) {
   const int mem_bytes = flags & MEM_BF16 ? 2 : 4;
+  const bool wide = flags & WIDE;
   if (B < 1 || T < 1 || A < 1 || D < 1 || split < 1 || split > MAX_SPLIT ||
       rows < 1 || tile_rows < 1 || tile_rows > rows ||
-      (long long)split * rows < T || (long long)(split - 1) * rows >= T) {
+      (long long)split * rows < T || (long long)(split - 1) * rows >= T ||
+      (wide && split != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long smem =
-      layout(D, row_stride(D, mem_bytes), split, rows, tile_rows, mem_bytes)
-          .total;
+      wide ? wide_smem(tile_rows)
+           : layout(D, row_stride(D, mem_bytes), split, rows, tile_rows,
+                    mem_bytes)
+                 .total;
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const auto aligned = [](const void* p, int n) {
     return reinterpret_cast<uintptr_t>(p) % n == 0;
@@ -662,8 +810,9 @@ extern "C" int t2_attention_tail(const void* qsum, const void* v_w,
     const bool fast = A % 4 == 0 && (D * mem_bytes) % 16 == 0 &&
                       aligned(mem, 16) && aligned(q, 4 * q_bytes) &&
                       aligned(v_w, flags & VW_BF16 ? 8 : 16);
-    const void* kernel =
-        fast ? kernel_for<true>(flags) : kernel_for<false>(flags);
+    const void* kernel = wide   ? wide_kernel_for(flags)
+                         : fast ? kernel_for<true>(flags)
+                                : kernel_for<false>(flags);
     cudaError_t err = allow_smem(kernel, (size_t)smem);
     if (err != cudaSuccess) return (int)err;
     TailArgs args{q, v_w, v_b, scale,
@@ -672,7 +821,8 @@ extern "C" int t2_attention_tail(const void* qsum, const void* v_w,
                   static_cast<float*>(ctx) + (long long)b0 * D,
                   T, A, D, rows, tile_rows, flags};
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(split, n, 1);
+    cfg.gridDim =
+        wide ? dim3((D + WIDE_COLS - 1) / WIDE_COLS, n, 1) : dim3(split, n, 1);
     cfg.blockDim = dim3(THREADS, 1, 1);
     cfg.dynamicSmemBytes = (size_t)smem;
     cfg.stream = static_cast<cudaStream_t>(stream);
@@ -682,7 +832,7 @@ extern "C" int t2_attention_tail(const void* qsum, const void* v_w,
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = wide ? 0 : 1;
     void* kargs[] = {&args};
     err = cudaLaunchKernelExC(&cfg, kernel, kargs);
     if (err != cudaSuccess) return (int)err;

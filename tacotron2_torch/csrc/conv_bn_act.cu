@@ -10,11 +10,16 @@
 //
 // with x rounded to the weight dtype, the sum kept in fp32, zeros outside
 // [0, T) ('same' padding, pad = (K - 1) / 2 before and K / 2 after, for
-// odd and even K) and one fp32 write.  K up to 33 taps: the input is
-// staged with a halo of HALO steps on either side of a tile, HALO in {4, 8,
-// 16} by K (up to 2 HALO + 1 taps), each halo a build of its own.  Past 33
-// taps (HALO = 16) the bf16 weights of one input chunk alone would take
-// more than half of a block's shared memory; the wrapper raises there.
+// odd and even K) and one fp32 write.  Up to 33 taps the input is staged
+// with a halo of HALO steps on either side of a tile, HALO in {4, 8, 16}
+// by K (up to 2 HALO + 1 taps), each halo a build of its own.  Past 33
+// taps the bf16 weights of one input chunk alone would take more than half
+// of a block's shared memory, so a further build (kLong) runs the taps in
+// groups of at most LONG_TAPS: a stage holds one group's weight slices and
+// the input window that group reaches (96 steps from a multiple of 4 at
+// or below the group's first, 16-byte copies as before), and the fp32
+// accumulator runs on across the groups and chunks.  Any K that Conv1d
+// takes; the wrapper zero-pads the folded weights to whole groups.
 //
 // What bounds it on an H100: at the serving shapes (K = 5, 512 channels)
 // a layer is 2*B*T*C_in*C_out*K operations over about B*T*(C_in + C_out)*4
@@ -71,10 +76,27 @@ constexpr int THREADS = 128;
 constexpr int MAX_SPLIT = 8;               // portable cluster size
 constexpr int FMA_CHUNK = 16;              // input channels a stage, fp32
 constexpr int FMA_STRIDE = FMA_CHUNK + 4;  // 80-byte rows, 16-byte aligned
-constexpr int MAX_K = 33;                  // 2 x the largest halo + 1
-// steps staged on either side of a tile, by kernel size
+constexpr int MAX_K = 33;     // 2 x the largest halo + 1: one tap group
+constexpr int LONG_TAPS = 30;  // taps a group holds past MAX_K: its window
+                               // starts up to 3 steps early in 96 staged
+// steps staged on either side of a tile, by kernel size (past MAX_K: the
+// window of 96 steps a tap group stages)
 __host__ __device__ constexpr int halo_for(int K) {
   return K <= 9 ? 4 : K <= 17 ? 8 : 16;
+}
+// tap groups of a kernel size, and the taps each holds (the last may hold
+// fewer real ones; the wrapper pads the weights with zero taps to whole
+// groups): one group of K up to MAX_K, else groups of up to LONG_TAPS
+__host__ __device__ constexpr int tap_groups(int K) {
+  return K <= MAX_K ? 1 : (K + LONG_TAPS - 1) / LONG_TAPS;
+}
+__host__ __device__ constexpr int group_taps(int K) {
+  return (K + tap_groups(K) - 1) / tap_groups(K);
+}
+// a tap group's staged window: the first step it reaches, t0 + g0 - pad,
+// rounded down to a multiple of 4 (t0 is one), and how far it was moved
+__host__ __device__ inline int window_skip(int g0, int pad) {
+  return ((g0 - pad) % 4 + 4) % 4;
 }
 // a staged channel row: the tile and its halo; 16-byte rows, and float4
 // reads of 8 rows hit 8 bank groups (the stride is 4 mod 8 words)
@@ -162,44 +184,47 @@ __device__ __forceinline__ Tile tile_of(const ConvArgs& a, int chunk) {
   return tl;
 }
 
-// Start the copy of the fp32 K weight slices of one channel tile and one
-// C_in chunk: ws[(tap * CO_TILE + co) * FMA_STRIDE + ci] = w[tap, co0 + co,
-// ci0 + ci] (the folded weights are padded to whole tiles and chunks: no
-// masks).  The bf16 kernel's weights come by TMA instead.
+// Start the copy of the fp32 weight slices of taps [tap0, tap0 + taps) of
+// one channel tile and one C_in chunk: ws[(tap * CO_TILE + co) *
+// FMA_STRIDE + ci] = w[tap0 + tap, co0 + co, ci0 + ci] (the folded weights
+// are padded to whole tiles and chunks: no masks).  The bf16 kernel's
+// weights come by TMA instead.
 __device__ __forceinline__ void stage_weights(const ConvArgs& a, float* ws,
-                                              int co0, int ci0) {
+                                              int co0, int ci0, int tap0,
+                                              int taps) {
   constexpr int VPR = FMA_CHUNK / 4;   // float4 copies a row
   const float* w = static_cast<const float*>(a.w);
-  const int n_vec = a.K * CO_TILE * VPR;
+  const int n_vec = taps * CO_TILE * VPR;
   for (int i = threadIdx.x; i < n_vec; i += THREADS) {
     const int v = i % VPR;
     const int row = i / VPR;
     const int co = row % CO_TILE;
     const int tap = row / CO_TILE;
     cp_async16(ws + (tap * CO_TILE + co) * FMA_STRIDE + v * 4,
-               w + ((size_t)tap * a.C_out_pad + co0 + co) * a.C_in_pad + ci0 +
-                   v * 4);
+               w + ((size_t)(tap0 + tap) * a.C_out_pad + co0 + co) *
+                       a.C_in_pad +
+                   ci0 + v * 4);
   }
 }
 
 // Stage one C_in chunk of the input with a halo of HALO steps, channel-
-// major: xf[ci * XF_STRIDE + r] = x[b, ci0 + ci, t0 - HALO + r] for r in
-// [0, XF_COLS), zero outside the tensor.  A (B, C, T) fp32 input whose rows
-// are 16-byte aligned (a.vec) is copied 16 bytes at a time: t0 - HALO is a
-// multiple of 4, so a copy lies wholly inside [0, T) or wholly outside it
-// unless T is no multiple of 4, where the last one is split.  Any other
+// major: xf[ci * XF_STRIDE + r] = x[b, ci0 + ci, t_first + r] for r in
+// [0, XF_COLS), zero outside the tensor (t_first: t0 - HALO, or a tap
+// group's window).  A (B, C, T) fp32 input whose rows are 16-byte aligned
+// (a.vec) is copied 16 bytes at a time: t_first is a multiple of 4, so a
+// copy lies wholly inside [0, T) or wholly outside it unless T is no
+// multiple of 4, where the last one is split.  Any other
 // input goes element by element, consecutive threads along its unit-
 // stride axis (time, or channels for a transposed (B, T, C) one): fp32 by
 // cp.async, bf16 (the embedding of a bf16 model) by plain loads.
 template <typename TIn, int CHUNK, int HALO>
 __device__ __forceinline__ void stage_input(const ConvArgs& a, int b,
-                                            TIn* xf, int t0, int ci0) {
+                                            TIn* xf, int t_first, int ci0) {
   constexpr int XF_COLS = Staged<HALO>::COLS;
   constexpr int XF_STRIDE = Staged<HALO>::STRIDE;
   constexpr int XF_VECS = Staged<HALO>::VECS;
   const TIn* x = static_cast<const TIn*>(a.x);
   const TIn* xb = x + (size_t)b * a.sx_b;
-  const int t_first = t0 - HALO;
   if constexpr (sizeof(TIn) == 4) {
     if (a.vec) {
       for (int i = threadIdx.x; i < CHUNK * XF_VECS; i += THREADS) {
@@ -317,11 +342,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
-// one thread: the K weight slices of channel tile co0 and input chunk ci0
-// into `dst`, completing `bar`
+// one thread: the weight slices of a stage's taps (from tap0) of channel
+// tile co0 and input chunk ci0 into `dst`, completing `bar`
 __device__ __forceinline__ void tma_weights(const CUtensorMap* map,
                                            void* dst, uint64_t* bar,
-                                           int bytes, int ci0, int co0) {
+                                           int bytes, int ci0, int co0,
+                                           int tap0) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_u32(bar)),
                "r"(bytes)
@@ -329,7 +355,7 @@ __device__ __forceinline__ void tma_weights(const CUtensorMap* map,
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(ci0), "r"(co0), "r"(0),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(ci0), "r"(co0), "r"(tap0),
       "r"(smem_u32(bar))
       : "memory");
 }
@@ -421,22 +447,29 @@ __host__ __device__ inline WgLayout wg_layout(int K, int x_bytes) {
   return l;
 }
 
-template <typename TIn, int kMaxK, int HALO>
+// kLong: K past MAX_K, a stage per (chunk, tap group) of group_taps(K)
+// taps, the group's window staged (kMaxK = LONG_TAPS, HALO = 16)
+template <typename TIn, int kMaxK, int HALO, bool kLong = false>
 __global__ void __launch_bounds__(THREADS)
 conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                          ConvArgs a) {
   constexpr int WG_STAGES = wg_stages(HALO);
   static_assert(kMaxK <= 2 * HALO + 1, "the halo holds kMaxK taps");
+  static_assert(!kLong || (kMaxK == LONG_TAPS && HALO == 16),
+                "a long kernel's window");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const WgLayout l = wg_layout<HALO>(a.K, sizeof(TIn));
-  const int rows = T_TILE + a.K - 1;
+  // taps a stage holds, and the stages (tap groups) of a chunk
+  const int TG = kLong ? group_taps(a.K) : a.K;
+  const int NG = kLong ? tap_groups(a.K) : 1;
+  const WgLayout l = wg_layout<HALO>(TG, sizeof(TIn));
+  const int rows = T_TILE + TG - 1;
   const int xf_elems = WG_CHUNK * Staged<HALO>::STRIDE;
   TIn* xf_buf = reinterpret_cast<TIn*>(smem + l.xf);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + l.xs);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + l.bar);
-  const int stage_bytes = a.K * WG_TAP_BYTES;
+  const int stage_bytes = TG * WG_TAP_BYTES;
 
   const Tile tl = tile_of(a, WG_CHUNK);
   const int pad = (a.K - 1) / 2;
@@ -449,18 +482,22 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   }
   __syncthreads();
 
-  // stage i of this block's chunks: weights by TMA, the input by cp.async;
-  // one cp.async group a stage, empty past the last chunk
+  // stage i of this block's chunks (chunk i / NG, tap group i % NG):
+  // weights by TMA, the input by cp.async; one cp.async group a stage,
+  // empty past the last chunk
   auto start_stage = [&](int i) {
-    const int c = tl.c_begin + i;
+    const int c = tl.c_begin + i / NG;
     if (c < tl.c_end) {
       const int s = i % WG_STAGES;
+      const int g0 = (i % NG) * TG;
+      const int t_first =
+          kLong ? tl.t0 + g0 - pad - window_skip(g0, pad) : tl.t0 - HALO;
       if (threadIdx.x == 0) {
         tma_weights(&wmap, smem + l.ws + s * stage_bytes, &bars[s],
-                    stage_bytes, c * WG_CHUNK, tl.co0);
+                    stage_bytes, c * WG_CHUNK, tl.co0, g0);
       }
-      stage_input<TIn, WG_CHUNK, HALO>(a, tl.b, xf_buf + s * xf_elems, tl.t0,
-                                       c * WG_CHUNK);
+      stage_input<TIn, WG_CHUNK, HALO>(a, tl.b, xf_buf + s * xf_elems,
+                                       t_first, c * WG_CHUNK);
     }
     cp_async_commit();
   };
@@ -468,16 +505,30 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   float acc[32];
 #pragma unroll
   for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+  // kLong: the tensor cores sum each stage (at most 32 x LONG_TAPS
+  // products an output) from zero into acc, and the stages are added in
+  // fp32 into total, so that no sum runs over a whole long kernel's
+  // K x C_in products inside the tensor cores
+  float total[kLong ? 32 : 1];
+  if constexpr (kLong) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) total[j] = 0.f;
+  }
 
-  const int n = tl.c_end - tl.c_begin;
+  const int n = (tl.c_end - tl.c_begin) * NG;
   for (int i = 0; i < WG_STAGES - 1; ++i) start_stage(i);
   for (int i = 0; i < n; ++i) {
     const int s = i % WG_STAGES;
+    const int g0 = (i % NG) * TG;
+    // the stage's real taps: all K, or its group's (the last may hold
+    // zero taps of the padding, which add nothing and are skipped)
+    const int taps = kLong ? min(TG, a.K - g0) : a.K;
     start_stage(i + WG_STAGES - 1);   // into the stage the last chunk freed
     cp_async_wait<WG_STAGES - 1>();
     mbar_wait(&bars[s], (i / WG_STAGES) & 1);
     __syncthreads();
-    round_input<TIn, HALO>(xf_buf + s * xf_elems, xs, rows, HALO - pad);
+    round_input<TIn, HALO>(xf_buf + s * xf_elems, xs, rows,
+                           kLong ? window_skip(g0, pad) : HALO - pad);
     __syncthreads();
 
     const unsigned char* ws = smem + l.ws + s * stage_bytes;
@@ -494,11 +545,11 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
     for (int grp = 0; grp < kGroups; ++grp) {
       const int tap0 = grp * kGroup;
-      if (grp == 0 || tap0 < a.K) {
+      if (grp == 0 || tap0 < taps) {
         uint32_t af[kGroup][2][4];
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) {
-          if (tap0 + j < a.K) {
+          if (tap0 + j < taps) {
             ldmatrix_x4(af[j][0], xrow + (tap0 + j) * WG_XS);
             ldmatrix_x4(af[j][1], xrow + (tap0 + j) * WG_XS + 16);
           }
@@ -506,7 +557,7 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) {
-          if (tap0 + j < a.K) {
+          if (tap0 + j < taps) {
             const unsigned char* wt = ws + (tap0 + j) * WG_TAP_BYTES;
             wgmma_m64n64k16(acc, af[j][0], desc_sw64(wt));
             wgmma_m64n64k16(acc, af[j][1], desc_sw64(wt + 32));
@@ -516,9 +567,20 @@ conv_bn_act_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       }
     }
+    if constexpr (kLong) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        total[j] += acc[j];
+        acc[j] = 0.f;
+      }
+    }
     __syncthreads();
   }
   cp_async_wait<0>();
+  if constexpr (kLong) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = total[j];
+  }
 
   // the partial tile: acc[j] at time row 16 warp + g + 8 ((j / 2) % 2),
   // channel column 8 (j / 4) + 2 tig + j % 2; written [co][t]
@@ -544,13 +606,18 @@ __host__ __device__ constexpr int fma_buffers(int halo) {
   return halo == 16 ? 1 : 2;
 }
 
-template <int HALO>
+// kLong: K past MAX_K, one stage per (chunk, tap group) of group_taps(K)
+// taps and the group's window (HALO = 16, one buffer)
+template <int HALO, bool kLong = false>
 __global__ void __launch_bounds__(THREADS)
 conv_bn_act_fma_kernel(ConvArgs a) {
   constexpr int XF_STRIDE = Staged<HALO>::STRIDE;
   constexpr int BUFS = fma_buffers(HALO);
+  static_assert(!kLong || (HALO == 16 && BUFS == 1), "a long kernel's window");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ws_elems = a.K * CO_TILE * FMA_STRIDE;
+  const int TG = kLong ? group_taps(a.K) : a.K;   // taps a stage holds
+  const int NG = kLong ? tap_groups(a.K) : 1;
+  const int ws_elems = TG * CO_TILE * FMA_STRIDE;
   float* ws_buf = reinterpret_cast<float*>(smem);
   float* xs_buf = ws_buf + BUFS * ws_elems;
 
@@ -564,26 +631,32 @@ conv_bn_act_fma_kernel(ConvArgs a) {
   for (int i = 0; i < 16; ++i) acc[i][0] = acc[i][1] = 0.f;
 
   if (BUFS == 2 && tl.c_begin < tl.c_end) {
-    stage_weights(a, ws_buf, tl.co0, tl.c_begin * FMA_CHUNK);
-    stage_input<float, FMA_CHUNK, HALO>(a, tl.b, xs_buf, tl.t0,
+    stage_weights(a, ws_buf, tl.co0, tl.c_begin * FMA_CHUNK, 0, a.K);
+    stage_input<float, FMA_CHUNK, HALO>(a, tl.b, xs_buf, tl.t0 - HALO,
                                         tl.c_begin * FMA_CHUNK);
     cp_async_commit();
   }
-  for (int c = tl.c_begin; c < tl.c_end; ++c) {
+  for (int i = 0; i < (tl.c_end - tl.c_begin) * NG; ++i) {
+    const int c = tl.c_begin + i / NG;
+    const int g0 = (i % NG) * TG;
+    const int taps = kLong ? min(TG, a.K - g0) : a.K;
     const int buf = BUFS == 2 ? (c - tl.c_begin) & 1 : 0;
     const float* ws = ws_buf + buf * ws_elems;
-    const float* xs = xs_buf + buf * FMA_CHUNK * XF_STRIDE + HALO - pad;
-    if (BUFS == 1) {            // this chunk's loads, then its products
-      stage_weights(a, ws_buf, tl.co0, c * FMA_CHUNK);
-      stage_input<float, FMA_CHUNK, HALO>(a, tl.b, xs_buf, tl.t0,
-                                          c * FMA_CHUNK);
+    const float* xs = xs_buf + buf * FMA_CHUNK * XF_STRIDE +
+                      (kLong ? window_skip(g0, pad) : HALO - pad);
+    if (BUFS == 1) {            // this stage's loads, then its products
+      stage_weights(a, ws_buf, tl.co0, c * FMA_CHUNK, g0, taps);
+      stage_input<float, FMA_CHUNK, HALO>(
+          a, tl.b, xs_buf,
+          kLong ? tl.t0 + g0 - pad - window_skip(g0, pad) : tl.t0 - HALO,
+          c * FMA_CHUNK);
       cp_async_commit();
       cp_async_wait<0>();
     } else if (c + 1 < tl.c_end) {  // the next chunk's loads fly under this
       stage_weights(a, ws_buf + (buf ^ 1) * ws_elems, tl.co0,
-                    (c + 1) * FMA_CHUNK);
+                    (c + 1) * FMA_CHUNK, 0, a.K);
       stage_input<float, FMA_CHUNK, HALO>(
-          a, tl.b, xs_buf + (buf ^ 1) * FMA_CHUNK * XF_STRIDE, tl.t0,
+          a, tl.b, xs_buf + (buf ^ 1) * FMA_CHUNK * XF_STRIDE, tl.t0 - HALO,
           (c + 1) * FMA_CHUNK);
       cp_async_commit();
       cp_async_wait<1>();
@@ -592,7 +665,7 @@ conv_bn_act_fma_kernel(ConvArgs a) {
     }
     __syncthreads();
 
-    for (int tap = 0; tap < a.K; ++tap) {
+    for (int tap = 0; tap < taps; ++tap) {
       const float* wt = ws + (tap * CO_TILE + warp * 16) * FMA_STRIDE;
 #pragma unroll
       for (int c4 = 0; c4 < FMA_CHUNK; c4 += 4) {
@@ -637,7 +710,9 @@ size_t smem_bytes_for(int is_bf16, int x_bf16, int K) {
   return n > (size_t)RED_BYTES ? n : (size_t)RED_BYTES;
 }
 
+// past MAX_K a stage holds one tap group
 size_t smem_bytes(int is_bf16, int x_bf16, int K) {
+  if (K > MAX_K) return smem_bytes_for<16>(is_bf16, x_bf16, group_taps(K));
   switch (halo_for(K)) {
     case 4: return smem_bytes_for<4>(is_bf16, x_bf16, K);
     case 8: return smem_bytes_for<8>(is_bf16, x_bf16, K);
@@ -645,32 +720,37 @@ size_t smem_bytes(int is_bf16, int x_bf16, int K) {
   }
 }
 
-template <int kMaxK, int HALO>
+template <int kMaxK, int HALO, bool kLong = false>
 const void* wgmma_kernel_for(int x_bf16) {
-  return x_bf16
-             ? (const void*)conv_bn_act_wgmma_kernel<__nv_bfloat16, kMaxK, HALO>
-             : (const void*)conv_bn_act_wgmma_kernel<float, kMaxK, HALO>;
+  return x_bf16 ? (const void*)
+                      conv_bn_act_wgmma_kernel<__nv_bfloat16, kMaxK, HALO,
+                                               kLong>
+                : (const void*)
+                      conv_bn_act_wgmma_kernel<float, kMaxK, HALO, kLong>;
 }
 
 // the build for these weights and K: halo 4 up to 9 taps (two bf16 builds,
-// up to 7 and 9 taps in registers), 8 up to 17, 16 up to 33
+// up to 7 and 9 taps in registers), 8 up to 17, 16 up to 33, then tap
+// groups of up to LONG_TAPS
 const void* kernel_for(int is_bf16, int x_bf16, int K) {
   const int halo = halo_for(K);
   if (!is_bf16) {
-    return halo == 4   ? (const void*)conv_bn_act_fma_kernel<4>
+    return K > MAX_K   ? (const void*)conv_bn_act_fma_kernel<16, true>
+           : halo == 4 ? (const void*)conv_bn_act_fma_kernel<4>
            : halo == 8 ? (const void*)conv_bn_act_fma_kernel<8>
                        : (const void*)conv_bn_act_fma_kernel<16>;
   }
   if (K <= WG_MAX_K) return wgmma_kernel_for<WG_MAX_K, 4>(x_bf16);
   if (halo == 4) return wgmma_kernel_for<9, 4>(x_bf16);
   if (halo == 8) return wgmma_kernel_for<17, 8>(x_bf16);
-  return wgmma_kernel_for<MAX_K, 16>(x_bf16);
+  if (K <= MAX_K) return wgmma_kernel_for<MAX_K, 16>(x_bf16);
+  return wgmma_kernel_for<LONG_TAPS, 16, true>(x_bf16);
 }
 
 // Allow the kernel `smem` bytes of dynamic shared memory (once per kernel
 // and size: setting the attribute costs a CUDA API call).
 cudaError_t allow_smem(const void* kernel, size_t smem) {
-  constexpr int N = 16;   // 11 builds
+  constexpr int N = 16;   // 14 builds
   static const void* kernels[N];
   static size_t sizes[N];
   for (int i = 0; i < N; ++i) {
@@ -692,8 +772,9 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
 }  // namespace
 
 // x (B, C_in, T) at strides (sx_b, sx_c, sx_t) elements, fp32, or bf16
-// with bf16 weights (x_bf16); w (K, C_out_pad, C_in_pad) fp32 or bf16
-// (is_bf16), C_out_pad a multiple of 64, C_in_pad of 32, with `wmap` its
+// with bf16 weights (x_bf16); w (K', C_out_pad, C_in_pad) fp32 or bf16
+// (is_bf16), K' = tap_groups(K) * group_taps(K) (K itself up to MAX_K,
+// zero taps past K), C_out_pad a multiple of 64, C_in_pad of 32, with `wmap` its
 // tensor map from t2_conv_bn_act_weight_map where bf16; h (C_out,) fp32 ->
 // out (B, C_out, T) fp32.  act: 0 none, 1 relu, 2 tanh.  split: blocks of a
 // cluster that share a tile's C_in (1, 2, 4 or 8).  Launches on `stream`,
@@ -705,7 +786,7 @@ extern "C" int t2_conv_bn_act(const void* x, long long sx_b, long long sx_c,
                               int C_out_pad, int C_in_pad, int act,
                               int is_bf16, int split, void* stream) {
   const int tiles = ((T + T_TILE - 1) / T_TILE) * (C_out_pad / CO_TILE);
-  if (B < 1 || C_in < 1 || C_out < 1 || T < 1 || K < 1 || K > MAX_K ||
+  if (B < 1 || C_in < 1 || C_out < 1 || T < 1 || K < 1 ||
       B > 65535 || tiles > 65535 || act < 0 || act > 2 ||
       C_out_pad < C_out || C_out_pad % CO_TILE != 0 || C_in_pad < C_in ||
       C_in_pad % WG_CHUNK != 0 || split < 1 || split > MAX_SPLIT ||
@@ -744,8 +825,9 @@ extern "C" int t2_conv_bn_act(const void* x, long long sx_b, long long sx_c,
 }
 
 // The TMA tensor map of bf16 folded weights w (K, C_out_pad, C_in_pad):
-// boxes of 32 input channels x 64 output channels x K taps, 64-byte
-// swizzle, written into `map` (128 bytes).  cuTensorMapEncodeTiled is
+// boxes of 32 input channels x 64 output channels x K taps (past MAX_K, K
+// whole tap groups: a group's taps, K / tap_groups(K)), 64-byte swizzle,
+// written into `map` (128 bytes).  cuTensorMapEncodeTiled is
 // found through the runtime, so the library links no libcuda.  Returns 0,
 // a CUDA error code, or 1000 + the CUresult of the encoder.
 extern "C" int t2_conv_bn_act_weight_map(const void* w, int K, int C_out_pad,
@@ -777,7 +859,8 @@ extern "C" int t2_conv_bn_act_weight_map(const void* w, int K, int C_out_pad,
                               (cuuint64_t)K};
   const cuuint64_t strides[2] = {(cuuint64_t)C_in_pad * 2,
                                  (cuuint64_t)C_out_pad * C_in_pad * 2};
-  const cuuint32_t box[3] = {WG_CHUNK, CO_TILE, (cuuint32_t)K};
+  const cuuint32_t box[3] = {WG_CHUNK, CO_TILE,
+                             (cuuint32_t)(K / tap_groups(K))};
   const cuuint32_t unit[3] = {1, 1, 1};
   CUtensorMap made;   // 64-byte aligned, as the encoder wants it
   const CUresult r = encode(

@@ -29,6 +29,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kNB = 8;  // batch rows per accumulator chunk
 constexpr int kCtxCols = 32;
 constexpr int kMaxBlocksPerSM = 2;
+// dynamic shared memory a block may take on an H100 (227 KB)
+constexpr int kSmemLimit = 232448;
 
 template <typename W> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
@@ -751,8 +753,12 @@ __device__ inline void softmax_context_phase(const float* energy, const W* mem,
 // order, and tanh(q) . v in column order.  qsum_out, where not null,
 // receives q in W as (B, T, A), written once and coalesced over A.
 // win_all: kWarps * 2K floats of shared memory.
+// (Inlined at each call site: where a kernel passes its shared-memory
+// copy of wl the loads are shared-memory loads, as where it passes the L2
+// one they are global loads.)
 template <typename W>
-__device__ void energies_resident(const W* wl, const float* prev,
+__device__ __forceinline__ void energies_resident(const W* wl,
+                                                  const float* prev,
                                   const float* cum, const float* pq,
                                   const float* pm, const float* v,
                                   const uint8_t* mask, float v_b,

@@ -40,7 +40,9 @@
 // states) is written in the weight dtype W, rounded once where it is
 // produced: the value that the JAX package's `.astype(cdt)` (and
 // warp_dot's per-element rounding) gives.  The composed (2K, A) location
-// matrix stays in shared memory for the whole decode, and a lane keeps
+// matrix stays in shared memory for the whole decode where it fits a
+// block with the rest (else, at a wide A or a long location conv, a lane
+// reads it from L2 in the same order: the same sums), and a lane keeps
 // four attention columns' sums in flight.  The grid barrier is
 // release/acquire on one counter (GridBarrier).  The stop bookkeeping
 // lives in block 0's shared memory.  The state (c, prev/cum attention, energies, pq) lives in a
@@ -148,8 +150,11 @@ __device__ void lstm_phase(const Product<W, 2>& pr, const float* bias,
 }
 
 // Dynamic shared memory, in bytes from its start (16-byte aligned parts).
+// The location matrix is resident (wl_resident) where the whole layout
+// fits kSmemLimit; else it takes no shared memory and is read from L2.
 struct SmemLayout {
   int res, bars, wl, red, ctx_red, attn_s, gate_s, stop, win, total;
+  bool wl_resident;
 };
 
 template <typename W>
@@ -159,13 +164,18 @@ __host__ __device__ inline SmemLayout smem_layout(int B, int T, int A,
   l.res = ring_bytes<kDecMTile>();
   l.bars = l.res + res_bytes<kDecMTile>();
   l.wl = l.bars + up16(kRingMaxStages * 8);
-  l.red = l.wl + up16(2 * K * A * (int)sizeof(W));
-  l.ctx_red = l.red + up16(32 * 4);
-  l.attn_s = l.ctx_red + up16(kWarps * kCtxCols * 4);
-  l.gate_s = l.attn_s + up16(T * 4);
-  l.stop = l.gate_s + up16(B * 4);
-  l.win = l.stop + up16(2 * B * 4);
-  l.total = l.win + up16(kWarps * 2 * K * 4);
+  const int wl_bytes = up16(2 * K * A * (int)sizeof(W));
+  for (int resident = 1; resident >= 0; --resident) {
+    l.wl_resident = resident;
+    l.red = l.wl + (resident ? wl_bytes : 0);
+    l.ctx_red = l.red + up16(32 * 4);
+    l.attn_s = l.ctx_red + up16(kWarps * kCtxCols * 4);
+    l.gate_s = l.attn_s + up16(T * 4);
+    l.stop = l.gate_s + up16(B * 4);
+    l.win = l.stop + up16(2 * B * 4);
+    l.total = l.win + up16(kWarps * 2 * K * 4);
+    if (l.total <= kSmemLimit) break;
+  }
   return l;
 }
 
@@ -206,8 +216,9 @@ decoder_infer_kernel(const DecoderArgs a) {
                                  static_cast<const W*>(a.pw2), P};
 
   // the location matrix stays in shared memory for the whole decode
-  for (int i = threadIdx.x; i < 2 * K * A; i += kThreads)
-    wl[i] = static_cast<const W*>(a.wloc)[i];
+  if (L.wl_resident)
+    for (int i = threadIdx.x; i < 2 * K * A; i += kThreads)
+      wl[i] = static_cast<const W*>(a.wloc)[i];
   ring_init(ring);
   if (threadIdx.x == 0) {
     for (int b = 0; b < B; ++b) {
@@ -265,10 +276,16 @@ decoder_infer_kernel(const DecoderArgs a) {
     grid.sync();
 
     // phase: energies
-    // one warp per (b, t_enc)
-    energies_resident<W>(wl, a.prev, a.cum, a.pq, a.pm, a.v, a.mask, v_b,
-                         escale, a.energy, nullptr, win_all, B, T, A, K, gw,
-                         nw, lane, warp);
+    // one warp per (b, t_enc); the location matrix from shared memory, or
+    // from L2 where it did not fit
+    if (L.wl_resident)
+      energies_resident<W>(wl, a.prev, a.cum, a.pq, a.pm, a.v, a.mask, v_b,
+                           escale, a.energy, nullptr, win_all, B, T, A, K,
+                           gw, nw, lane, warp);
+    else
+      energies_resident<W>(static_cast<const W*>(a.wloc), a.prev, a.cum,
+                           a.pq, a.pm, a.v, a.mask, v_b, escale, a.energy,
+                           nullptr, win_all, B, T, A, K, gw, nw, lane, warp);
     grid.sync();
 
     // phase: softmax/context
@@ -363,3 +380,12 @@ extern "C" int t2_decoder_infer(DecoderArgs* a, int bf16, int device,
 }
 
 extern "C" int t2_decoder_args_size() { return (int)sizeof(DecoderArgs); }
+
+// The launch's dynamic shared memory in bytes, negated where the location
+// matrix is not resident (ops/decoder_megakernel.py::decode_smem mirrors it).
+extern "C" int t2_decoder_infer_smem_bytes(int B, int T, int A, int K,
+                                           int bf16) {
+  const SmemLayout l = bf16 ? smem_layout<__nv_bfloat16>(B, T, A, K)
+                            : smem_layout<float>(B, T, A, K);
+  return l.wl_resident ? l.total : -l.total;
+}

@@ -33,7 +33,8 @@
 //   C3 fixed-order sums of the partials (d_pq emitted, and kept rounded to
 //      W for D; dv, scalars accumulated); location backward: d_prev, d_cum
 //      from the rounded d_qsum and the composed (2K, A) matrix, a K-tap
-//      correlation over rows staged in shared memory
+//      correlation over rows staged in shared memory, in chunks of A
+//      columns where the rows and the matrix do not fit a block at once
 //   D  d_ha_att = rnd(d_pq) . wq, attention-LSTM gate gradients g_att
 //      (rounded, emitted), d_ca carry
 //   E  [d_xa | d_ha] = g_att . [wi_a | wh_a] (d_pre emitted, d_ctx carry)
@@ -64,6 +65,34 @@
 //        -Xcompiler -fPIC (tacotron2_torch/ops/_build.py).
 
 #include "decoder_common.cuh"
+
+// A block's shared memory, two blocks an SM: 228 KB less 1 KB reserved
+// per block, halved.
+constexpr int kSmemPerBlock = (228 - 2) * 1024 / 2;
+// The longest location conv phase C3 takes: its staged rows and matrix,
+// sized as fp32, take 4 (kWarps + 3 K - 1) bytes a column, and a chunk is
+// at least 8 columns (16-byte copies of bf16).
+constexpr int kMaxLocTaps =
+    (kSmemPerBlock / (4 * 8) - kWarps + 1) / 3;   // 1203
+
+// Columns of A that phase C2 sums at once: all of A where its two
+// (kWarps, A) partials fit a block, else the most in whole warps' worth
+// (32 columns: a lane's sums keep their order).
+__host__ __device__ inline int c2_cols(int A) {
+  const int fit = (kSmemPerBlock / 4 - 2 * kWarps) / (2 * kWarps);
+  return A <= fit ? A : fit / 32 * 32;
+}
+
+// Columns of A that phase C3 stages at once: all of A where the
+// kWarps + K - 1 rows and the (2K, A) matrix fit a block (sized as fp32),
+// else chunks of a multiple of 8 evened out over A; 0 past kMaxLocTaps.
+__host__ __device__ inline int c3_cols(int A, int K) {
+  const int fit = kSmemPerBlock / (4 * (kWarps + 3 * K - 1)) / 8 * 8;
+  if (fit >= A) return A;
+  if (fit < 8) return 0;
+  const int chunks = (A + fit - 1) / fit;
+  return ((A + chunks - 1) / chunks + 7) / 8 * 8;
+}
 
 struct TrainBwdArgs {
   // transposed weights in W: one contiguous row per INPUT of the layer
@@ -153,9 +182,10 @@ decoder_train_bwd_kernel(const TrainBwdArgs a) {
             K = a.K, S = a.S;
   const int G = 4 * H;
   const int NC = (T + kWarps - 1) / kWarps;
-  float* sm_pq = smem;                      // kWarps * A
-  float* sm_dv = sm_pq + kWarps * A;        // kWarps * A
-  float* sm_sc = sm_dv + kWarps * A;        // kWarps * 2
+  const int CA = c2_cols(A);                // C2's columns at once
+  float* sm_pq = smem;                      // kWarps * CA
+  float* sm_dv = sm_pq + kWarps * CA;       // kWarps * CA
+  float* sm_sc = sm_dv + kWarps * CA;       // kWarps * 2
   char* smem_c = reinterpret_cast<char*>(smem);   // A, B, C3, D, E
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -255,45 +285,53 @@ decoder_train_bwd_kernel(const TrainBwdArgs a) {
       float d_e = 0.f;
       if (valid) d_e = attn[s] * (__ldcg(a.d_attn + (size_t)b * T + s) - sb);
       const float d_eraw = d_e * escale;
-      float e_part = 0.f;
-      for (int j = lane; j < A; j += 32) {
-        float pq_v = 0.f, dv_v = 0.f;
-        if (valid) {
-          const size_t off = ((tb + b) * T + s) * A + j;
-          const float th = tanhf(to_f(qsum_s[off]));
-          const float dq = d_eraw * a.v[j] * (1.f - th * th);
-          float* pm_acc = a.dpm + ((size_t)b * T + s) * A + j;
-          *pm_acc = __ldcg(pm_acc) + dq;
-          st_w(d_qsum_s + off, dq);
-          pq_v = dq;
-          dv_v = th * d_eraw;
-          e_part = fmaf(th, a.v[j], e_part);
-        }
-        sm_pq[warp * A + j] = pq_v;
-        sm_dv[warp * A + j] = dv_v;
-      }
-      const float e_raw = warp_sum(e_part);
-      if (lane == 0) {
-        sm_sc[warp * 2] = valid ? d_e * (e_raw + v_b) : 0.f;
-        sm_sc[warp * 2 + 1] = d_e;
-      }
-      __syncthreads();
       const size_t po = (size_t)b * NC + ch;
-      for (int j = threadIdx.x; j < A; j += kThreads) {
-        float sp = 0.f, sd = 0.f;
-        for (int w = 0; w < kWarps; ++w) {
-          sp += sm_pq[w * A + j];
-          sd += sm_dv[w * A + j];
+      float e_part = 0.f;
+      // A in column chunks of CA (one chunk unless A is very wide)
+      for (int j0 = 0; j0 < A; j0 += CA) {
+        const int jn = min(CA, A - j0);
+        const bool last = j0 + jn == A;
+        for (int jj = lane; jj < jn; jj += 32) {
+          const int j = j0 + jj;
+          float pq_v = 0.f, dv_v = 0.f;
+          if (valid) {
+            const size_t off = ((tb + b) * T + s) * A + j;
+            const float th = tanhf(to_f(qsum_s[off]));
+            const float dq = d_eraw * a.v[j] * (1.f - th * th);
+            float* pm_acc = a.dpm + ((size_t)b * T + s) * A + j;
+            *pm_acc = __ldcg(pm_acc) + dq;
+            st_w(d_qsum_s + off, dq);
+            pq_v = dq;
+            dv_v = th * d_eraw;
+            e_part = fmaf(th, a.v[j], e_part);
+          }
+          sm_pq[warp * CA + jj] = pq_v;
+          sm_dv[warp * CA + jj] = dv_v;
         }
-        a.part_pq[po * A + j] = sp;
-        a.part_dv[po * A + j] = sd;
+        if (last) {
+          const float e_raw = warp_sum(e_part);
+          if (lane == 0) {
+            sm_sc[warp * 2] = valid ? d_e * (e_raw + v_b) : 0.f;
+            sm_sc[warp * 2 + 1] = d_e;
+          }
+        }
+        __syncthreads();
+        for (int jj = threadIdx.x; jj < jn; jj += kThreads) {
+          float sp = 0.f, sd = 0.f;
+          for (int w = 0; w < kWarps; ++w) {
+            sp += sm_pq[w * CA + jj];
+            sd += sm_dv[w * CA + jj];
+          }
+          a.part_pq[po * A + j0 + jj] = sp;
+          a.part_dv[po * A + j0 + jj] = sd;
+        }
+        if (last && threadIdx.x < 2) {
+          float sc = 0.f;
+          for (int w = 0; w < kWarps; ++w) sc += sm_sc[w * 2 + threadIdx.x];
+          a.part_sc[po * 2 + threadIdx.x] = sc;
+        }
+        __syncthreads();
       }
-      if (threadIdx.x < 2) {
-        float sc = 0.f;
-        for (int w = 0; w < kWarps; ++w) sc += sm_sc[w * 2 + threadIdx.x];
-        a.part_sc[po * 2 + threadIdx.x] = sc;
-      }
-      __syncthreads();
     }
     grid.sync();
 
@@ -328,40 +366,51 @@ decoder_train_bwd_kernel(const TrainBwdArgs a) {
     // d_cum likewise with wloc[K + k].  The kWarps + K - 1 rows of d_qsum
     // that the block's taps reach and the composed matrix are staged in
     // shared memory first (16-byte loads), so a row leaves L2 once a block
-    // and not once a tap.
+    // and not once a tap.  Where they do not fit at once (a wide A or a
+    // long location conv) they are staged in chunks of CL columns, and a
+    // lane carries its two fp32 sums from chunk to chunk; one chunk (the
+    // default widths) sums in the order of a whole row.
     {
       constexpr int V = Vec<W>::N;
       const int nr = kWarps + K - 1;
-      W* rows_s = reinterpret_cast<W*>(smem_c);   // (nr, A)
-      W* wl_s = rows_s + (size_t)nr * A;          // (2K, A)
+      const int CL = c3_cols(A, K);
+      W* rows_s = reinterpret_cast<W*>(smem_c);   // (nr, CL)
+      W* wl_s = rows_s + (size_t)nr * CL;         // (2K, CL)
       for (int task = blockIdx.x; task < B * NC; task += gridDim.x) {
         const int b = task / NC, s0 = task % NC * kWarps;
         const int r0 = s0 + lpad - (K - 1);   // first row a tap reaches
-        for (int i = threadIdx.x * V; i < nr * A; i += kThreads * V) {
-          const int r = r0 + i / A;
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (r >= 0 && r < T)
-            v = __ldcg(reinterpret_cast<const uint4*>(
-                d_qsum_s + ((tb + b) * T + r) * A + i % A));
-          *reinterpret_cast<uint4*>(rows_s + i) = v;
-        }
-        for (int i = threadIdx.x * V; i < 2 * K * A; i += kThreads * V)
-          *reinterpret_cast<uint4*>(wl_s + i) =
-              __ldg(reinterpret_cast<const uint4*>(wloc + i));
-        __syncthreads();
         const int sp = s0 + warp;
-        if (sp < T) {
-          float ap = 0.f, ac = 0.f;
-          for (int k = 0; k < K; ++k) {
-            const int s = sp + lpad - k;
-            if (s < 0 || s >= T) continue;
-            const W* dq = rows_s + (size_t)(s - r0) * A;
-            for (int j = lane; j < A; j += 32) {
-              const float x = widen(dq[j]);
-              ap = fmaf(x, widen(wl_s[k * A + j]), ap);
-              ac = fmaf(x, widen(wl_s[(K + k) * A + j]), ac);
+        float ap = 0.f, ac = 0.f;
+        for (int j0 = 0; j0 < A; j0 += CL) {
+          const int jn = min(CL, A - j0);     // a multiple of 8
+          if (j0 > 0) __syncthreads();        // the last chunk is read
+          for (int i = threadIdx.x * V; i < nr * jn; i += kThreads * V) {
+            const int r = r0 + i / jn;
+            uint4 v = make_uint4(0u, 0u, 0u, 0u);
+            if (r >= 0 && r < T)
+              v = __ldcg(reinterpret_cast<const uint4*>(
+                  d_qsum_s + ((tb + b) * T + r) * A + j0 + i % jn));
+            *reinterpret_cast<uint4*>(rows_s + i) = v;
+          }
+          for (int i = threadIdx.x * V; i < 2 * K * jn; i += kThreads * V)
+            *reinterpret_cast<uint4*>(wl_s + i) =
+                __ldg(reinterpret_cast<const uint4*>(
+                    wloc + (size_t)(i / jn) * A + j0 + i % jn));
+          __syncthreads();
+          if (sp < T) {
+            for (int k = 0; k < K; ++k) {
+              const int s = sp + lpad - k;
+              if (s < 0 || s >= T) continue;
+              const W* dq = rows_s + (size_t)(s - r0) * jn;
+              for (int j = lane; j < jn; j += 32) {
+                const float x = widen(dq[j]);
+                ap = fmaf(x, widen(wl_s[k * jn + j]), ap);
+                ac = fmaf(x, widen(wl_s[(K + k) * jn + j]), ac);
+              }
             }
           }
+        }
+        if (sp < T) {
           ap = warp_sum(ap);
           ac = warp_sum(ac);
           if (lane == 0) {
@@ -418,15 +467,18 @@ decoder_train_bwd_kernel(const TrainBwdArgs a) {
 // Phase C2, C3's staging (sized for fp32) and the products use the same
 // shared memory in turn.
 static size_t smem_bytes(const TrainBwdArgs& a) {
-  const size_t c2 = sizeof(float) * (2 * kWarps * a.A + 2 * kWarps);
-  const size_t c3 = sizeof(float) * (kWarps + 3 * a.K - 1) * a.A;
+  const size_t c2 = sizeof(float) * (2 * kWarps * c2_cols(a.A) + 2 * kWarps);
+  const size_t c3 =
+      sizeof(float) * (kWarps + 3 * a.K - 1) * c3_cols(a.A, a.K);
   return std::max(std::max(c2, c3), (size_t)kProductSmemBytes);
 }
 
 // Returns a cudaError_t (0 = launched).  bf16 != 0: weights, memory and
-// the W-typed series are __nv_bfloat16, else float.
+// the W-typed series are __nv_bfloat16, else float.  A location conv past
+// kMaxLocTaps taps is refused (the wrapper's plan raises first).
 extern "C" int t2_decoder_train_bwd(TrainBwdArgs* a, int bf16, int device,
                                     void* stream) {
+  if (a->K < 1 || a->K > kMaxLocTaps) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void (*kern)(const TrainBwdArgs) =
       bf16 ? decoder_train_bwd_kernel<__nv_bfloat16>
@@ -440,4 +492,9 @@ extern "C" int t2_decoder_train_bwd_args_size() {
 
 extern "C" int t2_decoder_train_bwd_smem_bytes(const TrainBwdArgs* a) {
   return (int)smem_bytes(*a);
+}
+
+// Columns of A that phase C3 stages at once (0: the taps are refused).
+extern "C" int t2_decoder_train_bwd_c3_cols(int A, int K) {
+  return c3_cols(A, K);
 }

@@ -61,7 +61,9 @@
 // (the prenetted frame, rounded once by the wrapper, the context and both
 // hidden states after dropout) is written in W, rounded once where it is
 // produced.  The composed location matrix stays in shared memory for the
-// whole launch, and a lane keeps four attention columns' sums in flight.
+// whole launch where it fits a block with the rest (else, at a wide A or a
+// long location conv, a lane reads it from L2 in the same order: the same
+// sums), and a lane keeps four attention columns' sums in flight.
 // The grid barrier is release/acquire on one counter (GridBarrier).
 //
 // Numerics: every sum is taken in warp_dot's order, operation for
@@ -180,8 +182,12 @@ __device__ void train_lstm_phase(const Product<W, 2>& pr, const float* bias,
 }
 
 // Dynamic shared memory, in bytes from its start (16-byte aligned parts).
+// The location matrix is resident (wl_resident) where the whole layout
+// fits kSmemLimit; else it takes no shared memory and is read from L2, in
+// the same order.
 struct FwdSmem {
   int res, bars, wl, red, ctx_red, attn_s, win, total;
+  bool wl_resident;
 };
 
 template <typename W>
@@ -190,11 +196,16 @@ __host__ __device__ inline FwdSmem fwd_smem(int T, int A, int K) {
   l.res = ring_bytes<kFwdMTile>();
   l.bars = l.res + res_bytes<kFwdMTile>();
   l.wl = l.bars + up16(kRingMaxStages * 8);
-  l.red = l.wl + up16(2 * K * A * (int)sizeof(W));
-  l.ctx_red = l.red + up16(32 * 4);
-  l.attn_s = l.ctx_red + up16(kWarps * kCtxCols * 4);
-  l.win = l.attn_s + up16(T * 4);
-  l.total = l.win + up16(kWarps * 2 * K * 4);
+  const int wl_bytes = up16(2 * K * A * (int)sizeof(W));
+  for (int resident = 1; resident >= 0; --resident) {
+    l.wl_resident = resident;
+    l.red = l.wl + (resident ? wl_bytes : 0);
+    l.ctx_red = l.red + up16(32 * 4);
+    l.attn_s = l.ctx_red + up16(kWarps * kCtxCols * 4);
+    l.win = l.attn_s + up16(T * 4);
+    l.total = l.win + up16(kWarps * 2 * K * 4);
+    if (l.total <= kSmemLimit) break;
+  }
   return l;
 }
 
@@ -263,8 +274,9 @@ decoder_train_fwd_kernel(const TrainFwdArgs a) {
   const int head_tile = (int)blockIdx.x - h_first;
 
   // the location matrix stays in shared memory for the whole launch
-  for (int i = threadIdx.x; i < 2 * K * A; i += kThreads)
-    wl[i] = static_cast<const W*>(a.wloc)[i];
+  if (L.wl_resident)
+    for (int i = threadIdx.x; i < 2 * K * A; i += kThreads)
+      wl[i] = static_cast<const W*>(a.wloc)[i];
   ring_init(ring);
   __syncthreads();
 
@@ -286,11 +298,18 @@ decoder_train_fwd_kernel(const TrainFwdArgs a) {
            prefetch_tile<kFwdMTile>(heads(t - 1), ring, head_tile);
     grid.sync();
     // phase: energies
-    // one warp per (b, t_enc); qsum stored
-    energies_resident<W>(wl, a.prev, a.cum, a.pq, a.pm, a.v, a.mask, v_b,
-                         escale, a.energy,
-                         static_cast<W*>(a.qsum_s) + (size_t)t * B * T * A,
-                         win_all, B, T, A, K, gw, nw, lane, warp);
+    // one warp per (b, t_enc); qsum stored; the location matrix from
+    // shared memory, or from L2 where it did not fit
+    if (L.wl_resident)
+      energies_resident<W>(wl, a.prev, a.cum, a.pq, a.pm, a.v, a.mask, v_b,
+                           escale, a.energy,
+                           static_cast<W*>(a.qsum_s) + (size_t)t * B * T * A,
+                           win_all, B, T, A, K, gw, nw, lane, warp);
+    else
+      energies_resident<W>(static_cast<const W*>(a.wloc), a.prev, a.cum,
+                           a.pq, a.pm, a.v, a.mask, v_b, escale, a.energy,
+                           static_cast<W*>(a.qsum_s) + (size_t)t * B * T * A,
+                           win_all, B, T, A, K, gw, nw, lane, warp);
     grid.sync();
     // phase: softmax/context
     // one block per (b, 32-column chunk of E)
@@ -332,6 +351,15 @@ extern "C" int t2_decoder_train_fwd(TrainFwdArgs* a, int bf16, int device,
   const size_t smem = bf16 ? fwd_smem<__nv_bfloat16>(a->T, a->A, a->K).total
                            : fwd_smem<float>(a->T, a->A, a->K).total;
   return coop_launch(kern, a, smem, device, s, &a->grid_blocks);
+}
+
+// The launch's dynamic shared memory in bytes, negated where the location
+// matrix is not resident (ops/decoder_train_kernel.py::fwd_smem mirrors it).
+extern "C" int t2_decoder_train_fwd_smem_bytes(int T, int A, int K,
+                                               int bf16) {
+  const FwdSmem l = bf16 ? fwd_smem<__nv_bfloat16>(T, A, K)
+                         : fwd_smem<float>(T, A, K);
+  return l.wl_resident ? l.total : -l.total;
 }
 
 extern "C" int t2_decoder_train_fwd_args_size() {

@@ -19,7 +19,10 @@ The kernel (``csrc/attention_tail.cu``, CUDA C++) splits each batch item's
 T_enc across a thread-block cluster of up to eight blocks, starts the copy
 of its ``memory`` rows before the energies, combines the softmax and
 reduce-scatters the context through distributed shared memory; its source
-note has the design and its bound (bytes).  :func:`tail_plan` picks the
+note has the design and its bound (bytes).  Memory rows too wide for that
+(a ring stage or a block's shared memory) take the same source's wide
+kernel, which cuts the context's columns across blocks and reads memory
+straight from device memory.  :func:`tail_plan` picks the kernel, the
 split and the tiles on the host, so that the CPU tests can check them.
 """
 
@@ -41,20 +44,26 @@ STAGE_BYTES = 64 * 1024  # memory rows a ring stage holds, at most
 SMEM_LIMIT = 232448      # shared memory a block may take on an H100
 HEAD_BYTES = 256         # the kernel's barriers and softmax statistics
 _FLOATS = (torch.float32, torch.bfloat16)
-# the kernel's dtype flags: bf16 where the bit is set, else fp32
-Q_BF16, MEM_BF16, VW_BF16, VB_BF16, SCALE_BF16 = 1, 2, 4, 8, 16
+WIDE_TILE_ROWS = 1024    # rows of e and p the wide kernel holds at once
+WIDE_COLS = 2 * THREADS  # context columns a block of the wide kernel takes
+# the kernel's flags: bf16 where a dtype bit is set, else fp32; WIDE the
+# wide-row kernel
+Q_BF16, MEM_BF16, VW_BF16, VB_BF16, SCALE_BF16, WIDE = 1, 2, 4, 8, 16, 32
 
 
 class TailPlan(NamedTuple):
     """Block ``r`` of an item's cluster of ``split`` takes T_enc rows
     ``[r * rows, min((r + 1) * rows, T_enc))``, staging ``memory`` in tiles
     of ``tile_rows`` rows through ``stages`` ring stages; ``smem_bytes`` is
-    the block's shared memory."""
+    the block's shared memory.  ``wide``: the wide-row kernel (split 1,
+    no ring: ``stages`` 0), blocks of ``WIDE_COLS`` context columns, each
+    over all rows in tiles of ``tile_rows``."""
     split: int
     rows: int
     tile_rows: int
     stages: int
     smem_bytes: int
+    wide: bool = False
 
 
 def _up16(n: int) -> int:
@@ -68,9 +77,10 @@ def tail_plan(b: int, t_enc: int, a: int, d: int,
     ``mem_dtype``.  Splits an item into the most blocks (a power of two up
     to ``MAX_SPLIT``) that keep ``MIN_ROWS`` rows each and leave no block
     empty; tiles of memory rows, each padded to 16 bytes, fill at most
-    ``STAGE_BYTES``, evened out.  The kernel takes any A and D; raises on
-    a memory dtype other than fp32 or bf16, an empty shape, and a memory
-    row too wide for a stage or for a block's shared memory."""
+    ``STAGE_BYTES``, evened out.  A memory row too wide for a stage or for
+    a block's shared memory takes the wide plan.  The kernels take any A
+    and D; raises on a memory dtype other than fp32 or bf16 and an empty
+    shape."""
     if mem_dtype not in _FLOATS:
         raise TypeError(f"attention_tail: memory dtype {mem_dtype}")
     if min(b, t_enc, a, d) < 1:
@@ -78,9 +88,7 @@ def tail_plan(b: int, t_enc: int, a: int, d: int,
                          f"A={a} D={d}")
     row_bytes = _up16(d * mem_dtype.itemsize)
     if row_bytes > STAGE_BYTES:
-        raise ValueError(f"attention_tail: a memory row of D={d} is "
-                         f"{row_bytes} bytes, more than a ring stage's "
-                         f"{STAGE_BYTES}")
+        return _wide_plan(t_enc)
     split = 1
     while (split < MAX_SPLIT and 2 * split <= -(-t_enc // MIN_ROWS)
            and (2 * split - 1) * -(-t_enc // (2 * split)) < t_enc):
@@ -93,9 +101,17 @@ def tail_plan(b: int, t_enc: int, a: int, d: int,
     smem = (HEAD_BYTES + stages * tile_rows * row_bytes + _up16(4 * d)
             + _up16(4 * split * cols) + 2 * _up16(4 * tile_rows))
     if smem > SMEM_LIMIT:
-        raise ValueError(f"attention_tail: D={d} needs {smem} bytes of "
-                         f"shared memory a block, more than {SMEM_LIMIT}")
+        return _wide_plan(t_enc)
     return TailPlan(split, rows, tile_rows, stages, smem)
+
+
+def _wide_plan(t_enc: int) -> TailPlan:
+    """The wide kernel's plan: one block a column slice over all T_enc
+    rows, ``WIDE_TILE_ROWS`` at a time; shared memory the head and the
+    tile's e and p (``wide_smem`` in the kernel)."""
+    tile_rows = min(t_enc, WIDE_TILE_ROWS)
+    return TailPlan(1, t_enc, tile_rows, 0,
+                    HEAD_BYTES + 2 * _up16(4 * tile_rows), wide=True)
 
 
 def attention_tail_reference(qsum: torch.Tensor, v_w: torch.Tensor,
@@ -126,6 +142,8 @@ def _lib() -> ctypes.CDLL:
     lib.t2_attention_tail.restype = ctypes.c_int
     lib.t2_attention_tail_smem.argtypes = [ctypes.c_int] * 5
     lib.t2_attention_tail_smem.restype = ctypes.c_longlong
+    lib.t2_attention_tail_wide_smem.argtypes = [ctypes.c_int]
+    lib.t2_attention_tail_wide_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -146,7 +164,7 @@ def _launch(qsum, v_w, v_b, energy_scale, mask, memory, plan: TailPlan
     bf16 = torch.bfloat16
     flags = ((qsum.dtype == bf16) * Q_BF16 | (memory.dtype == bf16) * MEM_BF16
              | (v_w.dtype == bf16) * VW_BF16 | (v_b.dtype == bf16) * VB_BF16
-             | (energy_scale.dtype == bf16) * SCALE_BF16)
+             | (energy_scale.dtype == bf16) * SCALE_BF16 | plan.wide * WIDE)
     err = _lib().t2_attention_tail(
         qsum.data_ptr(), v_w.data_ptr(), v_b.data_ptr(),
         energy_scale.data_ptr(), mask.data_ptr(), memory.data_ptr(),

@@ -42,8 +42,21 @@ from . import _build
 ACTS = {"none": 0, "relu": 1, "tanh": 2}
 TILE = 64          # output channels (and time steps) of the kernel's tile
 CHUNK = 32         # the folded weights' C_in is padded to whole chunks
-MAX_TAPS = 33      # the kernel stages at most 16 steps on either side of a
-                   # tile (a halo of 4, 8 or 16 steps by K)
+ONE_GROUP_TAPS = 33  # the longest K staged as one group of taps (a halo
+                     # of 4, 8 or 16 steps by K on either side of a tile)
+LONG_TAPS = 30       # taps a group holds past that (``LONG_TAPS`` in the
+                     # kernel): any K, the taps in groups
+
+
+def tap_groups(k: int) -> Tuple[int, int]:
+    """``(groups, taps a group)`` of a K-tap kernel: one group up to
+    :data:`ONE_GROUP_TAPS`, else the fewest groups of at most
+    :data:`LONG_TAPS`, evened out (``tap_groups`` and ``group_taps`` in
+    the kernel).  The fold holds ``groups * taps`` taps, zero past K."""
+    if k <= ONE_GROUP_TAPS:
+        return 1, k
+    groups = -(-k // LONG_TAPS)
+    return groups, -(-k // groups)
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,14 +90,17 @@ def fold_conv_bn(conv: Conv1d, bn: BatchNorm, eps: float
 
 @dataclass
 class Fold:
-    """A layer's fold in the kernel's layout: ``w`` (K, C_out_pad,
-    C_in_pad) in the weight dtype, rounded once, zero past (C_out, C_in),
-    with C_out_pad a multiple of ``TILE`` and C_in_pad of ``CHUNK``; ``h``
+    """A layer's fold in the kernel's layout: ``w`` (K', C_out_pad,
+    C_in_pad) in the weight dtype, rounded once, zero past (K, C_out,
+    C_in), with K' whole tap groups (:func:`tap_groups`; K itself up to
+    ``ONE_GROUP_TAPS``), C_out_pad a multiple of ``TILE`` and C_in_pad of
+    ``CHUNK``; ``taps`` is K; ``h``
     (C_out,) fp32; ``wmap`` the TMA tensor map of ``w`` (bf16 weights on
     the card only).  ``key`` and ``sources`` (weak references to the
     storages it was made from) say what it was made from."""
     w: torch.Tensor
     h: torch.Tensor
+    taps: int
     wmap: Optional[ctypes.Array] = None
     key: tuple = ()
     sources: tuple = ()
@@ -102,14 +118,16 @@ def _ceil_to(n: int, m: int) -> int:
 def _make_fold(conv: Conv1d, bn: BatchNorm, eps: float) -> Fold:
     wmat, h = fold_conv_bn(conv, bn, eps)
     k, c_in, c_out = wmat.shape
-    w = torch.zeros(k, _ceil_to(c_out, TILE), _ceil_to(c_in, CHUNK),
-                    dtype=conv.weight.dtype, device=conv.weight.device)
-    w[:, :c_out, :c_in] = wmat.permute(0, 2, 1)          # rounded once
-    fold = Fold(w, h.contiguous())
+    groups, taps = tap_groups(k)
+    w = torch.zeros(groups * taps, _ceil_to(c_out, TILE),
+                    _ceil_to(c_in, CHUNK), dtype=conv.weight.dtype,
+                    device=conv.weight.device)
+    w[:k, :c_out, :c_in] = wmat.permute(0, 2, 1)         # rounded once
+    fold = Fold(w, h.contiguous(), k)
     if w.is_cuda and w.dtype == torch.bfloat16:
         fold.wmap = ctypes.create_string_buffer(128)
         err = _lib().t2_conv_bn_act_weight_map(
-            w.data_ptr(), k, w.shape[1], w.shape[2],
+            w.data_ptr(), w.shape[0], w.shape[1], w.shape[2],
             ctypes.addressof(fold.wmap))
         if err != 0:
             raise RuntimeError(f"conv_bn_act: the weights' tensor map failed "
@@ -227,9 +245,9 @@ def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
     T) fp32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise): one launch a call once the layer's fold is made.  Kernel
-    sizes up to ``MAX_TAPS`` (33, as the JAX package's kernel takes any
-    that fits its VMEM), odd or even, with 'same' padding as
+    raise): one launch a call once the layer's fold is made.  Any kernel
+    size, odd or even (past ``ONE_GROUP_TAPS`` the taps run in groups,
+    :func:`tap_groups`), with 'same' padding as
     ``models/layers.py::conv1d_same`` pads: ``(k - 1) // 2`` steps before,
     ``k // 2`` after.  ``conv_bn_act.launches`` counts launches."""
     if x.device.type == "cpu":
@@ -238,7 +256,7 @@ def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
         raise ValueError(f"conv_bn_act: unsupported device {x.device}")
     if act not in ACTS:
         raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
-    c_out, c_in, k = conv.weight.shape
+    c_in = conv.weight.shape[1]
     wdtype = conv.weight.dtype
     if wdtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv_bn_act: weight dtype {wdtype}")
@@ -248,12 +266,6 @@ def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
     if x.dtype not in (torch.float32, wdtype):
         raise TypeError(f"conv_bn_act: input dtype {x.dtype} with "
                         f"{wdtype} weights")
-    if k > MAX_TAPS:
-        raise ValueError(
-            f"conv_bn_act takes kernel sizes up to {MAX_TAPS}: the input is "
-            f"staged with at most 16 steps on either side of a 64-step "
-            f"tile, and at 33 taps one input chunk's bf16 weights already "
-            f"take 132 KB of a block's 227 KB of shared memory; got {k}")
     if conv.weight.device != x.device or bn.running_var.device != x.device:
         raise ValueError("conv_bn_act: weights and input on different "
                          "devices")
@@ -264,7 +276,7 @@ def conv_bn_act(x: torch.Tensor, conv: Conv1d, bn: BatchNorm, eps: float,
 def _launch(x: torch.Tensor, fold: Fold, act: str, split: int
             ) -> torch.Tensor:
     """One launch of the kernel on a made fold, ``split`` blocks a tile."""
-    k, c_out_pad, c_in_pad = fold.w.shape
+    _, c_out_pad, c_in_pad = fold.w.shape
     c_out = fold.h.shape[0]
     b, c_in, t = x.shape
     out = torch.empty(b, c_out, t, device=x.device)
@@ -273,7 +285,7 @@ def _launch(x: torch.Tensor, fold: Fold, act: str, split: int
         fold.w.data_ptr(),
         None if fold.wmap is None else ctypes.addressof(fold.wmap),
         fold.h.data_ptr(), out.data_ptr(), b, c_in, c_out,
-        t, k, c_out_pad, c_in_pad, ACTS[act],
+        t, fold.taps, c_out_pad, c_in_pad, ACTS[act],
         int(fold.w.dtype == torch.bfloat16), split,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

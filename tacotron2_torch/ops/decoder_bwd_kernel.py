@@ -169,6 +169,34 @@ _PRODUCT_SMEM_BYTES = (6 * (_M_TILE + _TILE_ROWS) * _CHUNK_BYTES
                        + _M_TILE * _TILE_ROWS * 4)
 # two blocks an SM: 228 KB of shared memory less 1 KB reserved per block
 _SMEM_PER_BLOCK = (228 - 2) * 1024 // 2
+# the longest location conv: phase C3 stages at least 8 columns of its
+# kWarps + K - 1 rows and (2K, A) matrix, 4 bytes a value (kMaxLocTaps)
+MAX_LOCATION_TAPS = (_SMEM_PER_BLOCK // (4 * 8) - _POSITIONS_PER_BLOCK
+                     + 1) // 3
+
+
+def c2_cols(a: int) -> int:
+    """Columns of A that phase C2 sums at once (``c2_cols`` in the
+    kernel): all of A where its two (8, A) fp32 partials fit a block, else
+    the most in whole warps' worth of 32."""
+    fit = ((_SMEM_PER_BLOCK // 4 - 2 * _POSITIONS_PER_BLOCK)
+           // (2 * _POSITIONS_PER_BLOCK))
+    return a if a <= fit else fit // 32 * 32
+
+
+def c3_cols(a: int, taps: int) -> int:
+    """Columns of A that phase C3 stages at once (``c3_cols`` in the
+    kernel): all of A where the 8 + K - 1 rows and the (2K, A) matrix fit a
+    block as fp32, else chunks of a multiple of 8 evened out over A; 0
+    past :data:`MAX_LOCATION_TAPS`."""
+    fit = _SMEM_PER_BLOCK // (4 * (_POSITIONS_PER_BLOCK + 3 * taps - 1))
+    fit = fit // 8 * 8
+    if fit >= a:
+        return a
+    if fit < 8:
+        return 0
+    per_chunk = -(-a // -(-a // fit))
+    return -(-per_chunk // 8) * 8
 
 
 class ChainPlan(NamedTuple):
@@ -179,34 +207,44 @@ class ChainPlan(NamedTuple):
     head_cols: int         # M + 1 padded to 8: phase A's K
     position_chunks: int   # blocks of 8 encoder positions in C2 and C3
     smem_bytes: int        # dynamic shared memory of a block
+    location_cols: int     # columns of A that C3 stages at once
+    location_chunks: int   # C3's chunks over A (1 at the default widths)
 
 
 def chain_plan(dims: Dict[str, int], b: int, t_enc: int, taps: int,
                cdt: torch.dtype) -> ChainPlan:
     """The plan of one launch at the kernel's widths ``dims`` (H, P, E,
     A, M, multiples of 8: ``kernel_widths``), batch ``b``, ``t_enc``
-    encoder steps and a location conv of ``taps`` taps; raises on what the
-    kernel cannot take.  Phase A's operand, the output cotangent, is
-    zero-padded from M + 1 to 8 columns."""
+    encoder steps and a location conv of ``taps`` taps.  Phase A's
+    operand, the output cotangent, is zero-padded from M + 1 to 8 columns.
+    Any A: phases C2 and C3 go over it in column chunks where it does not
+    fit a block at once.  Raises on an empty batch or encoder, a weight
+    dtype other than fp32 or bf16, and taps past
+    :data:`MAX_LOCATION_TAPS` (1203)."""
     if b < 1 or t_enc < 1:
         raise ValueError(f"decoder_bwd_chain_mega: batch {b}, T_enc {t_enc}")
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decoder_bwd_chain_mega: weight dtype {cdt}")
+    if not 1 <= taps <= MAX_LOCATION_TAPS:
+        raise ValueError(
+            f"decoder_bwd_chain_mega: a location conv of {taps} taps; phase "
+            f"C3 takes up to {MAX_LOCATION_TAPS}, where 8 columns of its "
+            f"staged rows and matrix fill a block's {_SMEM_PER_BLOCK} bytes")
     h, a, m = dims["H"], dims["A"], dims["M"]
+    cols = c3_cols(a, taps)
     # phase C2's partials, C3's staged rows and location matrix (as fp32),
     # the products' ring: one region, used in turn
-    smem = max(4 * (2 * _POSITIONS_PER_BLOCK * a + 2 * _POSITIONS_PER_BLOCK),
-               4 * (_POSITIONS_PER_BLOCK + 3 * taps - 1) * a,
+    smem = max(4 * (2 * _POSITIONS_PER_BLOCK * c2_cols(a)
+                    + 2 * _POSITIONS_PER_BLOCK),
+               4 * (_POSITIONS_PER_BLOCK + 3 * taps - 1) * cols,
                _PRODUCT_SMEM_BYTES)
-    if smem > _SMEM_PER_BLOCK:
-        raise ValueError(f"decoder_bwd_chain_mega: {smem} bytes of shared "
-                         "memory a block leave no room for two an SM")
     row_bytes = 4 * h * (2 if cdt == torch.bfloat16 else 4)
     return ChainPlan(m_tiles=-(-b // _M_TILE),
                      k_chunks=-(-row_bytes // _CHUNK_BYTES),
                      head_cols=-(-(m + 1) // 8) * 8,
                      position_chunks=-(-t_enc // _POSITIONS_PER_BLOCK),
-                     smem_bytes=smem)
+                     smem_bytes=smem, location_cols=cols,
+                     location_chunks=-(-a // cols))
 
 
 def product_weights(ops: Dict[str, torch.Tensor]
@@ -227,6 +265,8 @@ def _lib() -> ctypes.CDLL:
     lib.t2_decoder_train_bwd_args_size.restype = ctypes.c_int
     lib.t2_decoder_train_bwd_smem_bytes.argtypes = [ctypes.POINTER(_Args)]
     lib.t2_decoder_train_bwd_smem_bytes.restype = ctypes.c_int
+    lib.t2_decoder_train_bwd_c3_cols.argtypes = [ctypes.c_int] * 2
+    lib.t2_decoder_train_bwd_c3_cols.restype = ctypes.c_int
     if lib.t2_decoder_train_bwd_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError("TrainBwdArgs layout differs between csrc/"
                            "decoder_train_bwd.cu and "

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,12 +46,55 @@ class _Args(ctypes.Structure):
         + [("gate_threshold", ctypes.c_float), ("grid_blocks", ctypes.c_int)])
 
 
+# constants of csrc/decoder_common.cuh: a block's shared memory may take
+# kSmemLimit bytes; kWarps; the ring of a product (ring_bytes, res_bytes
+# and its kRingMaxStages mbarriers) by batch tile
+SMEM_LIMIT = 232448
+_WARPS = 8
+_CHUNK_BYTES = 512
+
+
+def up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def ring_bytes(m_tile: int) -> int:
+    """A product's ring, its results and its mbarriers: the shared memory
+    before a decoder kernel's location matrix, at a batch tile of
+    ``m_tile`` rows."""
+    stages = max(2 * (2 * _WARPS + m_tile), 3 * (_WARPS + m_tile))
+    return (stages * _CHUNK_BYTES + m_tile * 2 * _WARPS * 4
+            + up16(3 * 8))
+
+
+def location_layout(head: int, tail: int, a: int, taps: int,
+                    cdt: torch.dtype) -> Tuple[int, bool]:
+    """``(bytes, resident)``: a decoder kernel's dynamic shared memory and
+    whether its composed (2K, A) location matrix is in it.  ``head``: the
+    bytes before the matrix, ``tail``: after it.  Resident where the whole
+    fits ``SMEM_LIMIT``; else the kernel reads the matrix from L2."""
+    with_wl = head + up16(2 * taps * a * cdt.itemsize) + tail
+    return (with_wl, True) if with_wl <= SMEM_LIMIT else (head + tail, False)
+
+
+def decode_smem(b: int, t_enc: int, a: int, taps: int,
+                cdt: torch.dtype) -> Tuple[int, bool]:
+    """``smem_layout`` of ``csrc/decoder_infer.cu``: the product ring at
+    a batch tile of 8, then the location matrix, then the reductions,
+    attention row, gates, stop flags and location windows."""
+    tail = (up16(32 * 4) + up16(_WARPS * 32 * 4) + up16(t_enc * 4)
+            + up16(b * 4) + up16(2 * b * 4) + up16(_WARPS * 2 * taps * 4))
+    return location_layout(ring_bytes(8), tail, a, taps, cdt)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decoder_infer")
     lib.t2_decoder_infer.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
                                      ctypes.c_int, ctypes.c_void_p]
     lib.t2_decoder_infer.restype = ctypes.c_int
     lib.t2_decoder_args_size.restype = ctypes.c_int
+    lib.t2_decoder_infer_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.t2_decoder_infer_smem_bytes.restype = ctypes.c_int
     lib.t2_decoder_infer_tile_rows.argtypes = [ctypes.c_int]
     lib.t2_decoder_infer_tile_rows.restype = ctypes.c_int
     if (lib.t2_decoder_infer_tile_rows(0), lib.t2_decoder_infer_tile_rows(1)

@@ -47,8 +47,9 @@ from ..config import ModelConfig
 from . import _build
 from .attention_kernel import attention_tail_reference
 from .decoder_megakernel import (LSTM_TILE_ROWS, TILE_ROWS, gate_interleave,
-                                 kernel_widths, pad_gates, pad_operands,
-                                 pad_to, tile_major, unpad_gates)
+                                 kernel_widths, location_layout, pad_gates,
+                                 pad_operands, pad_to, ring_bytes,
+                                 tile_major, unpad_gates, up16)
 
 # Decoder parameters that the kernel pair reads, by their names under
 # ``models.decoder.Decoder`` (the prenet and the memory layer act outside).
@@ -224,6 +225,18 @@ class _Args(ctypes.Structure):
            ("grid_blocks", ctypes.c_int)])
 
 
+def fwd_smem(t_enc: int, a: int, taps: int, cdt: torch.dtype
+             ) -> Tuple[int, bool]:
+    """``fwd_smem`` of ``csrc/decoder_train_fwd.cu`` as ``(bytes,
+    resident)``: the product ring at a batch tile of 16, then the location
+    matrix (where it fits), the reductions, attention row and location
+    windows."""
+    warps = 8
+    tail = (up16(32 * 4) + up16(warps * 32 * 4) + up16(t_enc * 4)
+            + up16(warps * 2 * taps * 4))
+    return location_layout(ring_bytes(16), tail, a, taps, cdt)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decoder_train_fwd")
     lib.t2_decoder_train_fwd.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
@@ -233,6 +246,8 @@ def _lib() -> ctypes.CDLL:
     lib.t2_decoder_train_fwd_args_size.restype = ctypes.c_int
     lib.t2_decoder_train_fwd_tile_rows.argtypes = [ctypes.c_int]
     lib.t2_decoder_train_fwd_tile_rows.restype = ctypes.c_int
+    lib.t2_decoder_train_fwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.t2_decoder_train_fwd_smem_bytes.restype = ctypes.c_int
     if (lib.t2_decoder_train_fwd_tile_rows(0),
             lib.t2_decoder_train_fwd_tile_rows(1)) != (TILE_ROWS,
                                                        LSTM_TILE_ROWS):

@@ -46,13 +46,14 @@ from tacotron2_torch.ops.attention_kernel import (_lib as _tail_lib,
                                                   tail_plan)
 from tacotron2_torch.ops.decoder_bptt import core_params, decoder_scan_bptt
 from tacotron2_torch.ops.decoder_bwd_kernel import (
-    _Args, _lib, chain_plan, decoder_bwd_chain_mega,
-    decoder_bwd_chain_reference, product_weights)
+    MAX_LOCATION_TAPS, _Args, _lib, c3_cols, chain_plan,
+    decoder_bwd_chain_mega, decoder_bwd_chain_reference, product_weights)
 from tacotron2_torch.ops.decoder_megakernel import (
-    decoder_infer_mega, decoder_infer_mega_reference, weight_bytes)
+    _lib as _dec_lib, decode_smem, decoder_infer_mega,
+    decoder_infer_mega_reference, kernel_widths, weight_bytes)
 from tacotron2_torch.ops.decoder_train_kernel import (
-    decoder_fwd_train_mega, decoder_fwd_train_reference, kernel_operands,
-    operand_bytes)
+    _lib as _fwd_lib, decoder_fwd_train_mega, decoder_fwd_train_reference,
+    fwd_smem, kernel_operands, operand_bytes)
 
 # every width a multiple of 8, as the decode kernel's vector loads need
 SMALL = dict(n_mels=8, prenet_dim=16, symbols_embedding_dim=32,
@@ -88,8 +89,11 @@ def tail_inputs(b, t, a, d, seed, device, dtype=torch.float32):
             make_pad_mask(torch.from_numpy(lens), t).to(device), f(b, t, d))
 
 
-def small_decoder(device, dtype=torch.float32, gate_bias=None):
-    model = init_weights(Tacotron2(ModelConfig(**SMALL)), seed=0)
+def small_decoder(device, dtype=torch.float32, gate_bias=None, **widths):
+    """The SMALL decoder (``widths`` override its config) on ``device``,
+    with a seeded memory and mask."""
+    model = init_weights(Tacotron2(ModelConfig(**dict(SMALL, **widths))),
+                         seed=0)
     if gate_bias is not None:
         with torch.no_grad():
             model.decoder.gate_layer.bias.fill_(gate_bias)
@@ -307,6 +311,35 @@ def test_cuda_tail_plan_matches_the_kernel_at_any_d(t, d, mem_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,mem_dtype,b,t,d", [
+    (torch.float32, torch.float32, 1, 8, 16392),     # past a ring stage
+    (torch.bfloat16, torch.float32, 2, 8, 16384),    # past a block
+    (torch.float32, torch.float32, 1, 1100, 16392),  # two tiles of rows
+    (torch.bfloat16, torch.bfloat16, 3, 40, 40001),  # odd D, bf16 rows
+    (torch.float32, torch.bfloat16, 2, 37, 33000)])
+def test_cuda_tail_takes_wide_rows(q_dtype, mem_dtype, b, t, d):
+    """Memory rows too wide for the ring (C6) take the wide kernel: one
+    launch, the plain version's values at the usual limit, two launches
+    bit for bit, and the plan's shared memory the kernel's."""
+    dev = cuda_device()
+    plan = tail_plan(b, t, 128, d, mem_dtype)
+    assert plan.wide
+    assert _tail_lib().t2_attention_tail_wide_smem(
+        plan.tile_rows) == plan.smem_bytes
+    ins = list(tail_inputs(b, t, 128, d, seed=d, device=dev, dtype=q_dtype))
+    ins[5] = ins[5].to(mem_dtype)
+    before = attention_tail.launches
+    got = attention_tail(*ins)
+    again = attention_tail(*ins)
+    ref = attention_tail_reference(*ins)
+    torch.cuda.synchronize()
+    assert attention_tail.launches == before + 2
+    for g, r, x in zip(got, ref, again):
+        torch.testing.assert_close(g, r, atol=TAIL_TOL, rtol=0)
+        assert torch.equal(g, x)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_step_loop_with_the_tail(dtype):
     """The step loop with the kernel's tail against the plain loop:
@@ -454,9 +487,9 @@ PAIR_TOL = {torch.float32: 5e-5, torch.bfloat16: 1.5e-2}
 
 
 def train_inputs(device, dtype=torch.float32, dropout=True, b=B, t_enc=T_ENC,
-                 t_dec=T_DEC):
-    kw = dict(SMALL) if dropout else dict(
-        SMALL, p_attention_dropout=0.0, p_decoder_dropout=0.0)
+                 t_dec=T_DEC, **widths):
+    kw = dict(SMALL, **widths) if dropout else dict(
+        SMALL, p_attention_dropout=0.0, p_decoder_dropout=0.0, **widths)
     model = init_weights(Tacotron2(ModelConfig(**kw)), seed=0)
     if dtype == torch.bfloat16:
         model = cast_params_bf16(model)
@@ -575,6 +608,84 @@ def test_cuda_train_backward_matches_plain(dtype, b, t_enc, dropout):
         assert torch.equal(x, y), f"{name}: two runs differ"
 
 
+# C6: an attention width or location conv whose location rows (the reverse
+# chain's phase C3) or composed matrix (the forward's and the decode's
+# shared memory) did not fit a block; refused on the card before
+C6_WIDTHS = [(512, 31), (128, 95), (296, 31), (512, 95), (1024, 63)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,k", C6_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_pair_at_c6_widths(dtype, a, k):
+    """Both training kernels at widths past one block's location rows or
+    matrix, against their plain versions; the reverse chain stages A in
+    chunks, two runs bit for bit."""
+    _, args, cots = train_inputs(cuda_device(), dtype, True, 5, 37,
+                                 attention_dim=a, location_kernel_size=k)
+    cfg, ops, _, memory, _, _, mka, mkd = args
+    assert chain_plan(kernel_widths(cfg), 5, 37, k,
+                      dtype).location_chunks > 1
+    before = (decoder_fwd_train_mega.launches,
+              decoder_bwd_chain_mega.launches)
+    got = decoder_fwd_train_mega(*args)
+    ref = decoder_fwd_train_reference(*args)
+    torch.cuda.synchronize()
+    assert_outputs_close(FWD_OUT, got, ref, PAIR_TOL[dtype])
+    _, attns, _, ca_s, _, cd_s, qsum_s, aa_s, ad_s = ref
+    bargs = (cfg, ops, memory, mka, mkd, aa_s, ad_s, ca_s, cd_s, attns,
+             qsum_s, *cots)
+    got = decoder_bwd_chain_mega(*bargs)
+    again = decoder_bwd_chain_mega(*bargs)
+    torch.cuda.synchronize()
+    assert (decoder_fwd_train_mega.launches - before[0],
+            decoder_bwd_chain_mega.launches - before[1]) == (1, 2)
+    assert_outputs_close(BWD_OUT, got, decoder_bwd_chain_reference(*bargs),
+                         PAIR_TOL[dtype])
+    for name, x, y in zip(BWD_OUT, got, again):
+        assert torch.equal(x, y), f"{name}: two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,k", [(512, 95), (1024, 63)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_at_c6_widths(dtype, a, k):
+    """The decode kernel where its location matrix is left in L2 (fp32
+    at both widths, bf16 at 1024 x 63) or only just fits, against the
+    plain step loop."""
+    dec, memory, mask = small_decoder(cuda_device(), dtype, attention_dim=a,
+                                      location_kernel_size=k)
+    _, resident = decode_smem(B, T_ENC, a, k, dtype)
+    assert resident == (dtype == torch.bfloat16 and a == 512)
+    decode_pair((dec, memory, MAX, 0.5, True, mask, "any", None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a,k", [(128, 31), (512, 95), (1024, 63),
+                                 (384, 127), (296, 31)])
+def test_cuda_c6_layouts_match_the_kernels(a, k, dtype):
+    """The host's mirrors of the three decoder kernels' shared memory:
+    the decode's and the forward's layouts (negative where the location
+    matrix is left in L2), the reverse chain's C3 columns and its bytes."""
+    cuda_device()
+    bf16 = int(dtype == torch.bfloat16)
+    smem, resident = decode_smem(4, 128, a, k, dtype)
+    assert _dec_lib().t2_decoder_infer_smem_bytes(4, 128, a, k, bf16) == (
+        smem if resident else -smem)
+    smem, resident = fwd_smem(128, a, k, dtype)
+    assert _fwd_lib().t2_decoder_train_fwd_smem_bytes(128, a, k, bf16) == (
+        smem if resident else -smem)
+    assert _lib().t2_decoder_train_bwd_c3_cols(a, k) == c3_cols(a, k)
+    dims = dict(FULL_DIMS, A=a)
+    args = _Args(B=16, T=128, K=k, **dims)
+    assert _lib().t2_decoder_train_bwd_smem_bytes(args) == chain_plan(
+        dims, 16, 128, k, dtype).smem_bytes
+    assert _lib().t2_decoder_train_bwd_c3_cols(128, MAX_LOCATION_TAPS) == 8
+    assert _lib().t2_decoder_train_bwd_c3_cols(128,
+                                               MAX_LOCATION_TAPS + 1) == 0
+
+
 FULL = ModelConfig()
 FULL_DIMS = dict(H=FULL.decoder_rnn_dim, P=FULL.prenet_dim,
                  E=FULL.encoder_embedding_dim, A=FULL.attention_dim,
@@ -608,19 +719,48 @@ def test_chain_plan(b, t_enc, dtype):
 
 
 @pytest.mark.parametrize("dims,b,t_enc,dtype,err", [
-    (dict(FULL_DIMS, A=512), 16, 128, torch.bfloat16, ValueError),
-    (dict(FULL_DIMS, A=1024), 16, 128, torch.float32, ValueError),
     (FULL_DIMS, 0, 128, torch.bfloat16, ValueError),
     (FULL_DIMS, -1, 128, torch.float32, ValueError),
     (FULL_DIMS, 16, 0, torch.float32, ValueError),
     (FULL_DIMS, 16, 128, torch.float16, TypeError),
     (FULL_DIMS, 5, 37, torch.float64, TypeError)])
 def test_chain_plan_rejects(dims, b, t_enc, dtype, err):
-    """An empty batch or encoder, another weight dtype, and an attention
-    width whose staged location rows would leave no room for two blocks an
-    SM."""
+    """An empty batch or encoder and another weight dtype."""
     with pytest.raises(err):
         chain_plan(dims, b, t_enc, FULL.location_kernel_size, dtype)
+
+
+@pytest.mark.parametrize("taps", [0, MAX_LOCATION_TAPS + 1])
+def test_chain_plan_rejects_taps_past_its_limit(taps):
+    """Past 1203 taps not even 8 columns of phase C3's staged rows and
+    matrix fit a block."""
+    assert MAX_LOCATION_TAPS == 1203
+    with pytest.raises(ValueError, match="taps"):
+        chain_plan(FULL_DIMS, 16, 128, taps, torch.bfloat16)
+
+
+@pytest.mark.parametrize("a,taps,dtype,cols,chunks,smem", [
+    # refused before C6's repair (staged rows past two blocks an SM)
+    (512, 31, torch.bfloat16, 256, 2, 102400),
+    (1024, 31, torch.float32, 256, 4, 102400),
+    (296, 31, torch.bfloat16, 152, 2, 74240),
+    (128, 95, torch.float32, 64, 2, 74752),
+    (512, 95, torch.bfloat16, 88, 6, 102784),
+    (128, MAX_LOCATION_TAPS, torch.bfloat16, 8, 16, 115712),
+    # the default widths and one more wide A: one chunk, as before
+    (128, 31, torch.bfloat16, 128, 1, 74240),
+    (288, 31, torch.float32, 288, 1, 115200)])
+def test_chain_plan_takes_wide_location(a, taps, dtype, cols, chunks, smem):
+    """Where the kWarps + K - 1 location rows and the (2K, A) matrix do
+    not fit a block at once, phase C3 stages A in chunks, a multiple of 8
+    columns evened out; shared memory stays within two blocks an SM."""
+    dims = dict(FULL_DIMS, A=a)
+    plan = chain_plan(dims, 16, 128, taps, dtype)
+    assert (plan.location_cols, plan.location_chunks) == (cols, chunks)
+    assert plan.location_cols % 8 == 0
+    assert (chunks - 1) * cols < a <= chunks * cols
+    assert plan.smem_bytes == smem and 2 * (smem + 1024) <= 228 * 1024
+    assert plan.location_cols == c3_cols(a, taps)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -797,7 +937,10 @@ def test_conv_bn_act_rejects_what_it_cannot_launch():
     (40, 32, 8, 1, 70), (36, 40, 9, 2, 129),
     # the halo-8 and halo-16 builds: taps in groups of 9, fewer stages
     (512, 512, 11, 2, 130), (40, 72, 15, 1, 70), (64, 40, 33, 2, 129),
-    (36, 40, 16, 1, 65)])
+    (36, 40, 16, 1, 65),
+    # past 33 taps (C6): tap groups of at most 30, each its own window
+    (512, 512, 35, 2, 130), (40, 72, 64, 1, 70), (64, 40, 65, 2, 129),
+    (36, 40, 129, 1, 200)])
 def test_cuda_conv_bn_act_matches_plain(c_in, c_out, k, b, t, dtype, act):
     dev = cuda_device()
     conv, bn = conv_layer(c_in, c_out, k, dtype, seed=c_in + t, device=dev)
@@ -816,6 +959,28 @@ def test_cuda_conv_bn_act_matches_plain(c_in, c_out, k, b, t, dtype, act):
 
 def conv_share(got, ref):
     return float((got - ref).abs().max()) / float(ref.abs().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [35, 64, 65, 129])
+def test_cuda_conv_bn_act_long_kernels(k, dtype, split):
+    """Kernel sizes past 33 taps (C6), odd and even, at each split of
+    C_in over a cluster, against the plain version; two launches bit for
+    bit."""
+    dev = cuda_device()
+    conv, bn = conv_layer(80, 512, k, dtype, seed=k, device=dev)
+    x = torch.randn(1, 80, 37,
+                    generator=torch.Generator().manual_seed(k)).to(dev)
+    fold = folded_weights(conv, bn, 1e-5)
+    before = conv_bn_act.launches
+    got = _launch(x, fold, "tanh", split)
+    again = _launch(x, fold, "tanh", split)
+    torch.cuda.synchronize()
+    assert conv_bn_act.launches == before + 2 and torch.equal(got, again)
+    ref = conv_bn_act_reference(x, conv, bn, 1e-5, "tanh")
+    assert conv_share(got, ref) <= CONV_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -901,9 +1066,15 @@ def test_cuda_conv_bn_act_checks_inputs():
     with pytest.raises(TypeError, match="input dtype"):
         conv_bn_act(torch.zeros(1, 8, 4, device=dev, dtype=torch.float16),
                     conv, bn, 1e-5, "relu")
+    # 35 taps, refused before C6's repair, now run in two tap groups
     long, _ = conv_layer(8, 8, 35, torch.float32, 0, dev)
-    with pytest.raises(ValueError, match="kernel sizes up to 33"):
-        conv_bn_act(torch.zeros(1, 8, 4, device=dev), long, bn, 1e-5, "relu")
+    x = torch.randn(1, 8, 4, generator=torch.Generator().manual_seed(0))
+    before = conv_bn_act.launches
+    got = conv_bn_act(x.to(dev), long, bn, 1e-5, "relu")
+    torch.cuda.synchronize()
+    assert conv_bn_act.launches == before + 1
+    ref = conv_bn_act_reference(x.to(dev), long, bn, 1e-5, "relu")
+    assert conv_share(got, ref) <= CONV_TOL[torch.float32]
     cpu_conv, cpu_bn = conv_layer(8, 8, 5, torch.float32, 0, "cpu")
     with pytest.raises(ValueError, match="different devices"):
         conv_bn_act(torch.zeros(1, 8, 4, device=dev), cpu_conv, cpu_bn, 1e-5,

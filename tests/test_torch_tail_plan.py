@@ -4,7 +4,8 @@ The CUDA kernel (``tacotron2_torch/csrc/attention_tail.cu``) runs only on
 a card; what it does on the host side and the order of its sums are held
 here.  :func:`tail_plan` must cover every T_enc row once with a cluster of
 at most eight blocks, none of them empty, within a block's shared memory,
-and refuse what the kernel cannot take.  :func:`split_tail` replays the
+take rows too wide for that to the wide kernel, and refuse an empty shape
+or another dtype.  :func:`split_tail` replays the
 kernel's order in plain PyTorch (each block's rows tile by tile with a
 running max, sum and partial context, then the combination over the
 cluster and its reduce-scatter over D / S columns); it is held against the port's ``attention_tail_reference``
@@ -21,7 +22,7 @@ import torch
 
 from tacotron2_tpu.ops.attention_kernel import attention_tail as pallas_tail
 from tacotron2_torch.ops.attention_kernel import (
-    HEAD_BYTES, MAX_SPLIT, STAGE_BYTES, attention_tail,
+    HEAD_BYTES, MAX_SPLIT, STAGE_BYTES, WIDE_TILE_ROWS, attention_tail,
     attention_tail_reference, tail_plan)
 
 A, D = 16, 24
@@ -59,13 +60,33 @@ def test_tail_plan_covers_every_row_once(t, b, mem_dtype):
 @pytest.mark.parametrize("args,err,match", [
     ((0, 8, 128, 512, torch.float32), ValueError, "shapes"),
     ((1, 0, 128, 512, torch.float32), ValueError, "shapes"),
-    ((1, 8, 128, 16392, torch.float32), ValueError, "ring stage"),
-    ((1, 8, 128, 16384, torch.float32), ValueError, "shared memory"),
     ((1, 8, 128, 512, torch.float16), TypeError, "memory dtype"),
 ])
 def test_tail_plan_refuses(args, err, match):
     with pytest.raises(err, match=match):
         tail_plan(*args)
+
+
+@pytest.mark.parametrize("args,tile_rows", [
+    # a 65568-byte row, past a ring stage (refused before the repair)
+    ((1, 8, 128, 16392, torch.float32), 8),
+    # a 65536-byte row: one fits a stage, but two stages, the partial and
+    # the slices pass a block's shared memory (refused before the repair)
+    ((1, 8, 128, 16384, torch.float32), 8),
+    # rows past WIDE_TILE_ROWS: the wide kernel's tiles
+    ((2, 1500, 128, 40000, torch.bfloat16), WIDE_TILE_ROWS),
+])
+def test_tail_plan_takes_wide_rows(args, tile_rows):
+    """Memory rows too wide for a ring stage or a block take the wide
+    kernel: one block a column slice over all rows, shared memory the head
+    and the tile's e and p, nothing that grows with D."""
+    b, t, a, d, mem_dtype = args
+    plan = tail_plan(*args)
+    assert plan.wide and plan.split == 1 and plan.rows == t
+    assert plan.stages == 0 and plan.tile_rows == tile_rows
+    assert plan.smem_bytes == HEAD_BYTES + 2 * up16(4 * tile_rows)
+    assert plan.smem_bytes <= SMEM_227_KB
+    assert not tail_plan(b, t, a, 512, mem_dtype).wide
 
 
 @pytest.mark.parametrize("args", [

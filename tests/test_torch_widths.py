@@ -6,8 +6,10 @@ their wrappers zero-pad the weights and inputs of any other config
 ``ops/decoder_train_kernel.py::pad_series``) and cut the padding off what
 comes back.  These tests run the plain versions on padded operands, which
 is the arithmetic the kernels do on them, and hold the result to the
-unpadded config's: the padding only adds zero terms.  The conv takes any
-kernel size up to 33 taps, odd or even: its plain version is checked here
+unpadded config's: the padding only adds zero terms; where the location
+matrix does not fit a block's shared memory the layouts leave it in L2.
+The conv takes any kernel size, odd or even (past 33 taps in groups): its
+plain version and the fold's tap groups are checked here
 (the attention tail's plan for any A and D in
 ``tests/test_torch_tail_plan.py``), the launches in
 ``tests/test_torch_kernels.py`` on the card.
@@ -25,16 +27,21 @@ from tacotron2_torch.models.layers import BatchNorm, Conv1d
 from tacotron2_torch.models.tacotron2 import (Tacotron2, init_weights,
                                               make_pad_mask)
 from tacotron2_torch.ops.attention_kernel import attention_tail_reference
-from tacotron2_torch.ops.convbn_kernel import (MAX_TAPS, conv_bn_act,
-                                               conv_bn_act_reference)
+from tacotron2_torch.ops.convbn_kernel import (LONG_TAPS, ONE_GROUP_TAPS,
+                                               conv_bn_act,
+                                               conv_bn_act_reference,
+                                               fold_conv_bn, folded_weights,
+                                               tap_groups)
 from tacotron2_torch.ops.decoder_bwd_kernel import decoder_bwd_chain_reference
-from tacotron2_torch.ops.decoder_megakernel import (_weights, _widths,
-                                                    check_launch,
+from tacotron2_torch.ops.decoder_megakernel import (SMEM_LIMIT, _weights,
+                                                    _widths, check_launch,
+                                                    decode_smem,
                                                     kernel_widths, pad_gates,
                                                     pad_operands, pad_to,
                                                     unpad_gates)
 from tacotron2_torch.ops.decoder_train_kernel import (
-    decoder_fwd_train_reference, kernel_operands, pad_series, unpad_series)
+    decoder_fwd_train_reference, fwd_smem, kernel_operands, pad_series,
+    unpad_series)
 from tacotron2_torch.ops.decoder_bptt import core_params
 
 SMALL = dict(n_mels=8, prenet_dim=16, symbols_embedding_dim=32,
@@ -276,7 +283,8 @@ def test_decode_checks_still_raise():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [2, 4, 5, 6, 8, 9, 16, MAX_TAPS])
+@pytest.mark.parametrize("k", [2, 4, 5, 6, 8, 9, 16, ONE_GROUP_TAPS, 35, 64,
+                               65, 129])
 def test_conv_plain_version_pads_as_the_model(k, dtype):
     """The folded conv's plain version, odd or even K, equals the model's
     unfused conv + eval BatchNorm + ReLU ('same' padding of
@@ -298,3 +306,54 @@ def test_conv_plain_version_pads_as_the_model(k, dtype):
     assert rel_err(got, ref) <= tol
     assert torch.equal(got, conv_bn_act_reference(x, conv.to(dtype), bn,
                                                   1e-5, "relu"))
+
+
+@pytest.mark.parametrize("k,groups,taps", [
+    (5, 1, 5), (ONE_GROUP_TAPS, 1, ONE_GROUP_TAPS), (34, 2, 17), (35, 2, 18),
+    (60, 2, 30), (61, 3, 21), (64, 3, 22), (65, 3, 22), (129, 5, 26)])
+def test_conv_tap_groups_cover_the_kernel(k, groups, taps):
+    """Past ONE_GROUP_TAPS the kernel runs its taps in the fewest groups of
+    at most LONG_TAPS, evened out; the fold holds whole groups, its taps
+    past K zero, the first K the folded weights."""
+    assert tap_groups(k) == (groups, taps)
+    assert taps <= (LONG_TAPS if k > ONE_GROUP_TAPS else ONE_GROUP_TAPS)
+    assert (groups - 1) * taps < k <= groups * taps
+    g = torch.Generator().manual_seed(k)
+    conv, bn = Conv1d(40, 70, k), BatchNorm(70)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g))
+    fold = folded_weights(conv, bn, 1e-5)
+    assert fold.taps == k and fold.w.shape == (groups * taps, 128, 64)
+    wmat, _ = fold_conv_bn(conv, bn, 1e-5)
+    assert torch.equal(fold.w[:k, :70, :40], wmat.permute(0, 2, 1))
+    assert not fold.w[k:].any() and not fold.w[:, 70:].any()
+    assert not fold.w[:, :, 40:].any()
+
+
+# the decoder kernels' shared memory at the default widths: the layouts
+# of the kernels before C6's repair, the location matrix resident
+@pytest.mark.parametrize("dtype,decode,fwd", [
+    (torch.bfloat16, 44688, 57440), (torch.float32, 60560, 73312)])
+def test_decoder_layouts_at_the_default_widths(dtype, decode, fwd):
+    cfg = ModelConfig()
+    assert decode_smem(4, 128, cfg.attention_dim, cfg.location_kernel_size,
+                       dtype) == (decode, True)
+    assert fwd_smem(128, cfg.attention_dim, cfg.location_kernel_size,
+                    dtype) == (fwd, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a,taps", [(512, 95), (1024, 63), (384, 127),
+                                    (1024, 1203)])
+def test_decoder_layouts_leave_a_wide_location_matrix_in_l2(a, taps, dtype):
+    """Where the (2K, A) location matrix would take a block past
+    SMEM_LIMIT (the launch failed there before C6's repair), the layout
+    leaves it out and the kernels read it from L2; the rest still fits."""
+    wl = 2 * taps * a * dtype.itemsize
+    layouts = (decode_smem(4, 128, a, taps, dtype),
+               fwd_smem(128, a, taps, dtype))
+    for smem, resident in layouts:
+        assert smem <= SMEM_LIMIT
+        assert resident or smem + wl > SMEM_LIMIT
+    # the forward's ring (16 batch rows) is the larger: it leaves first
+    assert not layouts[1][1]
