@@ -183,7 +183,11 @@ it fails:
     generator, one LSB; the bf16 generator ``STREAM_BF16_LSB``); the
     generator on the card against the CPU's, bf16 against fp32,
     ``vocoder_chunk_frames=64`` against whole, and its device ms per
-    second of audio at B=1 and 8 in fp32 and bf16.
+    second of audio at B=1 and 8 in fp32 and bf16.  After the serial
+    requests, ``tools/load_test.py`` as a process against the same server
+    at concurrency 1, 4 and 8 (``LOAD_REQUESTS`` a level): every request
+    200, its report lines, the run's batching stats from ``/healthz``
+    (batches coalesced), the launches of #2 and #5 during it.
 
 18. the data path on the trained multi-speaker checkpoint
     ``checkpoints/r5_ms_bf16``: the seed-5, 4-speaker, 2048-row corpus of
@@ -271,8 +275,24 @@ it fails:
     greedy on the same 1,500 words; the export read back by
     ``text/lts_neural.py``.
 
+22. the measurement and serving tools of ``tools/`` at the JAX tools'
+    batch sizes, full width, seeded weights (``tools_phase``): the decode
+    sweep of ``bench_infer_scaling_torch`` (kernel and step loop, B=1, 8,
+    64, forced stops of 300 and 1000 frames), its sharded (two replicas on
+    this card, B=8) and bucketed sweeps, ``bench_train_scaling_torch`` at
+    B=16 and 128 with split BPTT on and off (no ``FAILED`` line), and
+    ``profile_train_step_torch`` at B=128, with the launch counters zeroed
+    before and read after; then each kernel against its plain version on
+    the tools' own calls: #2 on the B=64 decode to 1000 frames
+    (``DEC_TOL``, frame_ends equal), #1 on every step of the same decode
+    by the step loop (``TAIL_TOL``), #5 on its eight layers
+    (``CONV_TOL``), #3 and #4 on the first B=128 split step (phase 10's
+    rule; #4 beside the plain version's own CPU-card spread);
+    ``verify_ngc_checkpoint_torch`` on a seeded weight-normed file and
+    ``export_reference_corpus_torch`` on phase 18's processed corpus.
+
 Phases 11-14 and 17 run after phase 7, before the training phases,
-phases 15 and 16 after phase 10, then phases 18, 19, 20 and 21 last.  The
+phases 15 and 16 after phase 10, then phases 18-22 last.  The
 ``kernels`` line has five entries; the serving path's three carry
 ``serve_path_launches``, the data path's three ``quality_path_launches``,
 the data-parallel training path's four ``dp_path_launches`` (one rank's),
@@ -280,20 +300,24 @@ the sharded serving path's two ``sharded_path_launches``, the
 tensor-parallel training path's ``tp_path_launches`` (one rank's),
 its serving path's ``tp_sharded_path_launches``, and every kernel
 phase 16's ``c6_launches``, ``c6_max_abs_err`` and ``c6_device_ms`` (by
-config).  The last
+config; ``conv_bn_act`` also ``c6_library_ms``, cuDNN's), the decode and
+conv kernels ``load_test_launches`` (phase 17), and every kernel phase
+22's ``tools_path_launches`` and ``tools_path_max_abs_err``.  The last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``tacotron2_tpu``, and reads no weights file from the repository but the
-checkpoints of phases 14 and 18 and, in phase 21, the committed LTS
-artifact.
+checkpoints of phases 14 and 18, in phase 21 the committed LTS artifact,
+and in phase 22 ``docs/ngc_hifigan_manifest.json``.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
 import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -654,6 +678,22 @@ def bound(n_bytes: float, n_ops: float, dtype: torch.dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def pair_share(name: str, g, r):
+    """``compare_outputs``' rule for one output: (the largest error past
+    BF16_ULPS roundings of the plain value where it is stored in bf16, as a
+    share of the plain output's mean size; the largest absolute error; the
+    mean size)."""
+    stored_bf16 = r.dtype == torch.bfloat16
+    g, r = g.detach().float(), r.detach().float()
+    err = (g - r).abs()
+    err_over = ((err - BF16_ULPS * 2.0 ** -7 * r.abs()).clamp_(min=0)
+                if stored_bf16 else err)
+    if name == "frames":
+        r = r - r.mean(dim=(0, 1), keepdim=True)
+    scale = float(r.abs().mean())
+    return float(err_over.max()) / scale, float(err.max()), scale
+
+
 def compare_outputs(names, got, ref, tol, where: str, unheld=()):
     """Hold a training kernel's outputs against its plain version's.  Per
     element the error may reach BF16_ULPS bf16 roundings of the plain value
@@ -668,17 +708,7 @@ def compare_outputs(names, got, ref, tol, where: str, unheld=()):
               f"{tuple(r.shape)} {r.dtype}")
         check(bool(torch.isfinite(g).all()), f"{where}: non-finite {name}")
         stored_bf16 = r.dtype == torch.bfloat16
-        g, r = g.detach().float(), r.detach().float()
-        err = (g - r).abs()
-        if stored_bf16:     # one bf16 step is at most 2^-7 of the value
-            err_over = (err - BF16_ULPS * 2.0 ** -7 * r.abs()).clamp_(min=0)
-        else:
-            err_over = err
-        if name == "frames":
-            r = r - r.mean(dim=(0, 1), keepdim=True)
-        scale = float(r.abs().mean())
-        errs[name] = float(err.max())
-        share = float(err_over.max()) / scale
+        share, errs[name], scale = pair_share(name, g, r)
         parts.append(f"{name} {errs[name]:.2e}: "
                      + (f"past {BF16_ULPS} roundings " if stored_bf16 else "")
                      + f"{share:.2e} of mean {scale:.2e} ("
@@ -2401,7 +2431,10 @@ def c6_train_step(dev, widths: dict) -> dict:
 def c6_widths(dev) -> dict:
     """Phase 16, C6: the configs each kernel refused before.  Returns, per
     kernel, ``c6_launches``, ``c6_max_abs_err`` and ``c6_device_ms`` (by
-    config) for the kernels line."""
+    config) for the kernels line, and for the long convs
+    ``c6_library_ms`` (cuDNN's call and device ms by config)."""
+    import torch.nn.functional as F
+
     from tacotron2_torch.config import Config, ModelConfig
     from tacotron2_torch.models.encoder import encoder_apply
     from tacotron2_torch.models.tacotron2 import (Tacotron2, init_weights,
@@ -2412,7 +2445,7 @@ def c6_widths(dev) -> dict:
         attention_tail, attention_tail_reference, tail_plan)
     from tacotron2_torch.ops.convbn_kernel import (conv_bn_act,
                                                    conv_bn_act_reference,
-                                                   tap_groups)
+                                                   fold_conv_bn, tap_groups)
     from tacotron2_torch.ops.decoder_megakernel import (decode_smem,
                                                         decoder_infer_mega)
     from tacotron2_torch.train import step as train
@@ -2525,17 +2558,32 @@ def c6_widths(dev) -> dict:
                 count = conv_bn_act.launches
                 ms = graph_ms(lambda: conv_bn_act(x, conv, bn, 1e-5,
                                                   "tanh"), 20)
+                # the library call beside it: cuDNN's conv on the folded
+                # weights (TF32 off), the fp32 bias and the activation
+                wmat, h = fold_conv_bn(conv, bn, 1e-5)
+                w_oik = wmat.permute(2, 1, 0).to(dtype).contiguous()
+                lib = lambda: torch.tanh(F.conv1d(
+                    x.to(dtype), w_oik, padding=(k - 1) // 2).float()
+                    + h[None, :, None])
+                lib_dev = graph_ms(lib, 20)
+                lib_call = time_ms(lib, 10)
+                call_ms = time_ms(lambda: conv_bn_act(x, conv, bn, 1e-5,
+                                                      "tanh"), 10)
             share = conv_share(got, want)
             err = float((got - want).abs().max())
             print(f"[odd widths C6] conv_bn_act K={k} ({tap_groups(k)[0]} "
                   f"tap groups) 512->512 B=4 T=400 {str(dtype)[6:]}: "
                   f"{share:.2e} of the mean (limit {CONV_TOL[dtype]:g}), "
-                  f"device {ms:.4f} ms (graph), launches {count}",
-                  flush=True)
+                  f"device {ms:.4f} ms (graph), {call_ms:.4f} ms a call, "
+                  f"launches {count}; cuDNN F.conv1d on the folded weights "
+                  f"{lib_dev:.4f} ms device (graph), {lib_call:.4f} ms a "
+                  f"call", flush=True)
             check(count == 1 and share <= CONV_TOL[dtype],
                   f"phase 16 C6 conv_bn_act K={k} {dtype}: {share}")
-            add("conv_bn_act", f"K={k} {str(dtype)[6:]} 512->512 B=4 T=400",
-                1, err, ms)
+            config = f"K={k} {str(dtype)[6:]} 512->512 B=4 T=400"
+            add("conv_bn_act", config, 1, err, ms)
+            out["conv_bn_act"].setdefault("c6_library_ms", {})[config] = dict(
+                call_ms=lib_call, device_ms=lib_dev)
 
     # (d) attention_tail with a 65568-byte fp32 memory row
     f = lambda *shape: torch.randn(*shape, generator=g).to(dev)
@@ -2577,6 +2625,8 @@ STREAM_LSB = 1          # streamed vs one-shot HiFi-GAN PCM, fp32 generator
 # the same with the bf16 generator the service serves: its windows round
 # apart from the one-shot call (16 LSB read on the H100), held at 4x that
 STREAM_BF16_LSB = 64
+LOAD_LEVELS = (1, 4, 8)  # tools/load_test.py's concurrency sweep
+LOAD_REQUESTS = 8       # requests a level
 
 
 def http_post(url: str, payload: dict, stream: bool = False):
@@ -2625,14 +2675,66 @@ def latency_line(name: str, secs, audio_s: float, wall: float) -> str:
             f"{audio_s / wall:.2f} s of audio per wall second")
 
 
+def load_test_run(url: str, root: str, smi: str, kernels) -> dict:
+    """``tools/load_test.py`` as a process against the server at ``url``
+    at ``LOAD_LEVELS``, ``LOAD_REQUESTS`` a level (Griffin-Lim): every
+    request 200, its report lines printed, ``/healthz``'s batching stats
+    over the run (some batches must coalesce).  Returns the launches of
+    ``kernels`` (the decode and conv kernels' wrappers) during the run."""
+    health0 = http_get_json(url + "/healthz")
+    before = [k.launches for k in kernels]
+    t1 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.join("tools", "load_test.py"), "--url", url,
+         "--concurrency", ",".join(map(str, LOAD_LEVELS)), "--requests",
+         str(LOAD_REQUESTS), "--warmup", "0", "--timeout",
+         str(SERVE_TIMEOUT_S)], cwd=root, capture_output=True, text=True,
+        timeout=len(LOAD_LEVELS) * SERVE_TIMEOUT_S)
+    wall = time.perf_counter() - t1
+    launches = {k.__name__: k.launches - n for k, n in zip(kernels, before)}
+    check(run.returncode == 0, f"tools/load_test.py exit {run.returncode}: "
+          f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+    levels = [json.loads(ln) for ln in run.stdout.splitlines()
+              if ln.startswith("{")]
+    check([lv.get("concurrency") for lv in levels] == list(LOAD_LEVELS)
+          and all(lv.get("requests") == LOAD_REQUESTS for lv in levels)
+          and " errors, first:" not in run.stderr,
+          f"tools/load_test.py: not every request 200: {run.stdout} "
+          f"{run.stderr[-2000:]}")
+    for lv in levels:
+        print(f"[serve load_test] concurrency {lv['concurrency']}: "
+              f"{lv['requests']} requests, all 200; {lv['req_per_s']} "
+              f"requests/s, {lv['audio_sec_per_wall_sec']} s of audio per "
+              f"wall s; latency p50 {lv['latency_p50_s']} s, p90 "
+              f"{lv['latency_p90_s']} s, max {lv['latency_max_s']} s "
+              f"({smi})", flush=True)
+    health = http_get_json(url + "/healthz")
+    run_stats = {k: health[k] - health0[k]
+                 for k in ("requests", "batches", "batched_requests")}
+    print(f"[serve load_test] tools/load_test.py --concurrency "
+          f"{','.join(map(str, LOAD_LEVELS))} --requests {LOAD_REQUESTS}: "
+          f"{wall:.1f} s wall; over the run {run_stats}, healthz {health}; "
+          f"launches {launches}", flush=True)
+    check(run_stats["requests"] == len(LOAD_LEVELS) * LOAD_REQUESTS
+          and run_stats["batched_requests"] > 0
+          and run_stats["requests"] > run_stats["batches"]
+          and health["batch_retries"] == 0,
+          f"phase 17 load test: the batches did not coalesce: {run_stats}")
+    check(all(n > 0 for n in launches.values()),
+          f"phase 17 load test: launches {launches}")
+    return launches
+
+
 def serving_phase(dev, smi: str) -> dict:
     """Phase 17.  ``serve()``'s handler on a ``BatchingTTSService`` of
     ``checkpoints/r4_synth_bf16`` (bf16, ``max_batch=8``) and a seeded
     HiFi-GAN generator in NGC's file layout: batched, serial and streamed
     requests, long-form synthesis, both CLIs as subprocesses; then each
     kernel against its plain version on the inputs this path gave it, and
-    the generator on the card.  Returns each kernel's launches on the
-    path."""
+    the generator on the card.  Returns the kernels-line additions by
+    kernel name: each kernel's launches on the path
+    (``serve_path_launches``), the decode and conv kernels' during the
+    load test (``load_test_launches``)."""
     import signal
     import socket
     import threading
@@ -2746,6 +2848,10 @@ def serving_phase(dev, smi: str) -> dict:
         wall1 = time.perf_counter() - t1
         print(latency_line("concurrency 1", lat1, sum(frames1) * hop / sr,
                            wall1) + f" ({smi})", flush=True)
+
+        # tools/load_test.py, as a process of its own, against this server
+        load = load_test_run(url, root, smi,
+                             (decoder_infer_mega, conv_bn_act))
 
         # streaming, once per vocoder, recording the attention tail's
         # inputs and outputs; then HiFi-GAN once more on an fp32 generator
@@ -2865,6 +2971,10 @@ def serving_phase(dev, smi: str) -> dict:
               flush=True)
         check(all(n > 0 for n in launches.values()),
               f"phase 17: a kernel of the path did not launch: {launches}")
+        launches = {k: dict(serve_path_launches=n) for k, n in
+                    launches.items()}
+        for k, n in load.items():
+            launches[k]["load_test_launches"] = n
 
         # each kernel against its plain version on this path's inputs.
         # The batched decode: the service's (bf16, held as phase 14 holds
@@ -3050,11 +3160,12 @@ R5_TAILS = {"mcd_teacher_forced_db": (5.0, 8.0),
             "gate_timing_error_frames": (10.0, 25.0)}
 
 
-def data_path_phase(dev, smi: str) -> dict:
+def data_path_phase(dev, smi: str, keep: str) -> dict:
     """Phase 18.  The seed-5 corpus of ``checkpoints/r5_ms_bf16`` generated,
     preprocessed on the card and evaluated there against the TPU's report;
     then the three kernels of the path against their plain versions on its
-    inputs, and the ground-truth DSP round trip.  Returns the kernels-line
+    inputs, and the ground-truth DSP round trip.  The processed corpus is
+    copied to ``keep`` (phase 22 exports it).  Returns the kernels-line
     additions by kernel name."""
     import gt_vocoder_check_torch as gt_check
     from tacotron2_torch.config import AudioConfig, Config, ModelConfig
@@ -3332,6 +3443,7 @@ def data_path_phase(dev, smi: str) -> dict:
         check(rate == sr and bool(np.isfinite(gl).all())
               and float(np.abs(gl).max()) > 0,
               "phase 18: Griffin-Lim wrote no audio")
+        shutil.copytree(proc, keep)
         print(f"[data] phase 18 wall {time.perf_counter() - phase0:.1f} s",
               flush=True)
         return {"attention_tail": dict(quality_path_launches=launches[
@@ -4755,6 +4867,289 @@ def lts_phase(dev, smi: str) -> None:
           flush=True)
 
 
+# phase 22: the measurement and serving tools of tools/, at the batch sizes
+# the JAX package's tools run (decode to B=64, train at B=128)
+TOOLS_MEGA_BATCHES = (1, 8, 64)
+TOOLS_ITERS = 2         # timed calls a point (the tools' default is 5)
+TOOLS_TRAIN_BATCHES = "16,128"
+TOOLS_SHARDED_B = 8     # two replicas on cuda:0
+TOOLS_HELD_B = 64       # the decode held against the step loop
+TOOLS_HELD_STOP = 1000
+TOOLS_TRAIN_HELD_B = 128
+TOOLS_VAL_COUNT = 48    # phase 18's split, exported again
+
+
+def first_call(fn, keep):
+    """A stand-in for the wrapper ``fn`` that records the first call whose
+    arguments ``keep`` accepts: its arguments (tensors detached) and its
+    outputs."""
+    seen = {}
+
+    def recording(*args):
+        out = fn(*args)
+        if "args" not in seen and keep(args):
+            seen["args"] = tuple(x.detach() if torch.is_tensor(x) else x
+                                 for x in args)
+            seen["out"] = out
+        return out
+    # a wrapper that stands in its module's name counts its launches here
+    recording.launches = fn.launches
+    return recording, seen
+
+
+def tools_phase(dev, smi: str, processed: str) -> dict:
+    """Phase 22.  The tools of ``tools/`` at full ``ModelConfig()`` width,
+    with the launch counters zeroed before and read after: (a)
+    ``bench_infer_scaling_torch`` ``--sweep mega --bf16`` at B in
+    ``TOOLS_MEGA_BATCHES`` to stops of 300 and 1000 frames; (b) ``--sweep
+    sharded`` over two replicas on this card at B=8 and ``--sweep
+    buckets``; (c) ``bench_train_scaling_torch`` at B=16 and 128, split
+    BPTT on and off (a ``FAILED`` line fails the phase), the first B=128
+    split step's calls of #3 and #4 recorded; (d)
+    ``profile_train_step_torch`` at B=128 with the split.  Then each kernel
+    against its plain version on one call's real inputs: #2 on the mega
+    sweep's call at B=64 to 1000 frames (``DEC_TOL``, frame_ends equal),
+    #1 on every step of the same call by the step loop (``TAIL_TOL``), #5
+    on that request's eight layers (``CONV_TOL``), #3 and #4 on the
+    recorded B=128 step by phase 10's rule (#3 to ``MAIN_PAIR_TOL``; #4 to
+    the larger of it and twice the plain version's own spread, run on the
+    CPU against the card, on these inputs).  Then (e)
+    ``verify_ngc_checkpoint_torch`` on a seeded weight-normed generator
+    file in NGC's layout and (f) ``export_reference_corpus_torch`` on phase
+    18's processed corpus (``processed``), one item read back.  Returns
+    the kernels-line additions by kernel name."""
+    from tacotron2_torch.config import Config
+    from tacotron2_torch.models import hifigan as hg
+    from tacotron2_torch.models.tacotron2 import replace_config
+    from tacotron2_torch.ops import attention_kernel as ak
+    from tacotron2_torch.ops import decoder_bptt
+    from tacotron2_torch.ops import decoder_megakernel as dm
+    from tacotron2_torch.ops.convbn_kernel import conv_bn_act
+    from tacotron2_torch.ops.decoder_bwd_kernel import (
+        decoder_bwd_chain_mega, decoder_bwd_chain_reference)
+    from tacotron2_torch.ops.decoder_train_kernel import (
+        decoder_fwd_train_mega, decoder_fwd_train_reference)
+    sys.path.insert(0, os.path.join(R5_ROOT, "tools"))
+    try:
+        import bench_infer_scaling_torch as infer_tool
+        import bench_train_scaling_torch as train_tool
+        import export_reference_corpus_torch as export_tool
+        import profile_train_step_torch as profile_tool
+        import verify_ngc_checkpoint_torch as ngc_tool
+    finally:
+        sys.path.pop(0)
+
+    phase0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = Config()
+    lines = []
+
+    def log(msg: str) -> None:
+        lines.append(msg)
+        print(f"[tools] {msg.strip()}", flush=True)
+
+    kernels = (ak.attention_tail, dm.decoder_infer_mega,
+               decoder_fwd_train_mega, decoder_bwd_chain_mega, conv_bn_act)
+    for k in kernels:
+        k.launches = 0
+
+    # (a) the mega sweep, bf16
+    model16 = infer_tool.seeded_model(True, dev)
+    t1 = time.perf_counter()
+    mega = infer_tool.sweep_mega(model16, dev, TOOLS_MEGA_BATCHES,
+                                 iters=TOOLS_ITERS, log=log)
+    print(f"[tools] (a) --sweep mega --bf16 --batches "
+          f"{' '.join(map(str, TOOLS_MEGA_BATCHES))} --iters {TOOLS_ITERS}: "
+          f"{time.perf_counter() - t1:.1f} s ({smi})", flush=True)
+    check(len(mega) == 4 * len(TOOLS_MEGA_BATCHES) and all(
+        r["frame_ends"] == [r["stop"]] * r["b"] for r in mega),
+          f"phase 22 mega sweep: {[r['frame_ends'][:2] for r in mega]}")
+    # (b) the sharded and bucketed sweeps, fp32
+    model32 = infer_tool.seeded_model(False, dev)
+    t1 = time.perf_counter()
+    infer_tool.sweep_sharded(model32, cfg, [dev, dev], [TOOLS_SHARDED_B],
+                             iters=TOOLS_ITERS, n_data=2, log=log)
+    bucket = infer_tool.sweep_buckets(model32, cfg, dev, TOOLS_ITERS,
+                                      log=log)
+    check(bucket["frames"] == 300, f"phase 22 buckets: {bucket}")
+    print(f"[tools] (b) --sweep sharded --n_data 2 --batches "
+          f"{TOOLS_SHARDED_B} and --sweep buckets: "
+          f"{time.perf_counter() - t1:.1f} s ({smi})", flush=True)
+    del model32
+    # (c) the training sweep, the first B=128 split step's kernels recorded
+    fwd, fwd_seen = first_call(decoder_fwd_train_mega, lambda a: (
+        a[3].shape[0] == TOOLS_TRAIN_HELD_B))
+    bwd, bwd_seen = first_call(decoder_bwd_chain_mega, lambda a: (
+        a[2].shape[0] == TOOLS_TRAIN_HELD_B))
+    decoder_bptt.decoder_fwd_train_mega = fwd
+    decoder_bptt.decoder_bwd_chain_mega = bwd
+    t1 = time.perf_counter()
+    try:
+        train = train_tool.main([TOOLS_TRAIN_BATCHES, "--iters",
+                                 str(TOOLS_ITERS), "--device", str(dev)],
+                                log=log)
+    finally:
+        decoder_bptt.decoder_fwd_train_mega = decoder_fwd_train_mega
+        decoder_bptt.decoder_bwd_chain_mega = decoder_bwd_chain_mega
+    print(f"[tools] (c) bench_train_scaling_torch {TOOLS_TRAIN_BATCHES} "
+          f"--iters {TOOLS_ITERS}: {time.perf_counter() - t1:.1f} s "
+          f"({smi})", flush=True)
+    failed = [ln for ln in lines if "FAILED" in ln]
+    check(not failed, f"phase 22 training sweep: {failed}")
+    check(len(train) == 2 * len(TOOLS_TRAIN_BATCHES.split(",")) and all(
+        np.isfinite(r["last_loss"])
+                                  for r in train),
+          f"phase 22 training sweep: {train}")
+    # (d) the profile of one B=128 step
+    t1 = time.perf_counter()
+    prof = profile_tool.profile_train_step(TOOLS_TRAIN_HELD_B, dev,
+                                           split=True)
+    profile_tool.print_report(prof, 10, log=log)
+    print(f"[tools] (d) profile_train_step_torch --batch "
+          f"{TOOLS_TRAIN_HELD_B} --split 1: {time.perf_counter() - t1:.1f} "
+          f"s ({smi})", flush=True)
+    check(prof["launches"]["decoder_fwd_train_mega"] == 1
+          and prof["launches"]["decoder_bwd_chain_mega"] == 1
+          and prof["busy_ms"] > 0, f"phase 22 profile: {prof['launches']}")
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"[tools] launches over (a)-(d): {launches}", flush=True)
+    check(all(n > 0 for n in launches.values()),
+          f"phase 22: a kernel of the tools did not launch: {launches}")
+
+    # each kernel against its plain version on one call's real inputs:
+    # the mega sweep's call at B=64 to 1000 frames, by the decode kernel
+    # (#2, then #5 on its layers) and by the step loop (#1 on every step)
+    tokens, lengths = infer_tool.mega_tokens(np.random.default_rng(SEED),
+                                             TOOLS_HELD_B, 128)
+    where = f"tools mega B={TOOLS_HELD_B} stop={TOOLS_HELD_STOP} bf16"
+    rec, dec_seen = first_call(dm.decoder_infer_mega, lambda a: True)
+    dm.decoder_infer_mega = rec
+    try:
+        replace_config(model16, decoder_megakernel=True)
+        out, _, _ = infer_tool.mega_run(model16, tokens, lengths,
+                                        TOOLS_HELD_STOP, dev)
+    finally:
+        dm.decoder_infer_mega = kernels[1]
+    with torch.no_grad():
+        ref = dm.decoder_infer_mega_reference(*dec_seen["args"])
+    dec_errs = compare_decode(dec_seen["out"], ref, torch.bfloat16,
+                              f"{where} decode kernel")
+    del ref
+    shares, conv_errs = model_conv_layers(
+        model16, torch.from_numpy(tokens).long().to(dev), out.mel_coarse)
+    print(f"[{where} conv_bn_act] the eight layers of the request: kernel "
+          f"vs plain {', '.join(f'{x:.2e}' for x in shares)} of the mean "
+          f"size (limit {CONV_TOL[torch.bfloat16]:g}), largest "
+          f"{max(conv_errs):.2e} absolute", flush=True)
+    check(max(shares) <= CONV_TOL[torch.bfloat16],
+          f"phase 22 conv_bn_act {shares}")
+    launch_tail = ak._forward
+    tail_errs = []
+
+    def checked_tail(*ins):
+        got = launch_tail(*ins)
+        tail_errs.append(max_err(got, ak.attention_tail_reference(*ins)))
+        return got
+
+    ak._forward = checked_tail
+    try:
+        replace_config(model16, decoder_megakernel=False)
+        infer_tool.mega_run(model16, tokens, lengths, TOOLS_HELD_STOP, dev)
+    finally:
+        ak._forward = launch_tail
+        replace_config(model16, decoder_megakernel=True)
+    tail_err = max(tail_errs)
+    print(f"[{where} attention_tail] the step loop's {len(tail_errs)} "
+          f"steps: kernel vs plain max err {tail_err:.3e} (tol {TAIL_TOL})",
+          flush=True)
+    check(len(tail_errs) == TOOLS_HELD_STOP + 1 and tail_err <= TAIL_TOL,
+          f"phase 22 attention_tail: {len(tail_errs)} steps, {tail_err}")
+    del model16, out
+
+    # the training pair on the first B=128 split step of (c)
+    check("args" in fwd_seen and "args" in bwd_seen,
+          "phase 22: no B=128 call of the training pair was recorded")
+    where = f"tools train B={TOOLS_TRAIN_HELD_B} T_enc=128 T_dec=512 bf16"
+    fwd_errs = compare_outputs(
+        FWD_OUT, fwd_seen["out"], decoder_fwd_train_reference(
+            *fwd_seen["args"]), MAIN_PAIR_TOL,
+        f"{where} decoder_fwd_train_mega")
+    del fwd_seen["out"]
+    # On the tools' batches (full-length random tokens, B=16 as B=128) the
+    # plain version run on the CPU misses MAIN_PAIR_TOL's d_qsum_s and
+    # d_pq_s limits (read on phase 10's batch) against itself run on the
+    # card, by as much as the kernel (PERF.md): each output is held
+    # to the larger of its limit and twice that spread on these inputs.
+    bwd_ref = decoder_bwd_chain_reference(*bwd_seen["args"])
+    t1 = time.perf_counter()
+    bwd_cpu = decoder_bwd_chain_reference(*(
+        cpu_copy(x) if isinstance(x, dict) else
+        x.cpu() if torch.is_tensor(x) else x for x in bwd_seen["args"]))
+    spread = {n: pair_share(n, c.to(dev), r)[0]
+              for n, c, r in zip(BWD_OUT, bwd_cpu, bwd_ref)}
+    bwd_tol = {n: max(MAIN_PAIR_TOL[n], 2 * spread[n]) for n in BWD_OUT}
+    print(f"[{where} decoder_bwd_chain_mega] the plain version on the CPU "
+          f"({time.perf_counter() - t1:.1f} s) against itself on the card, "
+          f"as a share of the mean size: " + ", ".join(
+              f"{n} {spread[n]:.2e} (MAIN_PAIR_TOL {MAIN_PAIR_TOL[n]:g})"
+              for n in BWD_OUT), flush=True)
+    bwd_errs = compare_outputs(BWD_OUT, bwd_seen["out"], bwd_ref, bwd_tol,
+                               f"{where} decoder_bwd_chain_mega")
+    del fwd_seen, bwd_seen, bwd_ref, bwd_cpu
+    torch.cuda.empty_cache()
+
+    # (e) the NGC check on a seeded generator file, (f) the export
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        path = os.path.join(tmp.name, "hifigan_gen_seeded.pt")
+        torch.save({"generator": hg.nvidia_state_dict(hg.hifigan_init(
+            seed=SEED))}, path)
+        report = ngc_tool.verify(path, device=dev)
+        print(f"[tools] (e) verify_ngc_checkpoint_torch on a seeded "
+              f"weight-normed file: ok {report['ok']}, layout "
+              f"{report['layout']}, {report['n_keys']} keys, "
+              f"{report['n_params']} parameters, manifest problems "
+              f"{report['manifest_problems']}, forward "
+              f"{report['forward']}, parity {report['torch_parity']}, "
+              f"sha256 {report['sha256'][:16]}...", flush=True)
+        check(report["ok"] and report["layout"] == "weight_normed"
+              and not report["manifest_problems"],
+              f"phase 22 NGC check: {report}")
+        out_dir = os.path.join(tmp.name, "reference_corpus")
+        n = export_tool.export(processed, out_dir, TOOLS_VAL_COUNT,
+                               device=dev)
+        with open(os.path.join(out_dir, "metadata_val.csv")) as f:
+            val_rows = list(csv.DictReader(f))
+        with open(os.path.join(out_dir, "metadata_train.csv")) as f:
+            n_train = sum(1 for _ in csv.DictReader(f))
+        base = os.path.basename(val_rows[0]["filepath"]).rsplit(".", 1)[0]
+        mel = torch.load(os.path.join(out_dir, "mels", f"{base}.pt"))
+        seq = torch.load(os.path.join(out_dir, "text", f"{base}.pt"))
+        want_mel = np.load(os.path.join(processed, "mels", f"{base}.npy"))
+        want_seq = np.load(os.path.join(processed, "text", f"{base}.npy"))
+        print(f"[tools] (f) export_reference_corpus_torch: {n} items, "
+              f"train/val {n_train}/{len(val_rows)}; {base}: mel "
+              f"{tuple(mel.shape)} {mel.dtype}, text {tuple(seq.shape)} "
+              f"{seq.dtype}, equal to the processed caches", flush=True)
+        check(n == n_train + len(val_rows) and len(val_rows) == TOOLS_VAL_COUNT
+              and mel.dtype == torch.float32 and seq.dtype == torch.int64
+              and np.array_equal(mel.numpy(), want_mel)
+              and np.array_equal(seq.numpy(), want_seq),
+              f"phase 22 export: {base}")
+    finally:
+        tmp.cleanup()
+    print(f"[tools] phase 22 wall {time.perf_counter() - phase0:.1f} s "
+          f"({smi})", flush=True)
+    errs = dict(attention_tail=tail_err,
+                decoder_infer_mega=max(dec_errs.values()),
+                decoder_fwd_train_mega=max(fwd_errs.values()),
+                decoder_bwd_chain_mega=max(bwd_errs.values()),
+                conv_bn_act=max(conv_errs))
+    return {name: dict(tools_path_launches=n,
+                       tools_path_max_abs_err=errs[name])
+            for name, n in launches.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels run "
@@ -5126,7 +5521,7 @@ def main() -> int:
         dev, smi)
     kernels[1].update(trained)
     # 17. the serving path on the same checkpoint
-    serve_launches = serving_phase(dev, smi)
+    serve = serving_phase(dev, smi)
 
     # 8, 9. the training kernels against their plain versions
     sweep = train_kernel_phases(dev, base, cfg)
@@ -5143,7 +5538,9 @@ def main() -> int:
     odd_widths_phase(dev)
     c6 = c6_widths(dev)
     # 18. the data path on the trained multi-speaker checkpoint
-    quality = data_path_phase(dev, smi)
+    tools_tmp = tempfile.TemporaryDirectory()
+    processed = os.path.join(tools_tmp.name, "processed")
+    quality = data_path_phase(dev, smi, processed)
     # 19. data parallelism: two ranks and two replicas on the one card,
     # against one process (also phase 20's reference)
     t1 = time.perf_counter()
@@ -5155,11 +5552,14 @@ def main() -> int:
     tensor = tensor_parallel_phase(dev, smi, reference)
     # 21. the neural letter-to-sound trainer
     lts_phase(dev, smi)
+    # 22. the measurement and serving tools at the JAX tools' batch sizes
+    try:
+        tools = tools_phase(dev, smi, processed)
+    finally:
+        tools_tmp.cleanup()
     kernels += train_kernels + [conv_kernel]
     for entry in kernels:
-        if entry["name"] in serve_launches:
-            entry["serve_path_launches"] = serve_launches[entry["name"]]
-        for phase in (quality, parallel, tensor, c6):
+        for phase in (serve, quality, parallel, tensor, c6, tools):
             entry.update(phase.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1256,3 +1256,122 @@ def test_cuda_odd_widths_train_the_kernel_pair(name):
             g = got.model.state_dict()[name_].cpu()
             assert float((g - r).abs().max()) <= 3e-4 * max(
                 1.0, float(r.abs().max())), name_
+
+
+# --------------------------------------------------------------------------
+# the batch sizes of the measurement tools: tools/bench_infer_scaling_torch.py
+# decodes up to B=64, tools/bench_train_scaling_torch.py and
+# tools/profile_train_step_torch.py train at B=128.  Full width, short
+# decodes, against the plain versions at chip_smoke.py's full-width limits.
+# --------------------------------------------------------------------------
+def full_width_model(dtype):
+    model = init_weights(Tacotron2(FULL), seed=0)
+    return cast_params_bf16(model) if dtype == torch.bfloat16 else model
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 16, 32, 64])
+def test_decode_layout_at_tool_batches(b, dtype):
+    """The decode kernel's shared memory at the mega sweep's batches: the
+    location matrix stays resident and the per-row part grows by 12 bytes
+    a row (rounded to 16)."""
+    smem, resident = decode_smem(b, 128, FULL.attention_dim,
+                                 FULL.location_kernel_size, dtype)
+    one, _ = decode_smem(1, 128, FULL.attention_dim,
+                         FULL.location_kernel_size, dtype)
+    assert resident
+    assert smem - one == (-(-b * 4 // 16) * 16 + -(-b * 8 // 16) * 16
+                          - 16 - 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_at_tool_batches(dtype, b):
+    """``decoder_infer_mega`` at full width and B=32, 64 (T_enc=128, ragged
+    mask, 32 steps) against the plain step loop, by stop mode, with and
+    without a forced stop: n_frames and frame_ends exactly, the rows past
+    the stop exactly, each output within chip_smoke.py's ``DEC_TOL`` (the
+    alignments' limit a share of their mean size)."""
+    from chip_smoke import DEC_ALIGN_SHARE, DEC_TOL as FULL_DEC_TOL
+    dev = cuda_device()
+    dec = full_width_model(dtype).decoder.to(dev)
+    rng = np.random.default_rng(b)
+    memory = torch.from_numpy((rng.standard_normal(
+        (b, 128, FULL.encoder_embedding_dim)) * 0.5).astype(np.float32)
+                              ).to(dev)
+    lens = torch.tensor([128 - 37 * (i % 3) for i in range(b)])
+    mask = make_pad_mask(lens, 128).to(dev)
+    for stop_mode, force in (("all", None), ("any", 20)):
+        args = (dec, memory, 32, FULL.gate_threshold, True, mask, stop_mode,
+                force)
+        before = decoder_infer_mega.launches
+        with torch.no_grad():
+            got = decoder_infer_mega(*args)
+            ref = decoder_infer_mega_reference(*args)
+        torch.cuda.synchronize()
+        assert decoder_infer_mega.launches == before + 1
+        assert int(got[3]) == int(ref[3])
+        assert torch.equal(got[4], ref[4])
+        n = int(ref[3])
+        tol = dict(FULL_DEC_TOL[dtype], aligns=DEC_ALIGN_SHARE[dtype] * float(
+            ref[2][:, :n].abs().mean()))
+        for name, g, r in zip(DEC_OUTPUTS, got[:3], ref[:3]):
+            err = float((g[:, :n].float() - r[:, :n].float()).abs().max())
+            assert err <= tol[name], (stop_mode, name, err, tol[name])
+            assert torch.equal(g[:, n:], r[:, n:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_pair_at_tool_batch(dtype):
+    """Both training kernels at full width and B=128 (eight 16-row batch
+    tiles; T_enc=128, T_dec=16, dropout masks) against their plain
+    versions, each output within chip_smoke.py's ``PAIR_TOL`` by this
+    file's rule (two bf16 roundings, then a share of the mean size); the
+    reverse chain's two runs bit for bit."""
+    from chip_smoke import PAIR_TOL as FULL_PAIR_TOL
+    dev = cuda_device()
+    b, t_enc, t_dec = 128, 128, 16
+    dec = full_width_model(dtype).decoder.to(dev)
+    cfg = dec.cfg
+    assert chain_plan(kernel_widths(cfg), b, t_enc, cfg.location_kernel_size,
+                      dtype).m_tiles == 8
+    rng = np.random.default_rng(3)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    pre = (f(t_dec, b, cfg.prenet_dim) * 0.3).abs()
+    memory = f(b, t_enc, cfg.encoder_embedding_dim) * 0.5
+    with torch.no_grad():
+        pm = dec.attention.memory_layer(memory)
+    mask = make_pad_mask(torch.tensor([t_enc - 37 * (i % 3)
+                                       for i in range(b)]), t_enc).to(dev)
+    keep = lambda: torch.from_numpy(
+        rng.random((t_dec, b, cfg.decoder_rnn_dim)) < 0.9).to(dev)
+    ops = kernel_operands(core_params(dec))
+    args = (cfg, ops, pre, memory, pm, mask, keep(), keep())
+    before = (decoder_fwd_train_mega.launches,
+              decoder_bwd_chain_mega.launches)
+    got = decoder_fwd_train_mega(*args)
+    ref = decoder_fwd_train_reference(*args)
+    torch.cuda.synchronize()
+    for name, g, r in zip(FWD_OUT, got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        share = error_share(name, g, r)
+        assert share <= FULL_PAIR_TOL[dtype][name], (name, share)
+    _, attns, _, ca_s, _, cd_s, qsum_s, aa_s, ad_s = ref
+    bargs = (cfg, ops, memory, args[6], args[7], aa_s, ad_s, ca_s, cd_s,
+             attns, qsum_s, f(t_dec, b, cfg.n_mels + 1) * 0.5,
+             f(t_dec, b, t_enc))
+    got = decoder_bwd_chain_mega(*bargs)
+    again = decoder_bwd_chain_mega(*bargs)
+    torch.cuda.synchronize()
+    assert (decoder_fwd_train_mega.launches - before[0],
+            decoder_bwd_chain_mega.launches - before[1]) == (1, 2)
+    for name, g, r in zip(BWD_OUT, got, decoder_bwd_chain_reference(*bargs)):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        share = error_share(name, g, r)
+        assert share <= FULL_PAIR_TOL[dtype][name], (name, share)
+    for name, x, y in zip(BWD_OUT, got, again):
+        assert torch.equal(x, y), f"{name}: two runs differ"
