@@ -254,7 +254,11 @@ it fails:
     ``eval_step`` (#1 on every step within ``TAIL_TOL``, #5 eight times),
     then the same steps in fp32; after every step the ranks' replicated
     state bit for bit; the gathered gradients, losses and fp32 weights
-    by phase 19's rules, and the gathered weights the shards joined; (b)
+    by phase 19's rules, and the gathered weights the shards joined; then
+    one bf16 step with remat "full" (#1 twice a step), the ranks'
+    replicated state bit for bit after it, its gathered gradients, losses
+    and state against one process's remat step by the same rules, each
+    rank's peak memory beside the remat-off steps'; (b)
     ``train_torch.py --tp 2`` under ``torchrun --nproc_per_node 4`` on
     phase 15's corpus: two epochs, then the second resumed, bit for bit,
     the checkpoint read by ``load_model``; (c)
@@ -291,8 +295,21 @@ it fails:
     ``verify_ngc_checkpoint_torch`` on a seeded weight-normed file and
     ``export_reference_corpus_torch`` on phase 18's processed corpus.
 
+23. decoder-step rematerialisation (``ModelConfig.remat_decoder_step``,
+    ``train_torch.py --remat``) at full width, bf16 over fp32 masters,
+    T_enc=128, T_dec=512, B=16 and 128 (``remat_phase``, measured in a
+    fresh process, ``chip_smoke.py --remat-phase``, so that no earlier
+    phase's profiler slows its launches): one ``train_step`` from the same
+    seeded state by the split BPTT, the step loop without remat, remat
+    ``full`` and remat ``dots``, each with its wall, device busy ms (from
+    a second step under the profiler), peak memory and launches (#1 once
+    a step of the loop, twice under remat: forward and recompute); ``full`` and
+    ``dots`` held to the loop, losses and gradients bit for bit (or
+    within ``GRAD_TOL``, the gap printed); every recompute of #1 the
+    forward's bits; the ops the ``dots`` policy keeps, by name.
+
 Phases 11-14 and 17 run after phase 7, before the training phases,
-phases 15 and 16 after phase 10, then phases 18-22 last.  The
+phases 15 and 16 after phase 10, then phases 18-23 last.  The
 ``kernels`` line has five entries; the serving path's three carry
 ``serve_path_launches``, the data path's three ``quality_path_launches``,
 the data-parallel training path's four ``dp_path_launches`` (one rank's),
@@ -302,7 +319,9 @@ its serving path's ``tp_sharded_path_launches``, and every kernel
 phase 16's ``c6_launches``, ``c6_max_abs_err`` and ``c6_device_ms`` (by
 config; ``conv_bn_act`` also ``c6_library_ms``, cuDNN's), the decode and
 conv kernels ``load_test_launches`` (phase 17), and every kernel phase
-22's ``tools_path_launches`` and ``tools_path_max_abs_err``.  The last
+22's ``tools_path_launches`` and ``tools_path_max_abs_err``; phase 23
+adds #1's ``remat_path_launches`` and ``remat_path_max_abs_err``, and
+#3's and #4's ``remat_phase_launches`` (by B and variant).  The last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``tacotron2_tpu``, and reads no weights file from the repository but the
 checkpoints of phases 14 and 18, in phase 21 the committed LTS artifact,
@@ -902,13 +921,14 @@ def train_kernel_phases(dev, base, cfg):
     return sweep_err
 
 
-def seeded_train_batch(mc):
-    """The training main path's batch: B=16 seeded ragged utterances, the
-    longest text 128 tokens and the longest mel 512 frames."""
+def seeded_train_batch(mc, b: int = 16):
+    """The training main path's batch: B=16 (or ``b``) seeded ragged
+    utterances, the longest text 128 tokens and the longest mel 512
+    frames."""
     from tacotron2_torch.data.dataset import Example, collate
     rng = np.random.default_rng(SEED)
-    text_lens = rng.integers(60, 129, 16)
-    mel_lens = rng.integers(300, 513, 16)
+    text_lens = rng.integers(60, 129, b)
+    mel_lens = rng.integers(300, 513, b)
     text_lens[3], mel_lens[5] = 128, 512
     return collate([
         Example(text=rng.integers(0, mc.n_symbols, n).astype(np.int32),
@@ -4303,6 +4323,7 @@ def tp_rank(rank: int, world: int, init_file: str, work: str) -> int:
     from tacotron2_torch.parallel import (collectives, gather_train_state,
                                           init_tensor_parallel,
                                           initialize_distributed, rank_device)
+    from tacotron2_torch.models.tacotron2 import replace_config
     from tacotron2_torch.parallel.mesh import sharded_names
     from tacotron2_torch.train import step as train
 
@@ -4357,10 +4378,12 @@ def tp_rank(rank: int, world: int, init_file: str, work: str) -> int:
     for kernel in (decoder_fwd_train_mega, decoder_bwd_chain_mega,
                    decoder_infer_mega, attention_tail):
         kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     try:
         losses, walls, digests = dp_steps(state, cfg, tx, batch, True)
     finally:
         collectives._model_sum, collectives.gather_model_axis = plain
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["train_launches"] = (decoder_fwd_train_mega.launches,
                              decoder_bwd_chain_mega.launches,
                              decoder_infer_mega.launches,
@@ -4394,6 +4417,47 @@ def tp_rank(rank: int, world: int, init_file: str, work: str) -> int:
                eval={k: float(v) for k, v in l._asdict().items()},
                eval_entropy=float(entropy))
     del state
+
+    # one bf16 step with every decoder step rematerialised (remat "full":
+    # the model-axis collectives of a step run again in its backward), the
+    # postnet bypassed as in the first step above: its gradients and the
+    # state after it gathered whole, the replicated state's digest, the
+    # peak memory against the steps above
+    state, cfg, tx = dp_state("bfloat16", batch, dev, tensor_parallel=True)
+    replace_config(state.model, remat_decoder_step=True,
+                   decoder_remat_policy="full")
+    seen = {}
+
+    class Recorded:
+        @staticmethod
+        def update(model, opt_state, grads, names):
+            seen.update(grads)
+            tx.update(model, opt_state, grads, names)
+
+    attention_tail.launches = 0
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    _, l, _ = train.train_step(
+        state, batch, cfg=cfg, tx=Recorded, use_postnet=False,
+        sigma_warmup_steps=cfg.guided_attention.sigma_warmup_steps)
+    torch.cuda.synchronize()
+    remat = {"step_ms": (time.perf_counter() - t1) * 1e3,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "tail_launches": attention_tail.launches,
+             "losses": {k: float(v) for k, v in l._asdict().items()}}
+    grads = whole_grads(state.model, seen)
+    whole = gather_train_state(state)
+    if rank == 0:
+        torch.save({"grads": cpu_copy(grads),
+                    "weights": cpu_copy(whole.model.state_dict())},
+                   os.path.join(work, "remat.pt"))
+    every = [None] * world
+    dist.all_gather_object(every, state_digest(state))
+    remat["digests"] = every
+    out["remat"] = remat
+    del state, whole, grads, seen
 
     # the same steps in fp32; the weights gathered, and this rank's shards
     state, cfg, tx = dp_state("float32", batch, dev, tensor_parallel=True)
@@ -4531,6 +4595,7 @@ def tp_training(dev, root: str, tmp: str, reference) -> dict:
                   f"{zero_gap}")
         print(line, flush=True)
         check(gap <= GRAD_TOL, f"phase 20 {precision} losses part by {gap}")
+    tp_remat_check(dev, tmp, outs)
     print(f"[tp] bf16 train_step wall, ms: 1 process at B=16 (decoder "
           f"kernels) {[round(x, 1) for x in ref['bfloat16'][1]]}; {TP} "
           "ranks of model=2 (step loop, gloo) " + "; ".join(
@@ -4542,6 +4607,70 @@ def tp_training(dev, root: str, tmp: str, reference) -> dict:
     return {"tail": tail + o["eval_tail_launches"],
             "conv": o["eval_conv_launches"], "fwd": fwd, "bwd": bwd,
             "infer": infer}
+
+
+def tp_remat_check(dev, tmp: str, outs) -> None:
+    """Phase 20 (a), the remat step: the ranks' replicated state bit for
+    bit after it; their gathered gradients, losses and state against one
+    process's remat step from the same seeded state and generator (phase
+    19's rules); each rank's peak memory against its remat-off steps."""
+    from tacotron2_torch.config import ModelConfig
+    from tacotron2_torch.models.tacotron2 import replace_config
+    from tacotron2_torch.train import step as train
+    for o in outs:
+        r = o["remat"]
+        got = set(r["digests"])
+        print(f"[tp remat] rank {o['rank']}: one bf16 train_step with remat "
+              f"\"full\" {r['step_ms']:.1f} ms (remat off "
+              f"{[round(x, 1) for x in o['step_ms']]}), attention_tail="
+              f"{r['tail_launches']} ({o['t_dec']} a forward and as many in "
+              f"the recompute), peak memory {r['peak_bytes'] / 1e9:.3f} GB "
+              f"against {o['peak_bytes'] / 1e9:.3f} GB over the remat-off "
+              f"steps; the {TP} ranks' replicated state after it "
+              f"{'bit for bit equal' if len(got) == 1 else 'DIFFERS'} "
+              f"(sha256 {min(got)[:16]})", flush=True)
+        check(len(got) == 1, "phase 20: ranks differ after the remat step")
+        check(r["tail_launches"] == 2 * o["t_dec"],
+              f"phase 20 remat: attention_tail {r['tail_launches']}")
+    batch = seeded_train_batch(ModelConfig())
+    state, cfg, tx = dp_state("bfloat16", batch, dev)
+    replace_config(state.model, remat_decoder_step=True,
+                   decoder_remat_policy="full")
+    before = cpu_copy(state.model.state_dict())
+    seen = {}
+
+    class Recorded:
+        @staticmethod
+        def update(model, opt_state, grads, names):
+            seen.update(grads)
+            tx.update(model, opt_state, grads, names)
+
+    _, l, _ = train.train_step(
+        state, batch, cfg=cfg, tx=Recorded, use_postnet=False,
+        sigma_warmup_steps=cfg.guided_attention.sigma_warmup_steps)
+    one = {k: float(v) for k, v in l._asdict().items()}
+    grads_1, after_1 = cpu_copy(seen), cpu_copy(state.model.state_dict())
+    del state, seen
+    ranks = torch.load(os.path.join(tmp, "remat.pt"))
+    errs = grad_errors(ranks["grads"], grads_1, 1e-2)
+    worst = max(errs, key=errs.get)
+    gap = max(abs(outs[0]["remat"]["losses"][k] - v) / max(abs(v), 1e-6)
+              for k, v in one.items())
+    share, shares, zero_gap = weight_gap(before, after_1, ranks["weights"])
+    lr = cfg.train.learning_rate * max(1.0,
+                                       cfg.train.attention_lr_multiplier)
+    print(f"[tp remat] the {TP} ranks' gathered state against one process's "
+          f"remat step (bf16, B=16): {len(errs)} gradients, worst {worst} "
+          f"{errs[worst]:.2e}; losses, largest relative gap {gap:.2e}; "
+          f"weights and BatchNorm statistics, the gap summed {share:.2e} of "
+          f"one process's update, largest by tensor "
+          f"{max(shares.values()):.2e}, the zero-gradient biases "
+          f"{zero_gap:.2e} (limits {GRAD_TOL}, {2 * lr:g})", flush=True)
+    check(set(errs) == set(ranks["grads"]) and errs[worst] <= GRAD_TOL
+          and gap <= GRAD_TOL and max(shares.values()) <= GRAD_TOL
+          and zero_gap <= 2 * lr,
+          f"phase 20 remat: gradients {worst} {errs[worst]}, losses {gap}, "
+          f"weights {max(shares.values())}, biases {zero_gap}")
 
 
 def tp_cli(dev, root: str, tmp: str) -> None:
@@ -4871,6 +5000,9 @@ def lts_phase(dev, smi: str) -> None:
 # the JAX package's tools run (decode to B=64, train at B=128)
 TOOLS_MEGA_BATCHES = (1, 8, 64)
 TOOLS_ITERS = 2         # timed calls a point (the tools' default is 5)
+# timed steps a point of the training sweep: one (cut from two for phase
+# 23's time; phase 23 measures the same routes at the same B alone)
+TOOLS_TRAIN_ITERS = 1
 TOOLS_TRAIN_BATCHES = "16,128"
 TOOLS_SHARDED_B = 8     # two replicas on cuda:0
 TOOLS_HELD_B = 64       # the decode held against the step loop
@@ -4986,13 +5118,13 @@ def tools_phase(dev, smi: str, processed: str) -> dict:
     t1 = time.perf_counter()
     try:
         train = train_tool.main([TOOLS_TRAIN_BATCHES, "--iters",
-                                 str(TOOLS_ITERS), "--device", str(dev)],
-                                log=log)
+                                 str(TOOLS_TRAIN_ITERS), "--device",
+                                 str(dev)], log=log)
     finally:
         decoder_bptt.decoder_fwd_train_mega = decoder_fwd_train_mega
         decoder_bptt.decoder_bwd_chain_mega = decoder_bwd_chain_mega
     print(f"[tools] (c) bench_train_scaling_torch {TOOLS_TRAIN_BATCHES} "
-          f"--iters {TOOLS_ITERS}: {time.perf_counter() - t1:.1f} s "
+          f"--iters {TOOLS_TRAIN_ITERS}: {time.perf_counter() - t1:.1f} s "
           f"({smi})", flush=True)
     failed = [ln for ln in lines if "FAILED" in ln]
     check(not failed, f"phase 22 training sweep: {failed}")
@@ -5148,6 +5280,307 @@ def tools_phase(dev, smi: str, processed: str) -> dict:
     return {name: dict(tools_path_launches=n,
                        tools_path_max_abs_err=errs[name])
             for name, n in launches.items()}
+
+
+# phase 23: decoder-step rematerialisation on the step-loop training path
+REMAT_BATCHES = (16, 128)
+REMAT_ROUTE = dict(decoder_split_bptt=True, remat_decoder_step=False,
+                   decoder_remat_policy="full")
+REMAT_VARIANTS = {
+    "split": {},                                   # the default route
+    "loop": dict(decoder_split_bptt=False),        # autograd, no remat
+    "full": dict(remat_decoder_step=True, decoder_remat_policy="full"),
+    "dots": dict(remat_decoder_step=True, decoder_remat_policy="dots"),
+}
+
+
+def state_snapshot(state):
+    """Every tensor and counter a ``train_step`` changes, cloned."""
+    opt = state.opt_state
+    return ({n: t.clone() for n, t in state.model.state_dict().items()},
+            {m: {n: t.clone() for n, t in opt[m].items()}
+             for m in ("mu", "nu")},
+            (opt["count"], state.step, state.loss_step),
+            state.generator.get_state())
+
+
+@torch.no_grad()
+def state_restore(state, snap) -> None:
+    weights, moments, (count, step, loss_step), gen = snap
+    for n, t in state.model.state_dict().items():
+        t.copy_(weights[n])
+    for m, ts in moments.items():
+        for n, t in ts.items():
+            state.opt_state[m][n].copy_(t)
+    state.opt_state["count"], state.step, state.loss_step = (count, step,
+                                                             loss_step)
+    state.generator.set_state(gen)
+
+
+def remat_measure(work: str, device: str = "cuda") -> int:
+    """Phase 23's measurements, run by the phase as ``chip_smoke.py
+    --remat-phase WORK_DIR`` in a fresh process: ``torch.profiler`` leaves
+    the CUDA tracer on in the process that used it (earlier phases do),
+    and every launch after it pays for that.  One bf16 ``train_step`` at
+    full ``ModelConfig()`` width, T_enc=128, T_dec=512, at B in
+    ``REMAT_BATCHES`` (the main path's seeded ragged batch, widened), in
+    each of ``REMAT_VARIANTS``, every one from the same seeded state
+    (restored before each step: the same weights and dropout masks), with
+    cuDNN held to its deterministic algorithms so that only the route
+    differs.  First one unmeasured step by the loop at the largest B (the
+    allocator's pool grown to the phase's largest), then each variant's
+    step alone: its wall, peak ``max_memory_allocated`` after
+    ``reset_peak_memory_stats`` and what was held before it, the launch
+    counters zeroed before and read after; ``full`` and ``dots`` held to
+    ``loop``: the losses and every gradient handed to the optimizer, bit
+    for bit, or within ``GRAD_TOL`` with the gap printed.  Then, all
+    measured, each variant's step again under ``torch.profiler``: device
+    busy ms (the union of the kernels' intervals); in ``full``'s every
+    tail call's outputs kept (each step's recompute must return its
+    forward's bits, the first call held to the plain version,
+    ``TAIL_TOL``); in ``dots``' the ops the policy saves counted by name.
+    Writes ``WORK_DIR/remat.json``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tacotron2_torch.config import ModelConfig
+    from tacotron2_torch.models import decoder as decoder_mod
+    from tacotron2_torch.models.tacotron2 import replace_config
+    from tacotron2_torch.ops import _build
+    from tacotron2_torch.ops import attention_kernel as ak
+    from tacotron2_torch.ops.decoder_bwd_kernel import decoder_bwd_chain_mega
+    from tacotron2_torch.ops.decoder_train_kernel import decoder_fwd_train_mega
+    from tacotron2_torch.train import step as train
+
+    prebuilt = all(_build.library_path(n).exists()
+                   for n in _build.CUDA_SOURCES)
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    kernels = {"attention_tail": ak.attention_tail,
+               "decoder_fwd_train_mega": decoder_fwd_train_mega,
+               "decoder_bwd_chain_mega": decoder_bwd_chain_mega}
+    out = {"prebuilt": prebuilt, "rows": [], "tail_err": 0.0}
+
+    def one_step(state, cfg, tx, batch, seen):
+        """A ``train_step``; the gradients handed to the optimizer are
+        kept in ``seen`` (the same tensors: Adam only reads them)."""
+        class Recorded:
+            @staticmethod
+            def update(model, opt_state, grads, names):
+                seen.update(grads)
+                tx.update(model, opt_state, grads, names)
+
+        _, losses, _ = train.train_step(
+            state, batch, cfg=cfg, tx=Recorded, use_postnet=True,
+            sigma_warmup_steps=cfg.guided_attention.sigma_warmup_steps)
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in losses._asdict().items()}
+
+    runs = {}
+    for b in REMAT_BATCHES:
+        host_batch = seeded_train_batch(ModelConfig(), b)
+        state, cfg, tx = dp_state("bfloat16", host_batch, dev)
+        runs[b] = (state, cfg, tx, train._to_device(host_batch, dev),
+                   state_snapshot(state))
+
+    def route(b, name):
+        state, cfg, tx, batch, snap = runs[b]
+        replace_config(state.model, **{**REMAT_ROUTE, **REMAT_VARIANTS[name]})
+        state_restore(state, snap)
+        return state, dataclasses.replace(cfg, model=state.model.cfg), tx, \
+            batch
+
+    big = max(REMAT_BATCHES)
+    t1 = time.perf_counter()
+    one_step(*route(big, "loop"), {})
+    out["warm_ms"] = (time.perf_counter() - t1) * 1e3
+
+    rows = {}
+    for b in sorted(REMAT_BATCHES, reverse=True):
+        ref = None
+        for name in REMAT_VARIANTS:
+            state, cfg, tx, batch = route(b, name)
+            t_dec = batch["mel"].shape[2]
+            for k in kernels.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            grads = {}
+            t1 = time.perf_counter()
+            losses = one_step(state, cfg, tx, batch, grads)
+            wall = (time.perf_counter() - t1) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: v.launches for k, v in kernels.items()}
+            grads = cpu_copy(grads)
+            row = rows[b, name] = dict(
+                b=b, variant=name, t_dec=t_dec, wall_ms=wall,
+                peak_bytes=peak, held_bytes=held, launches=launches,
+                losses=losses)
+            if name == "loop":
+                ref = (losses, grads)
+            elif name != "split":
+                errs = grad_errors(grads, ref[1], 1e-2)
+                worst = max(errs, key=errs.get)
+                row.update(
+                    same_losses=losses == ref[0],
+                    same_grads=set(grads) == set(ref[1]) and all(
+                        torch.equal(grads[n], g) for n, g in ref[1].items()),
+                    same_names=set(grads) == set(ref[1]),
+                    loss_gap=max(abs(losses[k] - v) / max(abs(v), 1e-6)
+                                 for k, v in ref[0].items()),
+                    worst=worst, grad_gap=errs[worst], n_grads=len(grads))
+            del grads
+
+    for b in sorted(REMAT_BATCHES, reverse=True):
+        for name in REMAT_VARIANTS:
+            state, cfg, tx, batch = route(b, name)
+            row = rows[b, name]
+            calls, saved, policy = [], {}, decoder_mod.dots_policy
+            launch = ak._forward
+
+            def kept(*ins):
+                o = launch(*ins)
+                if not calls:
+                    calls.append(ins)
+                calls.append(tuple(x.clone() for x in o))
+                return o
+
+            def counted(ctx, op, *args, **kwargs):
+                choice = policy(ctx, op, *args, **kwargs)
+                if not ctx.is_recompute:
+                    key = f"{op} {choice.name}"
+                    saved[key] = saved.get(key, 0) + 1
+                return choice
+
+            if name == "full":
+                ak._forward = kept
+            if name == "dots":
+                decoder_mod.dots_policy = counted
+            try:
+                t1 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    one_step(state, cfg, tx, batch, {})
+                row["profiled_wall_ms"] = (time.perf_counter() - t1) * 1e3
+            finally:
+                ak._forward = launch
+                decoder_mod.dots_policy = policy
+            # the union of the kernels', copies' and memsets' intervals,
+            # from the profiler's raw events (no names: a name is a copy)
+            spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                           for e in prof.profiler.kineto_results.events()
+                           if e.device_type() == DeviceType.CUDA)
+            busy, end = 0, -1
+            for s0, s1 in spans:
+                if s1 > end:
+                    busy += s1 - max(s0, end)
+                    end = s1
+            row["busy_ms"] = busy / 1e6
+            del prof, spans
+            if name == "full":
+                ins, outs = calls[0], calls[1:]
+                n = len(outs)
+                row.update(
+                    tail_calls=n, tail_same=all(
+                        torch.equal(x, y) for t in range(n // 2)
+                        for x, y in zip(outs[t], outs[n - 1 - t])),
+                    tail_err=max_err(outs[0],
+                                     ak.attention_tail_reference(*ins)))
+                out["tail_err"] = max(out["tail_err"], row["tail_err"])
+            if name == "dots":
+                row["policy"] = dict(sorted(saved.items(),
+                                            key=lambda x: -x[1])[:8])
+            del calls
+    out["rows"] = [rows[b, name] for b in REMAT_BATCHES
+                   for name in REMAT_VARIANTS]
+    with open(os.path.join(work, "remat.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def remat_phase(dev, smi: str) -> dict:
+    """Phase 23: ``remat_measure`` in a fresh process, its results printed
+    and held here.  Returns the kernels-line additions."""
+    import shutil
+    root = os.path.dirname(os.path.abspath(__file__))
+    phase0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp()
+    try:
+        run_ranks([[sys.executable, os.path.abspath(__file__),
+                    "--remat-phase", tmp]], root, tmp, "remat")
+        with open(os.path.join(tmp, "remat.json")) as f:
+            out = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(out["prebuilt"], "phase 23: kernels not prebuilt")
+    print(f"[remat] a fresh process (no profiler before its measured steps)"
+          f"; one warm-up step by the loop at B={max(REMAT_BATCHES)} "
+          f"{out['warm_ms']:.1f} ms", flush=True)
+    launches = {}
+    for row in out["rows"]:
+        b, name, t_dec = row["b"], row["variant"], row["t_dec"]
+        wall, busy, peak, held = (row["wall_ms"], row["busy_ms"],
+                                  row["peak_bytes"], row["held_bytes"])
+        print(f"[remat B={b} T_enc=128 T_dec={t_dec} bf16 {name}] "
+              f"train_step wall {wall:.1f} ms, device busy {busy:.1f} ms "
+              f"({busy / wall:.3f} of it; busy read in a second step under "
+              f"the profiler, {row['profiled_wall_ms']:.1f} ms); peak memory "
+              f"{peak / 1e9:.3f} GB ({(peak - held) / 1e9:.3f} GB over the "
+              f"{held / 1e9:.3f} GB held before the step); launches "
+              + " ".join(f"{k}={v}" for k, v in row["launches"].items())
+              + f"; loss {row['losses']['total']:.6f} ({smi})", flush=True)
+        check(all(np.isfinite(v) for v in row["losses"].values()),
+              f"phase 23 {name} B={b}: losses {row['losses']}")
+        want = ({"attention_tail": 0, "decoder_fwd_train_mega": 1,
+                 "decoder_bwd_chain_mega": 1} if name == "split"
+                else {"attention_tail": t_dec * (1 if name == "loop" else 2),
+                      "decoder_fwd_train_mega": 0,
+                      "decoder_bwd_chain_mega": 0})
+        check(row["launches"] == want, f"phase 23 {name} B={b}: launches "
+              f"{row['launches']}, expected {want}")
+        launches[f"B={b} {name}"] = row["launches"]
+        if name in ("full", "dots"):
+            print(f"[remat B={b} {name} vs loop] losses bit for bit: "
+                  f"{row['same_losses']} (largest relative gap "
+                  f"{row['loss_gap']:.2e}); {row['n_grads']} gradients bit "
+                  f"for bit: {row['same_grads']} (worst {row['worst']} "
+                  f"{row['grad_gap']:.2e}, limit {GRAD_TOL})", flush=True)
+            check(row["same_names"] and row["loss_gap"] <= GRAD_TOL
+                  and row["grad_gap"] <= GRAD_TOL,
+                  f"phase 23 {name} B={b}: against the loop, losses "
+                  f"{row['loss_gap']}, {row['worst']} {row['grad_gap']}")
+        if name == "full":
+            n = row["tail_calls"]
+            print(f"[remat B={b} full attention_tail] {n} calls in the "
+                  f"profiled step ({n // 2} forward, {n - n // 2} recompute):"
+                  f" every recompute the forward's bits: {row['tail_same']};"
+                  f" the first call within {row['tail_err']:.2e} of the "
+                  f"plain version (tol {TAIL_TOL})", flush=True)
+            check(n == 2 * t_dec and row["tail_same"]
+                  and row["tail_err"] <= TAIL_TOL,
+                  f"phase 23 B={b}: tail recompute {n} calls, same bits "
+                  f"{row['tail_same']}, err {row['tail_err']}")
+        if name == "dots":
+            print(f"[remat B={b} dots policy] ops of a step's forward by the "
+                  "policy's choice: " + ", ".join(
+                      f"{k} {v}" for k, v in row["policy"].items()),
+                  flush=True)
+            check(any(k.endswith("MUST_SAVE") for k in row["policy"]),
+                  f"phase 23 B={b}: dots saved nothing: {row['policy']}")
+    print(f"[remat] phase 23 wall {time.perf_counter() - phase0:.1f} s "
+          f"({smi})", flush=True)
+    return {"attention_tail": {
+                "remat_path_launches": {k: v["attention_tail"] for k, v in
+                                        launches.items()},
+                "remat_path_max_abs_err": out["tail_err"]},
+            "decoder_fwd_train_mega": {"remat_phase_launches": {
+                k: v["decoder_fwd_train_mega"] for k, v in launches.items()}},
+            "decoder_bwd_chain_mega": {"remat_phase_launches": {
+                k: v["decoder_bwd_chain_mega"] for k, v in launches.items()}},
+            "rows": out["rows"]}
 
 
 def main() -> int:
@@ -5557,9 +5990,11 @@ def main() -> int:
         tools = tools_phase(dev, smi, processed)
     finally:
         tools_tmp.cleanup()
+    # 23. decoder-step rematerialisation on the step-loop training path
+    remat = remat_phase(dev, smi)
     kernels += train_kernels + [conv_kernel]
     for entry in kernels:
-        for phase in (serve, quality, parallel, tensor, c6, tools):
+        for phase in (serve, quality, parallel, tensor, c6, tools, remat):
             entry.update(phase.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5573,4 +6008,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6]))
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6]))
+    if sys.argv[1:2] == ["--remat-phase"]:
+        sys.exit(remat_measure(sys.argv[2]))
     sys.exit(main())

@@ -3,8 +3,10 @@
 An own copy of the JAX package's configuration (``tacotron2_tpu/config.py``)
 holding the fields the port reads, with the same values so that both
 packages build the same model and train it on the same schedule.  The
-XLA-only knobs of the JAX config (scan unrolling, the rematerialisation
-policies) have no counterpart in eager PyTorch and are not carried over.
+decoder-step rematerialisation knobs are carried over
+(``torch.utils.checkpoint`` is ``jax.checkpoint``, a selective-checkpoint
+policy that saves matrix products is ``dots_saveable``); the scan's
+unrolling has no eager meaning and is left out.
 """
 
 from __future__ import annotations
@@ -90,6 +92,14 @@ class ModelConfig:
     # and the weight gradients are time-batched products after the loop.
     # False differentiates the plain step loop with torch.autograd.
     decoder_split_bptt: bool = True
+
+    # Recompute each decoder step of the step loop in the backward instead
+    # of keeping its activations (models/decoder.py::decoder_teacher_forced,
+    # train mode only); an explicit request turns the split BPTT off, as
+    # in the JAX package.  Policy "full" recomputes the whole step, "dots"
+    # keeps the matrix products' outputs and recomputes the rest.
+    remat_decoder_step: bool = False
+    decoder_remat_policy: str = "full"
 
     # Run CUDA tensors through the persistent kernels: the decode kernel
     # (ops/decoder_megakernel.py) when serving, the teacher-forced forward

@@ -8,7 +8,9 @@ on CUDA tensors with ``cfg.decoder_megakernel`` it runs as one persistent
 kernel (``ops/decoder_megakernel.py``), otherwise as the step loop here,
 whose attention tail is a CUDA kernel.  :func:`decoder_teacher_forced`
 is the training forward: all frames through the prenet at once, then
-``ops/decoder_bptt.py::decoder_scan_bptt``.
+``ops/decoder_bptt.py::decoder_scan_bptt``, or the step loop under
+autograd, each step rematerialised in the backward where the config asks
+(``ModelConfig.remat_decoder_step``, :func:`remat_context`).
 
 Under tensor parallelism (``Decoder.model_axis`` set by
 ``parallel/mesh.py`` or ``infer/sharded.py``) the two LSTM cells and the
@@ -24,10 +26,12 @@ train_megakernel_enabled``).
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+import functools
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from ..config import ModelConfig
 from ..ops.attention_kernel import attention_tail
@@ -147,6 +151,35 @@ def _standing_in(module: nn.Module, tensors: Dict[str, torch.Tensor]):
             sub._parameters[leaf] = t
 
 
+# The matrix products that ``torch.matmul`` reaches under the dispatcher
+# (``linear``'s are ``aten.mm``): jax.checkpoint_policies.dots_saveable's
+# dot_general.  The CUDA tail is a ctypes call, which no policy sees: under
+# "dots" it runs again in the backward, as under "full".
+PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> checkpoint.CheckpointPolicy:
+    """Keep the matrix products' outputs, recompute everything else."""
+    if op in PRODUCTS:
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context(policy: str) -> Callable:
+    """``torch.utils.checkpoint``'s ``context_fn`` for a remat policy: none
+    for "full" (the whole step recomputed), the selective contexts of
+    :func:`dots_policy` for "dots"; raises the JAX package's ValueError
+    for any other."""
+    if policy == "full":
+        return checkpoint.noop_context_fn
+    if policy == "dots":
+        return functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, dots_policy)
+    raise ValueError(f"unknown decoder_remat_policy {policy!r} "
+                     "(expected 'full' or 'dots')")
+
+
 def _step_weights(dec: Decoder) -> Dict[str, torch.Tensor]:
     """The low-precision tensors every decoder step reads (the prenet and
     the memory layer run once, before the steps)."""
@@ -177,8 +210,15 @@ def decoder_teacher_forced(dec: Decoder, memory: torch.Tensor,
          alignments (B, T_dec, T_enc))
 
     Train mode with ``cfg.decoder_split_bptt`` on an unsharded decoder
-    runs ``decoder_scan_bptt`` (the kernel pair on CUDA tensors);
-    otherwise the plain step loop, differentiated by ``torch.autograd``.
+    and no remat runs ``decoder_scan_bptt`` (the kernel pair on CUDA
+    tensors); otherwise the plain step loop, differentiated by
+    ``torch.autograd``.  With ``cfg.remat_decoder_step`` in train mode each
+    step of the loop runs inside ``torch.utils.checkpoint`` (policy
+    ``cfg.decoder_remat_policy``, :func:`remat_context`): only the carry,
+    the step's frame and masks and the one fp32 weight copy cross the
+    region's edge, and the backward runs the step again on them.  The
+    dropout masks are drawn before the loop, so the recompute sees the
+    same ones; nothing in the region draws from a generator.
     """
     from ..ops.decoder_bptt import (core_params, decoder_scan_bptt,
                                     step_dropout_masks)
@@ -197,6 +237,8 @@ def decoder_teacher_forced(dec: Decoder, memory: torch.Tensor,
     if mask is None:
         mask = torch.zeros(b, t_enc, dtype=torch.bool, device=memory.device)
 
+    remat = train and cfg.remat_decoder_step
+    context_fn = remat_context(cfg.decoder_remat_policy) if remat else None
     mka_s = mkd_s = None
     if train:
         if "attention" in masks or "decoder" in masks:
@@ -204,7 +246,8 @@ def decoder_teacher_forced(dec: Decoder, memory: torch.Tensor,
         else:
             mka_s, mkd_s = step_dropout_masks(cfg, t_dec, b, generator,
                                               memory.device)
-        if cfg.decoder_split_bptt and not dec.model_axis.sharded:
+        if (cfg.decoder_split_bptt and not remat
+                and not dec.model_axis.sharded):
             mels, gates, aligns = decoder_scan_bptt(
                 cfg, core_params(dec), prenet_out, memory, processed_memory,
                 mask, mka_s, mkd_s)
@@ -218,15 +261,24 @@ def decoder_teacher_forced(dec: Decoder, memory: torch.Tensor,
     # step reads its own cast of one fp32 copy, whose gradient sums in fp32.
     low = _step_weights(dec) if train else {}
     copies = {n: t.float() for n, t in low.items()}
+
+    def step(pre_t, carry, step_masks):
+        with _standing_in(dec, {n: c.to(low[n].dtype)
+                                for n, c in copies.items()}):
+            return decode_step(dec, pre_t, carry, memory, processed_memory,
+                               mask, train=train, step_masks=step_masks)
+
     outs = []
     for t in range(t_dec):
         step_masks = (None if mka_s is None else mka_s[t],
                       None if mkd_s is None else mkd_s[t])
-        with _standing_in(dec, {n: c.to(low[n].dtype)
-                                for n, c in copies.items()}):
-            carry, out = decode_step(dec, prenet_out[t], carry, memory,
-                                     processed_memory, mask, train=train,
-                                     step_masks=step_masks)
+        if remat:
+            # no generator state to keep: the region draws nothing
+            carry, out = checkpoint.checkpoint(
+                step, prenet_out[t], carry, step_masks, use_reentrant=False,
+                preserve_rng_state=False, context_fn=context_fn)
+        else:
+            carry, out = step(prenet_out[t], carry, step_masks)
         outs.append(out)
     mels, gates, aligns = (torch.stack(x, dim=1) for x in zip(*outs))
     return mels, gates, aligns

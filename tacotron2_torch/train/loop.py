@@ -39,8 +39,12 @@ peers share.  A save gathers the shards (every rank takes part) and rank 0
 writes a checkpoint of the unsharded layout, which any ``--tp``, one
 process and ``load_model`` read; a resume re-shards it.
 
-Where the port differs: decoder rematerialisation is an XLA policy with
-no counterpart.  A full checkpoint records the epochs
+Decoder rematerialisation (``remat``, ``train_torch.py --remat``) runs
+each step of the decoder's step loop inside ``torch.utils.checkpoint``
+(``models/decoder.py::decoder_teacher_forced``), as the JAX loop's
+``jax.checkpoint``; it turns the split BPTT off.
+
+Where the port differs: a full checkpoint records the epochs
 completed, and a run resumed from an epoch's or the best checkpoint
 starts at the next epoch with the data order an unbroken run would have
 had (:meth:`BatchLoader.skip_epochs`); the JAX loop stores the index of
@@ -188,13 +192,18 @@ def train(metadata_path: str, checkpoint_dir: str, *,
           postnet_freeze_steps_override: Optional[int] = None,
           accum_steps: int = 1,
           precision: Optional[str] = None,
+          remat: Optional[str] = None,
           tensor_parallel: int = 1,
           keep_epoch_ckpts: Optional[int] = None,
           device: Union[str, torch.device] = "cuda") -> TrainState:
     """Main training routine on ``device`` (under a process group, this
     rank's card); the arguments are those of
-    ``tacotron2_tpu/train/loop.py::train`` without ``remat``.  Returns the
-    final state (under tensor parallelism, this rank's shards)."""
+    ``tacotron2_tpu/train/loop.py::train``.  ``remat``: None keeps the
+    config; "off" turns decoder-step rematerialisation off; "full" or
+    "dots" turns it on with that policy (``ModelConfig.
+    decoder_remat_policy``), for batches whose decoder activations
+    overflow the card's memory.  Returns the final state (under tensor
+    parallelism, this rank's shards)."""
     cfg = cfg or Config()
     if precision is not None:
         precision = {"bf16": "bfloat16", "fp32": "float32"}.get(precision,
@@ -208,6 +217,13 @@ def train(metadata_path: str, checkpoint_dir: str, *,
             **({"epochs": epochs} if epochs else {}),
             **({"precision": precision} if precision else {}))
         cfg = dataclasses.replace(cfg, train=tr)
+    if remat is not None:
+        if remat not in ("off", "full", "dots"):
+            raise ValueError(f"remat must be 'off', 'full', or 'dots'; "
+                             f"got {remat!r}")
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat_decoder_step=remat != "off",
+            **({} if remat == "off" else {"decoder_remat_policy": remat})))
     compute_dtype_of(cfg.train.precision)   # validate before any work
     # the process group first (a no-op without torchrun's WORLD_SIZE)
     initialize_distributed(

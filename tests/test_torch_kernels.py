@@ -1375,3 +1375,89 @@ def test_cuda_train_pair_at_tool_batch(dtype):
         assert share <= FULL_PAIR_TOL[dtype][name], (name, share)
     for name, x, y in zip(BWD_OUT, got, again):
         assert torch.equal(x, y), f"{name}: two runs differ"
+
+
+# --------------------------------------------------------------------------
+# decoder-step rematerialisation (ModelConfig.remat_decoder_step): the step
+# loop's forward runs each step again in the backward, the tail with it
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tail_recompute_gives_the_same_bits(dtype, monkeypatch):
+    """Under remat "full", the CUDA tail launches twice a step, once in
+    the forward and once in the backward's recompute of that step (last
+    step first), and each recompute returns the forward's bits."""
+    from tacotron2_torch.models.decoder import decoder_teacher_forced
+    from tacotron2_torch.models.tacotron2 import replace_config
+    from tacotron2_torch.ops import attention_kernel
+    dev = cuda_device()
+    dec, memory, mask = small_decoder(dev, dtype)
+    replace_config(dec, remat_decoder_step=True)
+    rng = np.random.default_rng(3)
+    mels = torch.from_numpy(rng.standard_normal(
+        (B, SMALL["n_mels"], T_DEC)).astype(np.float32)).to(dev)
+    calls, launch = [], attention_kernel._forward
+
+    def recorded(*ins):
+        out = launch(*ins)
+        calls.append(tuple(x.clone() for x in out))
+        return out
+
+    monkeypatch.setattr(attention_kernel, "_forward", recorded)
+    before = attention_tail.launches
+    out = decoder_teacher_forced(
+        dec, memory.requires_grad_(True), mels, mask, train=True,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    assert len(calls) == T_DEC
+    sum((x.float() ** 2).sum() for x in out).backward()
+    torch.cuda.synchronize()
+    assert attention_tail.launches - before == len(calls) == 2 * T_DEC
+    for t in range(T_DEC):
+        for x, y in zip(calls[t], calls[2 * T_DEC - 1 - t]):
+            assert torch.equal(x, y), f"step {t}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_remat_gradients_equal_step_loop(dtype, policy, monkeypatch):
+    """One ``train_step`` of the SMALL model on the card, dropout on: the
+    gradients handed to the optimizer and the losses under remat equal the
+    step loop's without it, bit for bit (cuDNN's convolutions held to its
+    deterministic algorithms, so that only the remat differs)."""
+    dev = cuda_device()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rng = np.random.default_rng(4)
+    batch = collate([Example(
+        text=rng.integers(0, 72, n).astype(np.int32),
+        mel=(rng.standard_normal((SMALL["n_mels"], m)) - 4.0
+             ).astype(np.float32)) for n, m in ((13, 40), (9, 33))])
+    runs = {}
+    for name, remat in (("loop", {}), (policy, dict(
+            remat_decoder_step=True, decoder_remat_policy=policy))):
+        cfg = Config(model=ModelConfig(**SMALL, decoder_split_bptt=False,
+                                       **remat),
+                     train=TrainConfig(precision=dtype))
+        tx = make_optimizer(cfg.train)
+        seen = {}
+
+        class Recorded:
+            @staticmethod
+            def update(model, opt_state, grads, names):
+                seen.update((n, g.clone()) for n, g in grads.items())
+                tx.update(model, opt_state, grads, names)
+
+        state = create_train_state(cfg, seed=0, tx=tx, device=dev)
+        init_projection_bias(state.model, batch["mel"])
+        before = attention_tail.launches
+        _, losses, _ = train_step(state, batch, cfg=cfg, tx=Recorded,
+                                  use_postnet=True, sigma_warmup_steps=100)
+        torch.cuda.synchronize()
+        runs[name] = (losses, seen, attention_tail.launches - before)
+    (ref_l, ref_g, ref_n), (got_l, got_g, got_n) = runs["loop"], runs[policy]
+    t_dec = batch["mel"].shape[2]
+    assert (ref_n, got_n) == (t_dec, 2 * t_dec)
+    assert all(torch.equal(x, y) for x, y in zip(ref_l, got_l))
+    assert set(ref_g) == set(got_g)
+    for n, g in ref_g.items():
+        assert torch.equal(got_g[n], g), n

@@ -398,10 +398,13 @@ def test_tensor_parallel_raises(corpus, tmp_path):
      "--postnet_freeze_steps", "0", "--accum_steps", "2",
      "--keep_epoch_ckpts", "0", "--precision", "bf16", "--tp", "1"],
     ["meta.csv", "ckpt", "--batch_size", "4", "--tp", "2"],
+    ["meta.csv", "ckpt", "--remat", "full"],
+    ["meta.csv", "ckpt", "--remat", "dots", "--tp", "2"],
+    ["meta.csv", "ckpt", "--remat", "off", "--precision", "fp32"],
 ])
 def test_cli_flags_match_train_py(argv, monkeypatch):
     """``train_torch.py``'s flags give the port's ``train`` the arguments
-    ``train.py`` gives the JAX one, less ``remat`` (not ported) and plus
+    ``train.py`` gives the JAX one, ``remat`` among them, plus
     ``device``."""
     seen = {}
     monkeypatch.setattr(jax_train_pkg, "train",
@@ -409,7 +412,8 @@ def test_cli_flags_match_train_py(argv, monkeypatch):
     monkeypatch.setattr(jax_cache, "enable_persistent_cache", lambda: None)
     monkeypatch.setattr(sys, "argv", ["train.py", *argv])
     runpy.run_path(os.path.join(ROOT, "train.py"), run_name="__main__")
-    assert seen.pop("remat") is None
+    assert seen["remat"] == (argv[argv.index("--remat") + 1]
+                             if "--remat" in argv else None)
     port = train_torch.train_kwargs(train_torch.parse_args(argv))
     assert port.pop("device") == "cuda"
     assert port == seen

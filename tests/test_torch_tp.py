@@ -15,7 +15,8 @@ rank's shard exactly the JAX array's shard on device ``(d, m)``); the JAX
 4x2 tensor-parallel step and the JAX DP8 step at ``test_tp_matches_dp``'s
 limits (fp32, dropout off: losses 1e-3 relative, ``proj`` 5e-4); one
 process of the port on the whole batch at ``tests/test_torch_parallel.py``'s
-limits (dropout off and drawn from the generator); autograd on the
+limits (dropout off, drawn from the generator, and drawn with every
+decoder step rematerialised, ``remat="full"``); autograd on the
 unsharded products (the ops); and, for ``ShardedSynthesizer(
 tensor_parallel=True)`` over ``["cpu"] * 2`` and ``["cpu"] * 4``, the JAX
 synthesizer on its 4x2 mesh and the unsharded port (2 Griffin-Lim
@@ -69,7 +70,10 @@ SMALL = dict(symbols_embedding_dim=32, encoder_embedding_dim=32,
 NO_DROPOUT = dict(p_attention_dropout=0.0, p_decoder_dropout=0.0,
                   p_prenet_dropout=0.0, p_postnet_dropout=0.0)
 TRAIN = dict(precision="float32", learning_rate=1e-3)
-STEP_CASES = ("off", "generator")
+# dropout off; dropout drawn from the generator; the latter with every
+# decoder step rematerialised (remat "full": the model-axis collectives of
+# a step run again in the backward, in the same order on every rank)
+STEP_CASES = ("off", "generator", "remat")
 # tests/test_parallel.py::test_tp_matches_dp
 JAX_LOSS_RTOL, JAX_PROJ_ATOL = 1e-3, 5e-4
 # tests/test_torch_parallel.py: fp32 sums in another order, Adam's step on a
@@ -172,8 +176,11 @@ def jax_weights():
         jax.random.PRNGKey(0), configs(False)[0].model))
 
 
-def step_inputs(dropout: str, n_data: int):
-    _, cfg = configs(dropout != "off")
+def step_inputs(case: str, n_data: int):
+    _, cfg = configs(case != "off")
+    if case == "remat":
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat_decoder_step=True, decoder_remat_policy="full"))
     params, state = jax_weights()
     batch = dp8_batch()
     return dict(cfg=cfg, params=params, model_state=state, seed=3,

@@ -8,8 +8,8 @@ The flags are ``train.py``'s, with the same meanings but one, plus
     python train_torch.py processed/metadata.csv checkpoints/run1 \\
         --epochs 100 --batch_size 16 --lr 1e-3 [--debug] \\
         [--val_metadata V.csv] [--resume CKPT] [--postnet_freeze_steps N] \\
-        [--accum_steps N] [--precision bf16|fp32] [--keep_epoch_ckpts N] \\
-        [--tp N] [--device cuda|cpu]
+        [--accum_steps N] [--precision bf16|fp32] [--remat off|full|dots] \\
+        [--keep_epoch_ckpts N] [--tp N] [--device cuda|cpu]
 
 On N cards, the same flags under torchrun, one rank a card (NCCL); each
 rank loads ``--batch_size`` rows of every global batch of
@@ -38,7 +38,9 @@ It differs from ``train.py``'s in one point: resumed from
 ``tacotron2_epoch_N`` (or a ``best_model`` saved after epoch N), the port
 goes on at epoch N + 1, where ``train.py`` runs epoch N again; so
 ``--epochs E`` from there trains E - N epochs here and E - N + 1 there.
-``--remat`` is not ported (an XLA policy).
+``--remat full|dots`` runs each step of the decoder's step loop inside
+``torch.utils.checkpoint`` and turns the split BPTT off, as ``train.py``'s
+flag does with ``jax.checkpoint``.
 """
 
 import argparse
@@ -68,6 +70,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Training compute precision (default: the "
                              "config's bfloat16 policy: fp32 master "
                              "weights, bf16 products).")
+    parser.add_argument("--remat", type=str, default=None,
+                        choices=["off", "full", "dots"],
+                        help="Decoder-step rematerialization for the "
+                             "backward pass: 'full' recomputes the whole "
+                             "step, 'dots' keeps matmul outputs and "
+                             "recomputes elementwise ops. Use when large "
+                             "--batch_size overflows HBM (default: config).")
     parser.add_argument("--keep_epoch_ckpts", type=int, default=None,
                         help="Keep only the newest N per-epoch checkpoints "
                              "(default 5; 0 keeps all).")
@@ -91,7 +100,7 @@ def train_kwargs(args: argparse.Namespace) -> dict:
                 resume=args.resume,
                 postnet_freeze_steps_override=args.postnet_freeze_steps,
                 accum_steps=args.accum_steps, precision=args.precision,
-                tensor_parallel=args.tp,
+                remat=args.remat, tensor_parallel=args.tp,
                 keep_epoch_ckpts=args.keep_epoch_ckpts, device=args.device)
 
 
