@@ -2111,7 +2111,7 @@ def training_loop_phase(dev, smi: str):
                   f"best_model is {checkpoint_kind(best)}")
             # step to step, as the loop's own timer reads it: the cadence
             # saves (every second step and at each epoch's end) included
-            mean_step_ms = timer.mean_step_time * 1e3
+            mean_step_ms = timer.stats()["step_time_s"] * 1e3
             call_ms = sorted(step_ms)
 
             run("resumed", epochs=1)

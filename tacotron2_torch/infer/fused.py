@@ -47,6 +47,7 @@ from ..dsp.griffinlim import griffin_lim, mel_to_linear
 from ..models.hifigan import HiFiGAN, hifigan_apply, hifigan_apply_chunked
 from ..models.tacotron2 import Tacotron2, make_speaker_ids, tacotron2_infer
 from ..text import pad_sequences, text_to_sequence
+from ..utils.profiling import count, span
 
 Device = Union[str, torch.device]
 
@@ -69,14 +70,15 @@ def _griffin_lim_wav(mel: torch.Tensor, acfg: AudioConfig,
 def _fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
     """Device tensors -> numpy: non-blocking copies into pinned memory
     started together, then one synchronise."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return [t.numpy() for t in tensors]
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            for t in tensors]
-    for h, t in zip(host, tensors):
-        h.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [h.numpy() for h in host]
+    with span("fetch"):
+        if all(t.device.type == "cpu" for t in tensors):
+            return [t.numpy() for t in tensors]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(tensors[0].device).synchronize()
+        return [h.numpy() for h in host]
 
 
 def synthesize_wav_fused(model: Tacotron2, acfg: AudioConfig, tokens,
@@ -103,8 +105,10 @@ def synthesize_wav_fused(model: Tacotron2, acfg: AudioConfig, tokens,
         gate_threshold=gate_threshold, stop_mode=stop_mode,
         forced_stop_at=forced_stop_at, device=device)     # (B, S, n_mels)
     mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
-    return (_griffin_lim_wav(mel, acfg, gl_iters, init_phase), n_frames,
-            frame_ends)
+    with span("vocoder"):
+        count("vocoder.frames", mel.shape[0] * mel.shape[1])
+        wav = _griffin_lim_wav(mel, acfg, gl_iters, init_phase)
+    return wav, n_frames, frame_ends
 
 
 def synthesize_wav_fused_hifigan(model: Tacotron2, hifigan_params: HiFiGAN,
@@ -136,11 +140,13 @@ def synthesize_wav_fused_hifigan(model: Tacotron2, hifigan_params: HiFiGAN,
         gate_threshold=gate_threshold, stop_mode=stop_mode, device=device)
     mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
     mel_ct = mel.transpose(1, 2)                           # (B, n_mels, S)
-    if vocoder_chunk_frames:
-        wav = hifigan_apply_chunked(hifigan_params, mel_ct,
-                                    chunk=vocoder_chunk_frames)
-    else:
-        wav = hifigan_apply(hifigan_params, mel_ct)
+    with span("vocoder"):
+        count("vocoder.frames", mel.shape[0] * mel.shape[1])
+        if vocoder_chunk_frames:
+            wav = hifigan_apply_chunked(hifigan_params, mel_ct,
+                                        chunk=vocoder_chunk_frames)
+        else:
+            wav = hifigan_apply(hifigan_params, mel_ct)
     return wav, mel, n_frames, frame_ends
 
 
@@ -356,19 +362,22 @@ def synthesize_wav(model: Tacotron2, texts: Sequence[str],
     :func:`synthesize_wav_fused_hifigan` when ``hifigan_params`` is given,
     :func:`synthesize_wav_fused` (Griffin-Lim) otherwise."""
     cfg = cfg or Config()
-    seqs = [text_to_sequence(t) or [0] for t in texts]
-    tokens, lengths = pad_sequences(seqs, pad_multiple=16)
-    speaker_ids = make_speaker_ids(speaker_id, len(texts), model.cfg)
-    stop_mode = "all" if len(texts) > 1 else "any"
-    if hifigan_params is not None:
-        wav, _, _, ends = synthesize_wav_fused_hifigan(
-            model, hifigan_params, cfg.audio, tokens, lengths, speaker_ids,
-            max_steps=max_steps, stop_mode=stop_mode, device=device)
-    else:
-        wav, _, ends = synthesize_wav_fused(
-            model, cfg.audio, tokens, lengths, speaker_ids,
-            max_steps=max_steps, gl_iters=gl_iters, stop_mode=stop_mode,
-            device=device)
-    wav_np, ends_np = _fetch(wav, ends)
-    return [wav_np[b, : int(ends_np[b]) * cfg.audio.hop_length]
-            for b in range(len(texts))]
+    with span("synthesize_wav", root=True):
+        with span("frontend"):
+            seqs = [text_to_sequence(t) or [0] for t in texts]
+            tokens, lengths = pad_sequences(seqs, pad_multiple=16)
+        speaker_ids = make_speaker_ids(speaker_id, len(texts), model.cfg)
+        stop_mode = "all" if len(texts) > 1 else "any"
+        if hifigan_params is not None:
+            wav, _, _, ends = synthesize_wav_fused_hifigan(
+                model, hifigan_params, cfg.audio, tokens, lengths,
+                speaker_ids, max_steps=max_steps, stop_mode=stop_mode,
+                device=device)
+        else:
+            wav, _, ends = synthesize_wav_fused(
+                model, cfg.audio, tokens, lengths, speaker_ids,
+                max_steps=max_steps, gl_iters=gl_iters, stop_mode=stop_mode,
+                device=device)
+        wav_np, ends_np = _fetch(wav, ends)
+        return [wav_np[b, : int(ends_np[b]) * cfg.audio.hop_length]
+                for b in range(len(texts))]

@@ -11,6 +11,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.convbn_kernel import conv_bn_act
+from ..utils.profiling import span
 from .layers import BatchNorm, BiLSTM, Conv1d, Embedding
 
 
@@ -35,11 +36,13 @@ def encoder_apply(encoder: Encoder, tokens: torch.Tensor,
     normalises with batch statistics and updates the running ones; eval
     mode with ``cfg.fused_convbn`` runs each layer as one folded
     conv + BatchNorm + ReLU (``ops/convbn_kernel.py``)."""
-    x = encoder.embedding(tokens).transpose(1, 2)         # (B, D, T)
-    fused_eval = not train and encoder.cfg.fused_convbn
-    for conv, bn in zip(encoder.convs, encoder.bns):
-        if fused_eval:
-            x = conv_bn_act(x, conv, bn, encoder.cfg.batchnorm_eps, "relu")
-        else:
-            x = torch.relu(bn(conv(x), train))
-    return encoder.lstm(x.transpose(1, 2))
+    with span("encoder"):
+        x = encoder.embedding(tokens).transpose(1, 2)     # (B, D, T)
+        fused_eval = not train and encoder.cfg.fused_convbn
+        for conv, bn in zip(encoder.convs, encoder.bns):
+            if fused_eval:
+                x = conv_bn_act(x, conv, bn, encoder.cfg.batchnorm_eps,
+                                "relu")
+            else:
+                x = torch.relu(bn(conv(x), train))
+        return encoder.lstm(x.transpose(1, 2))

@@ -19,6 +19,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..parallel.collectives import all_reduce_replicated, is_distributed
 from ..utils.device import check_module_device, resolve_device
+from ..utils.profiling import span
 from .decoder import Decoder, decoder_infer, decoder_teacher_forced
 from .encoder import Encoder, encoder_apply
 from .layers import BatchNorm, Conv1d, Embedding, Linear, LSTMCell
@@ -217,18 +218,22 @@ def tacotron2_infer(model: Tacotron2, text: ArrayLike,
                       else gate_threshold)
     text = _as_long(text, device)
     memory = encoder_apply(model.encoder, text)
-    if speaker_ids is not None:
-        speaker_ids = _as_long(speaker_ids, device)
-    memory = _condition_memory(model, memory, speaker_ids)
-    mask = None
-    if text_lengths is not None:
-        mask = make_pad_mask(_as_long(text_lengths, device), text.shape[1])
-    mel_coarse, gate_logits, alignments, n_frames, frame_ends = decoder_infer(
-        model.decoder, memory, max_steps, gate_threshold,
-        drop_first_frame=drop_first_frame, mask=mask, stop_mode=stop_mode,
-        forced_stop_at=forced_stop_at)
-    residual = postnet_apply(model.postnet, mel_coarse.transpose(1, 2))
-    mel_postnet = mel_coarse + residual.transpose(1, 2)
+    with span("decode"):
+        if speaker_ids is not None:
+            speaker_ids = _as_long(speaker_ids, device)
+        memory = _condition_memory(model, memory, speaker_ids)
+        mask = None
+        if text_lengths is not None:
+            mask = make_pad_mask(_as_long(text_lengths, device),
+                                 text.shape[1])
+        (mel_coarse, gate_logits, alignments, n_frames,
+         frame_ends) = decoder_infer(
+            model.decoder, memory, max_steps, gate_threshold,
+            drop_first_frame=drop_first_frame, mask=mask,
+            stop_mode=stop_mode, forced_stop_at=forced_stop_at)
+    with span("postnet"):
+        residual = postnet_apply(model.postnet, mel_coarse.transpose(1, 2))
+        mel_postnet = mel_coarse + residual.transpose(1, 2)
     out = Tacotron2Output(mel_postnet=mel_postnet, mel_coarse=mel_coarse,
                           gate_logits=gate_logits, alignments=alignments)
     return out, n_frames, frame_ends

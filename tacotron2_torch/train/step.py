@@ -41,6 +41,7 @@ from ..models.tacotron2 import Tacotron2, tacotron2_forward
 from ..parallel.collectives import (all_reduce_gradients, data_axis_size,
                                     global_sums, is_distributed, rank)
 from ..parallel.mesh import sharded_names
+from ..utils.profiling import span
 from .loss import LossOutput, tacotron2_loss
 from .optim import Optimizer
 from .state import TrainState
@@ -131,18 +132,20 @@ def _forward_loss(model: Tacotron2, cfg: Config, batch: Batch,
     masks not handed in are the global draw's rows."""
     if masks is None and is_distributed():
         masks = global_dropout_masks(model, batch, generator, use_postnet)
-    params = cast_params_for_compute(
-        model, compute_dtype_of(cfg.train.precision))
-    out = tacotron2_forward(
-        model, batch["text"], batch["mel"], batch["text_lengths"],
-        train=True, use_postnet=use_postnet,
-        speaker_ids=batch.get("speaker_ids"), generator=generator,
-        masks=masks, params=params, device=_device_of(model))
-    losses = tacotron2_loss(
-        out.mel_postnet, out.mel_coarse, out.gate_logits, out.alignments,
-        batch["mel"], batch["mel_lengths"], batch["text_lengths"],
-        loss_step, cfg.guided_attention,
-        sigma_warmup_steps=sigma_warmup_steps)
+    with span("forward"):
+        params = cast_params_for_compute(
+            model, compute_dtype_of(cfg.train.precision))
+        out = tacotron2_forward(
+            model, batch["text"], batch["mel"], batch["text_lengths"],
+            train=True, use_postnet=use_postnet,
+            speaker_ids=batch.get("speaker_ids"), generator=generator,
+            masks=masks, params=params, device=_device_of(model))
+    with span("loss"):
+        losses = tacotron2_loss(
+            out.mel_postnet, out.mel_coarse, out.gate_logits,
+            out.alignments, batch["mel"], batch["mel_lengths"],
+            batch["text_lengths"], loss_step, cfg.guided_attention,
+            sigma_warmup_steps=sigma_warmup_steps)
     return losses.total, (losses, out.alignments)
 
 
@@ -153,7 +156,8 @@ def _detach(losses: LossOutput) -> LossOutput:
 def _grads(model: Tacotron2, total: torch.Tensor) -> Dict[str, torch.Tensor]:
     """This rank's gradients of ``total`` by parameter name."""
     names, params = zip(*model.named_parameters())
-    gs = torch.autograd.grad(total, params, allow_unused=True)
+    with span("backward"):
+        gs = torch.autograd.grad(total, params, allow_unused=True)
     return {n: g for n, g in zip(names, gs) if g is not None}
 
 
@@ -170,17 +174,18 @@ def train_step(state: TrainState, batch: Batch, *, cfg: Config,
     (under a data-parallel group: this rank's rows of them).  Returns
     (state, losses, alignments (B, T_dec, T_enc)).
     """
-    batch = _to_device(batch, _device_of(state.model))
-    total, (losses, alignments) = _forward_loss(
-        state.model, cfg, batch, state.generator, state.loss_step,
-        use_postnet, sigma_warmup_steps, masks)
-    sharded = sharded_names(state.model)
-    tx.update(state.model, state.opt_state,
-              all_reduce_gradients(_grads(state.model, total), sharded),
-              sharded)
-    state.step += 1
-    state.loss_step += 1
-    return state, _detach(losses), alignments.detach()
+    with span("train_step", root=True):
+        batch = _to_device(batch, _device_of(state.model))
+        total, (losses, alignments) = _forward_loss(
+            state.model, cfg, batch, state.generator, state.loss_step,
+            use_postnet, sigma_warmup_steps, masks)
+        sharded = sharded_names(state.model)
+        grads = all_reduce_gradients(_grads(state.model, total), sharded)
+        with span("optimizer"):
+            tx.update(state.model, state.opt_state, grads, sharded)
+        state.step += 1
+        state.loss_step += 1
+        return state, _detach(losses), alignments.detach()
 
 
 def train_step_accum(state: TrainState, batch: Batch, *, cfg: Config,
@@ -191,23 +196,25 @@ def train_step_accum(state: TrainState, batch: Batch, *, cfg: Config,
     """Gradient-accumulated step: the batch arrays carry a leading
     ``(accum_steps, micro_batch, ...)`` axis.  Returns the last
     micro-batch's losses and alignments."""
-    batch = _to_device(batch, _device_of(state.model))
-    acc: Dict[str, torch.Tensor] = {}
-    for i in range(accum_steps):
-        micro = {k: v[i] for k, v in batch.items()}
-        total, (losses, alignments) = _forward_loss(
-            state.model, cfg, micro, state.generator, state.loss_step,
-            use_postnet, sigma_warmup_steps,
-            None if masks is None else masks[i])
-        for n, g in _grads(state.model, total).items():
-            acc[n] = acc[n] + g if n in acc else g
-        state.loss_step += 1
-    sharded = sharded_names(state.model)
-    all_reduce_gradients(acc, sharded)
-    tx.update(state.model, state.opt_state,
-              {n: g / accum_steps for n, g in acc.items()}, sharded)
-    state.step += 1
-    return state, _detach(losses), alignments.detach()
+    with span("train_step", root=True):
+        batch = _to_device(batch, _device_of(state.model))
+        acc: Dict[str, torch.Tensor] = {}
+        for i in range(accum_steps):
+            micro = {k: v[i] for k, v in batch.items()}
+            total, (losses, alignments) = _forward_loss(
+                state.model, cfg, micro, state.generator, state.loss_step,
+                use_postnet, sigma_warmup_steps,
+                None if masks is None else masks[i])
+            for n, g in _grads(state.model, total).items():
+                acc[n] = acc[n] + g if n in acc else g
+            state.loss_step += 1
+        sharded = sharded_names(state.model)
+        all_reduce_gradients(acc, sharded)
+        with span("optimizer"):
+            tx.update(state.model, state.opt_state,
+                      {n: g / accum_steps for n, g in acc.items()}, sharded)
+        state.step += 1
+        return state, _detach(losses), alignments.detach()
 
 
 @torch.no_grad()
