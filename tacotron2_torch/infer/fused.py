@@ -9,8 +9,11 @@ current stream back to back, and the host waits once, when it fetches the
 result.
 
 Frames beyond the gate stop are masked to the log floor before vocoding,
-so the (fixed-shape) vocoder sees silence there; the caller trims the
-returned waveform at ``frame_ends * hop``.
+so the vocoder sees silence there; the caller trims the returned waveform
+at ``frame_ends * hop``.  The vocoder runs over the whole buffer: fixed at
+``max_steps`` frames, or on the cut route (``trim=trim_to_bucket``, which
+:func:`synthesize_wav` takes) at the bucket that ends just past the
+batch's last stop, read from the device once after the decode.
 
 ``synthesize_pcm_proportional`` keeps the whole pipeline proportional to
 the output's length, compute and transfer both: it
@@ -37,7 +40,7 @@ the model's device, in place of the JAX package's params pytree.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +53,7 @@ from ..text import pad_sequences, text_to_sequence
 from ..utils.profiling import count, span
 
 Device = Union[str, torch.device]
+Trim = Optional[Callable[[int, int], int]]
 
 
 def _griffin_lim_wav(mel: torch.Tensor, acfg: AudioConfig,
@@ -88,7 +92,7 @@ def synthesize_wav_fused(model: Tacotron2, acfg: AudioConfig, tokens,
                          stop_mode: str = "any", gl_iters: int = 60,
                          forced_stop_at: Optional[int] = None,
                          init_phase: Optional[torch.Tensor] = None,
-                         device: Device = "cuda"
+                         trim: Trim = None, device: Device = "cuda"
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tokens (B, T_enc) -> (wav (B, S*hop), n_frames, frame_ends), all on
     the device.
@@ -96,14 +100,17 @@ def synthesize_wav_fused(model: Tacotron2, acfg: AudioConfig, tokens,
     Waveforms are Griffin-Lim reconstructions of the postnet mels; sample
     b's audio is valid up to ``frame_ends[b] * hop_length``.
     ``forced_stop_at`` force-fires the gate at that frame — see
-    models/decoder.py::decoder_infer.  ``init_phase`` (B, n_fft // 2 + 1,
+    models/decoder.py::decoder_infer.  ``trim`` cuts the buffer after the
+    decode (``models/tacotron2.py::tacotron2_infer``), so S is
+    ``max_steps`` or the cut length.  ``init_phase`` (B, n_fft // 2 + 1,
     S) is Griffin-Lim's initial phase (default: drawn from seed 0 for
-    this batch).
+    this batch's S).
     """
     mel, n_frames, frame_ends = decode_mel_fused(
         model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
         gate_threshold=gate_threshold, stop_mode=stop_mode,
-        forced_stop_at=forced_stop_at, device=device)     # (B, S, n_mels)
+        forced_stop_at=forced_stop_at, trim=trim,
+        device=device)                                   # (B, S, n_mels)
     mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
     with span("vocoder"):
         count("vocoder.frames", mel.shape[0] * mel.shape[1])
@@ -118,7 +125,7 @@ def synthesize_wav_fused_hifigan(model: Tacotron2, hifigan_params: HiFiGAN,
                                  gate_threshold: Optional[float] = None,
                                  stop_mode: str = "any",
                                  vocoder_chunk_frames: Optional[int] = None,
-                                 device: Device = "cuda"
+                                 trim: Trim = None, device: Device = "cuda"
                                  ) -> Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor, torch.Tensor]:
     """tokens (B, T_enc) -> (wav (B, S*hop), mel_postnet (B, S, n_mels),
@@ -133,11 +140,14 @@ def synthesize_wav_fused_hifigan(model: Tacotron2, hifigan_params: HiFiGAN,
 
     ``vocoder_chunk_frames`` bounds the generator's peak activation memory
     by vocoding the mel in exact receptive-field-overlapped windows of that
-    many frames (``models/hifigan.py::hifigan_apply_chunked``).
+    many frames (``models/hifigan.py::hifigan_apply_chunked``).  ``trim``
+    cuts the buffer after the decode, so S is ``max_steps`` or the cut
+    length (:func:`synthesize_wav_fused`).
     """
     mel, n_frames, frame_ends = decode_mel_fused(
         model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
-        gate_threshold=gate_threshold, stop_mode=stop_mode, device=device)
+        gate_threshold=gate_threshold, stop_mode=stop_mode, trim=trim,
+        device=device)
     mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
     mel_ct = mel.transpose(1, 2)                           # (B, n_mels, S)
     with span("vocoder"):
@@ -161,10 +171,11 @@ def decode_mel_fused(model: Tacotron2, tokens, text_lengths=None,
                      gate_threshold: Optional[float] = None,
                      stop_mode: str = "any",
                      forced_stop_at: Optional[int] = None,
-                     device: Device = "cuda"
+                     trim: Trim = None, device: Device = "cuda"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tokens (B, T_enc) -> (mel_postnet (B, S, n_mels), n_frames,
-    frame_ends), all on the device.
+    frame_ends), all on the device; S is ``max_steps``, or the cut length
+    where ``trim`` is given (``models/tacotron2.py::tacotron2_infer``).
 
     Phase 1 of the bucketed pipeline: callers fetch only ``frame_ends``
     (4 bytes/item) and hand the mel straight to :func:`vocode_bucket_pcm16`
@@ -172,7 +183,8 @@ def decode_mel_fused(model: Tacotron2, tokens, text_lengths=None,
     out, n_frames, frame_ends = tacotron2_infer(
         model, tokens, max_steps=max_steps, gate_threshold=gate_threshold,
         text_lengths=text_lengths, speaker_ids=speaker_ids,
-        stop_mode=stop_mode, forced_stop_at=forced_stop_at, device=device)
+        stop_mode=stop_mode, forced_stop_at=forced_stop_at, trim=trim,
+        device=device)
     return out.mel_postnet, n_frames, frame_ends
 
 
@@ -223,6 +235,19 @@ def pick_bucket(n_frames: int, max_steps: int,
         if b >= n_frames:
             return min(b, max_steps)
     return max_steps
+
+
+# The cut route's margin past the batch's last stop: the postnet reaches
+# 10 frames either side (five 5-tap layers) and HiFi-GAN 16, so every
+# delivered sample sees the inputs it sees in the whole buffer.
+TRIM_MARGIN = 32
+
+
+def trim_to_bucket(n_frames: int, max_steps: int) -> int:
+    """The cut route's buffer length (``trim`` of :func:`tacotron2_infer`):
+    the smallest bucket covering the batch's last stop plus
+    ``TRIM_MARGIN``; ``max_steps`` where no stop came."""
+    return pick_bucket(n_frames + TRIM_MARGIN, max_steps)
 
 
 def synthesize_wav_buckets(model: Tacotron2, acfg: AudioConfig, tokens,
@@ -360,7 +385,11 @@ def synthesize_wav(model: Tacotron2, texts: Sequence[str],
                    device: Device = "cuda") -> List[np.ndarray]:
     """Host convenience: texts -> list of trimmed float32 waveforms via
     :func:`synthesize_wav_fused_hifigan` when ``hifigan_params`` is given,
-    :func:`synthesize_wav_fused` (Griffin-Lim) otherwise."""
+    :func:`synthesize_wav_fused` (Griffin-Lim) otherwise, on the cut route
+    (:func:`trim_to_bucket`): the postnet and the vocoder run over the
+    bucket that ends just past the batch's last stop.  Griffin-Lim draws
+    its initial phase for that bucket, so where the route cuts its audio
+    differs from the whole buffer's (and the JAX package's)."""
     cfg = cfg or Config()
     with span("synthesize_wav", root=True):
         with span("frontend"):
@@ -372,12 +401,12 @@ def synthesize_wav(model: Tacotron2, texts: Sequence[str],
             wav, _, _, ends = synthesize_wav_fused_hifigan(
                 model, hifigan_params, cfg.audio, tokens, lengths,
                 speaker_ids, max_steps=max_steps, stop_mode=stop_mode,
-                device=device)
+                trim=trim_to_bucket, device=device)
         else:
             wav, _, ends = synthesize_wav_fused(
                 model, cfg.audio, tokens, lengths, speaker_ids,
                 max_steps=max_steps, gl_iters=gl_iters, stop_mode=stop_mode,
-                device=device)
+                trim=trim_to_bucket, device=device)
         wav_np, ends_np = _fetch(wav, ends)
         return [wav_np[b, : int(ends_np[b]) * cfg.audio.hop_length]
                 for b in range(len(texts))]

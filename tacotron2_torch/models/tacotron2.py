@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Sequence, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -19,7 +19,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..parallel.collectives import all_reduce_replicated, is_distributed
 from ..utils.device import check_module_device, resolve_device
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .decoder import Decoder, decoder_infer, decoder_teacher_forced
 from .encoder import Encoder, encoder_apply
 from .layers import BatchNorm, Conv1d, Embedding, Linear, LSTMCell
@@ -201,13 +201,19 @@ def tacotron2_infer(model: Tacotron2, text: ArrayLike,
                     text_lengths: Optional[ArrayLike] = None,
                     stop_mode: str = "any",
                     forced_stop_at: Optional[int] = None,
+                    trim: Optional[Callable[[int, int], int]] = None,
                     device: Union[str, torch.device] = "cuda"):
     """Autoregressive inference (eval mode) on ``device``, where the model
     must already lie.
 
     ``text`` (B, T_enc) token ids; ``text_lengths`` masks padded encoder
     positions (None = unpadded); ``stop_mode`` as in ``decoder_infer``.
-    Returns (Tacotron2Output with time axis S = max_steps, n_frames 0-d
+    ``trim`` cuts the buffers after the decode: the decode's ``n_frames``
+    is read to the host once (one synchronise), and the postnet runs over
+    and the output keeps the first ``trim(n_frames, max_steps)`` frames
+    (``infer/fused.py::trim_to_bucket``).
+    Returns (Tacotron2Output with time axis S = max_steps, or
+    ``trim(n_frames, max_steps)`` where ``trim`` is given, n_frames 0-d
     int32, frame_ends (B,) int32).
     """
     device = resolve_device(device)
@@ -231,7 +237,14 @@ def tacotron2_infer(model: Tacotron2, text: ArrayLike,
             model.decoder, memory, max_steps, gate_threshold,
             drop_first_frame=drop_first_frame, mask=mask,
             stop_mode=stop_mode, forced_stop_at=forced_stop_at)
+    if trim is not None:
+        with span("trim"):
+            keep = trim(int(n_frames), max_steps)
+            mel_coarse = mel_coarse[:, :keep]
+            gate_logits = gate_logits[:, :keep]
+            alignments = alignments[:, :keep]
     with span("postnet"):
+        count("postnet.frames", mel_coarse.shape[0] * mel_coarse.shape[1])
         residual = postnet_apply(model.postnet, mel_coarse.transpose(1, 2))
         mel_postnet = mel_coarse + residual.transpose(1, 2)
     out = Tacotron2Output(mel_postnet=mel_postnet, mel_coarse=mel_coarse,

@@ -313,13 +313,14 @@ def test_synthesize_wav_spans(vocoder):
     profiling.disable()
     got = profiling.spans()
     assert names(got) == ["synthesize_wav", "frontend", "encoder", "decode",
-                          "postnet", "vocoder", "fetch"]
+                          "trim", "postnet", "vocoder", "fetch"]
     root = got[0]
     assert all(s.parent == root.id and s.root == root.id for s in got[1:])
     for a, b in zip(got[1:], got[2:]):
         assert a.end_ns <= b.start_ns
-    assert profiling.counts() == {"vocoder.frames": 2 * SMALL[
-        "max_decoder_steps"]}
+    assert profiling.counts() == {
+        "postnet.frames": 2 * SMALL["max_decoder_steps"],
+        "vocoder.frames": 2 * SMALL["max_decoder_steps"]}
     assert len(wavs) == 2
 
 
