@@ -4,7 +4,8 @@
 The flags are ``inference.py``'s, plus ``--device``:
 
     python inference_torch.py "Hello world." --checkpoint ckpt_dir \\
-        [--output_dir generated_audio] [--vocoder hifigan|griffinlim] \\
+        [--output_dir generated_audio] \\
+        [--vocoder hifigan|waveglow|griffinlim] [--waveglow_checkpoint F] \\
         [--device cuda|cpu]
     python inference_torch.py --input_file input.txt --longform \\
         --checkpoint ...
@@ -15,7 +16,10 @@ Orbax checkpoint directory of the JAX package, a checkpoint directory of
 the port or the port's weights file.  ``--vocoder hifigan`` (the default)
 reads the HiFi-GAN generator from ``$HIFIGAN_CHECKPOINT`` or
 ``./hifigan_checkpoint.pt`` and falls back to Griffin-Lim, with a message,
-where there is none.
+where there is none.  ``--vocoder waveglow`` reads NVIDIA's WaveGlow
+state dict from ``--waveglow_checkpoint``, ``$WAVEGLOW_CHECKPOINT`` or
+``./waveglow_checkpoint.pt`` (``models/waveglow.py``), with the same
+fallback.
 """
 
 import argparse
@@ -43,7 +47,11 @@ def parse_args(argv: Optional[List[str]] = None
                         help="Path to a trained model checkpoint.")
     parser.add_argument("--output_dir", type=str, default="generated_audio")
     parser.add_argument("--vocoder", type=str, default="hifigan",
-                        choices=["hifigan", "griffinlim"])
+                        choices=["hifigan", "waveglow", "griffinlim"])
+    parser.add_argument("--waveglow_checkpoint", type=str, default=None,
+                        help="NVIDIA WaveGlow checkpoint for --vocoder "
+                             "waveglow (default $WAVEGLOW_CHECKPOINT or "
+                             "./waveglow_checkpoint.pt).")
     parser.add_argument("--griffinlim_iters", type=int, default=60)
     parser.add_argument("--speaker_id", type=int, default=None,
                         help="Speaker index for multi-speaker checkpoints.")
@@ -74,7 +82,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                                                   synthesize_mels)
     from tacotron2_torch.infer.vocode import (try_load_hifigan,
                                               try_load_hifigan_params,
+                                              try_load_waveglow,
                                               vocode_mels)
+
+    def vocoder_callable():
+        if args.vocoder == "hifigan":
+            return try_load_hifigan(device=args.device)
+        if args.vocoder == "waveglow":
+            return try_load_waveglow(args.waveglow_checkpoint,
+                                     device=args.device)
+        return None
 
     if args.batch_file:
         with open(args.batch_file, "r", encoding="utf-8") as f:
@@ -83,8 +100,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             parser.error("--batch_file is empty")
         cfg = _make_cfg(args)
         model = load_model(args.checkpoint, cfg, args.device)
-        vocode = (try_load_hifigan(device=args.device)
-                  if args.vocoder == "hifigan" else None)
+        vocode = vocoder_callable()
         print(f"Batch synthesis: {len(texts)} texts in one decode")
         mels, _ = synthesize_mels(model, texts, speaker_id=args.speaker_id,
                                   device=args.device)
@@ -116,11 +132,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         model = load_model(args.checkpoint, cfg, args.device)
         # HiFi-GAN goes into the proportional pipeline as the generator
         # (longform.py), not as an external vocoder callable, which would
-        # take the modular path.
+        # take the modular path; WaveGlow takes the modular path.
         hp = (try_load_hifigan_params(device=args.device)
               if args.vocoder == "hifigan" else None)
+        wg = vocoder_callable() if args.vocoder == "waveglow" else None
         wav, mels = synthesize_longform(
-            model, text, cfg, hifigan_params=hp,
+            model, text, cfg, hifigan_params=hp, vocoder=wg,
             griffinlim_iters=args.griffinlim_iters,
             speaker_id=args.speaker_id, device=args.device)
         out_path = next_output_path(args.output_dir)
@@ -133,7 +150,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                    output_dir=args.output_dir, vocoder=args.vocoder,
                    griffinlim_iters=args.griffinlim_iters,
                    cfg=_make_cfg(args), speaker_id=args.speaker_id,
-                   device=args.device)
+                   device=args.device,
+                   waveglow_checkpoint=args.waveglow_checkpoint)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 Counterpart of ``tacotron2_tpu/infer/fused.py``.  There each function is
 one compiled program; here each is one eager function on device tensors
 with no host synchronisation inside it: encoder + decode kernel + postnet
-+ vocoder (mel inversion + Griffin-Lim, or the HiFi-GAN generator of
-``models/hifigan.py`` where ``hifigan_params`` is given) are queued on the
++ vocoder (mel inversion + Griffin-Lim, the HiFi-GAN generator of
+``models/hifigan.py`` where ``hifigan_params`` is given, or WaveGlow of
+``models/waveglow.py`` where ``waveglow`` is given) are queued on the
 current stream back to back, and the host waits once, when it fetches the
 result.
 
@@ -49,6 +50,7 @@ from ..config import AudioConfig, Config
 from ..dsp.griffinlim import griffin_lim, mel_to_linear
 from ..models.hifigan import HiFiGAN, hifigan_apply, hifigan_apply_chunked
 from ..models.tacotron2 import Tacotron2, make_speaker_ids, tacotron2_infer
+from ..models.waveglow import WaveGlow, waveglow_infer
 from ..text import pad_sequences, text_to_sequence
 from ..utils.profiling import count, span
 
@@ -157,6 +159,32 @@ def synthesize_wav_fused_hifigan(model: Tacotron2, hifigan_params: HiFiGAN,
                                         chunk=vocoder_chunk_frames)
         else:
             wav = hifigan_apply(hifigan_params, mel_ct)
+    return wav, mel, n_frames, frame_ends
+
+
+def synthesize_wav_fused_waveglow(model: Tacotron2, waveglow: WaveGlow,
+                                  acfg: AudioConfig, tokens,
+                                  text_lengths=None, speaker_ids=None, *,
+                                  max_steps: Optional[int] = None,
+                                  gate_threshold: Optional[float] = None,
+                                  stop_mode: str = "any",
+                                  trim: Trim = None, device: Device = "cuda"
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor, torch.Tensor]:
+    """WaveGlow twin of :func:`synthesize_wav_fused_hifigan`: (wav (B,
+    S*hop), mel_postnet (B, S, n_mels), n_frames, frame_ends), all on the
+    device.  The masked buffer is vocoded whole (WaveGlow reaches about 96
+    frames either side, so no row is cut apart), from the seed-0 noise
+    drawn for its (B, 8, S * 32) shape (``models/waveglow.py::
+    waveglow_infer``)."""
+    mel, n_frames, frame_ends = decode_mel_fused(
+        model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
+        gate_threshold=gate_threshold, stop_mode=stop_mode, trim=trim,
+        device=device)
+    mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
+    with span("vocoder"):
+        count("vocoder.frames", mel.shape[0] * mel.shape[1])
+        wav = waveglow_infer(waveglow, mel.transpose(1, 2))
     return wav, mel, n_frames, frame_ends
 
 
@@ -303,12 +331,14 @@ def _synthesize_pcm_bucket(model: Tacotron2,
                            speaker_ids, *, bucket: int,
                            gate_threshold: Optional[float], stop_mode: str,
                            gl_iters: int, forced_stop_at: Optional[int],
-                           device: Device
+                           device: Device,
+                           waveglow: Optional[WaveGlow] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Decode capped at ``bucket`` -> mask past the gate stop ->
     bucket-length vocode (HiFi-GAN where ``hifigan_params`` is given,
-    Griffin-Lim otherwise) -> int16 PCM, with no host synchronisation.
+    WaveGlow where ``waveglow`` is, Griffin-Lim otherwise) -> int16 PCM,
+    with no host synchronisation.
     Returns (pcm, frame_ends, masked mel), all on the device."""
     mel, _, frame_ends = decode_mel_fused(
         model, tokens, text_lengths, speaker_ids, max_steps=bucket,
@@ -317,6 +347,8 @@ def _synthesize_pcm_bucket(model: Tacotron2,
     mel = _mask_and_slice(mel, frame_ends, bucket, acfg.mel_eps)
     if hifigan_params is not None:
         wav = hifigan_apply(hifigan_params, mel.transpose(1, 2))
+    elif waveglow is not None:
+        wav = waveglow_infer(waveglow, mel.transpose(1, 2))
     else:
         wav = _griffin_lim_wav(mel, acfg, gl_iters)
     return _to_pcm16(wav), frame_ends, mel
@@ -334,7 +366,8 @@ def synthesize_pcm_proportional(model: Tacotron2, acfg: AudioConfig, tokens,
                                 frames_per_token: float = FRAMES_PER_TOKEN,
                                 frames_margin: int = FRAMES_MARGIN,
                                 return_mel: bool = False,
-                                device: Device = "cuda"):
+                                device: Device = "cuda",
+                                waveglow: Optional[WaveGlow] = None):
     """tokens (B, T_enc) -> (pcm16 (B, bucket*hop) int16 np, frame_ends np,
     bucket) — the LENGTH-PROPORTIONAL synthesis path.
 
@@ -349,7 +382,8 @@ def synthesize_pcm_proportional(model: Tacotron2, acfg: AudioConfig, tokens,
     ``return_mel=True`` appends the (B, bucket, n_mels) post-gate-masked
     postnet mel as a fourth element, fetched in the same round (for
     diagnostics — the reference prints mel stats before vocoding,
-    reference: inference.py:98-111)."""
+    reference: inference.py:98-111).  ``waveglow`` vocodes with WaveGlow
+    (``models/waveglow.py``) where no ``hifigan_params`` is given."""
     limit = (model.cfg.max_decoder_steps if max_steps is None else max_steps)
     if expected_frames is None:
         if text_lengths is not None:
@@ -364,7 +398,8 @@ def synthesize_pcm_proportional(model: Tacotron2, acfg: AudioConfig, tokens,
             model, hifigan_params, acfg, tokens, text_lengths, speaker_ids,
             bucket=bucket,
             gate_threshold=gate_threshold, stop_mode=stop_mode,
-            gl_iters=gl_iters, forced_stop_at=forced_stop_at, device=device)
+            gl_iters=gl_iters, forced_stop_at=forced_stop_at, device=device,
+            waveglow=waveglow)
         fetched = _fetch(pcm, ends, *([mel] if return_mel else []))
         pcm_np, ends_np = fetched[:2]
         if bucket >= limit or int(ends_np.max()) < bucket:
@@ -382,9 +417,11 @@ def synthesize_wav(model: Tacotron2, texts: Sequence[str],
                    cfg: Optional[Config] = None,
                    max_steps: Optional[int] = None, gl_iters: int = 60,
                    speaker_id=None, hifigan_params=None,
-                   device: Device = "cuda") -> List[np.ndarray]:
+                   device: Device = "cuda",
+                   waveglow: Optional[WaveGlow] = None) -> List[np.ndarray]:
     """Host convenience: texts -> list of trimmed float32 waveforms via
     :func:`synthesize_wav_fused_hifigan` when ``hifigan_params`` is given,
+    :func:`synthesize_wav_fused_waveglow` when ``waveglow`` is,
     :func:`synthesize_wav_fused` (Griffin-Lim) otherwise, on the cut route
     (:func:`trim_to_bucket`): the postnet and the vocoder run over the
     bucket that ends just past the batch's last stop.  Griffin-Lim draws
@@ -401,6 +438,11 @@ def synthesize_wav(model: Tacotron2, texts: Sequence[str],
             wav, _, _, ends = synthesize_wav_fused_hifigan(
                 model, hifigan_params, cfg.audio, tokens, lengths,
                 speaker_ids, max_steps=max_steps, stop_mode=stop_mode,
+                trim=trim_to_bucket, device=device)
+        elif waveglow is not None:
+            wav, _, _, ends = synthesize_wav_fused_waveglow(
+                model, waveglow, cfg.audio, tokens, lengths, speaker_ids,
+                max_steps=max_steps, stop_mode=stop_mode,
                 trim=trim_to_bucket, device=device)
         else:
             wav, _, ends = synthesize_wav_fused(

@@ -131,18 +131,28 @@ def next_output_path(output_dir: str, stem: str = "output",
 def synthesize(text: str, checkpoint_path: str, output_dir: str,
                vocoder: str = "griffinlim", cfg: Optional[Config] = None,
                griffinlim_iters: int = 60, speaker_id: Optional[int] = None,
-               device: Device = "cuda") -> str:
-    """Full single-utterance pipeline; returns the written WAV path."""
+               device: Device = "cuda",
+               waveglow_checkpoint: Optional[str] = None) -> str:
+    """Full single-utterance pipeline; returns the written WAV path.
+    ``vocoder`` "hifigan" or "waveglow" (read from
+    ``waveglow_checkpoint``, ``$WAVEGLOW_CHECKPOINT`` or
+    ``./waveglow_checkpoint.pt``) falls back to Griffin-Lim with a message
+    where the vocoder cannot be loaded."""
     cfg = cfg or Config()
     print("Loading Tacotron 2 model...")
     model = load_model(checkpoint_path, cfg, device)
     print("Tacotron 2 model loaded.")
 
     # "hifigan" tries HiFi-GAN and falls back to Griffin-Lim with a
-    # message; any other name is Griffin-Lim (as in the JAX package)
-    from .vocode import try_load_hifigan_params
+    # message; "waveglow" likewise; any other name is Griffin-Lim (as in
+    # the JAX package)
+    from .vocode import try_load_hifigan_params, try_load_waveglow_params
     hifigan_params = (try_load_hifigan_params(device=device)
                       if vocoder.lower() == "hifigan" else None)
+    waveglow = (try_load_waveglow_params(waveglow_checkpoint, device=device)
+                if vocoder.lower() == "waveglow" else None)
+    name = ("HiFi-GAN" if hifigan_params is not None else
+            "WaveGlow" if waveglow is not None else "Griffin-Lim")
 
     # Length-proportional path: the mel bucket is picked from the text
     # length before any device work, encoder + decode + postnet + vocoder
@@ -151,15 +161,14 @@ def synthesize(text: str, checkpoint_path: str, output_dir: str,
     # (infer/fused.py).
     from .fused import synthesize_pcm_proportional
     print("Processing input text + generating waveform "
-          f"({'HiFi-GAN' if hifigan_params is not None else 'Griffin-Lim'} "
-          "length-proportional path)...")
+          f"({name} length-proportional path)...")
     tokens, lengths = pad_sequences([text_to_sequence(text) or [0]],
                                     pad_multiple=16)
     speaker_ids = make_speaker_ids(speaker_id, 1, cfg.model)
     pcm, ends, bucket, mel = synthesize_pcm_proportional(
         model, cfg.audio, tokens, lengths, speaker_ids,
         gl_iters=griffinlim_iters, hifigan_params=hifigan_params,
-        return_mel=True, device=device)
+        return_mel=True, device=device, waveglow=waveglow)
     n0 = int(ends[0])
     if n0 < 3:
         print(f"[WARN] Very short mel length ({n0}) - possible "

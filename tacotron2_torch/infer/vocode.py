@@ -5,14 +5,15 @@ arbitrary lengths; this helper pads the time axis to 128-frame buckets
 (log-floor frames), vocodes, and trims the audio back, so that batched
 traffic stacks mels of one bucket into one vocoder call and the cached
 window-sum envelopes (``dsp/stft.py``) are reused.  ``vocoder`` is a
-callable (the HiFi-GAN closure of :func:`try_load_hifigan`) or None for
-Griffin-Lim.  The two loaders return None, with the JAX package's
-message, when HiFi-GAN cannot be loaded, so that callers fall back to
-Griffin-Lim.
+callable (the HiFi-GAN closure of :func:`try_load_hifigan`, or WaveGlow's
+of :func:`try_load_waveglow`) or None for Griffin-Lim.  The loaders return
+None, with a message (the JAX package's for HiFi-GAN), when the vocoder
+cannot be loaded, so that callers fall back to Griffin-Lim.
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -106,16 +107,21 @@ def vocode_mels(mels: Sequence[np.ndarray], cfg: AudioConfig,
     return out
 
 
-def _try_load(loader_name: str, checkpoint_path: Optional[str], **kw):
-    """Run a ``models.hifigan`` loader, returning None (with the JAX
-    package's message) on ANY failure -- missing checkpoint, wrong layout
-    -- so callers fall back to Griffin-Lim instead of crashing."""
+_VOCODER_NAMES = {"hifigan": "HiFi-GAN", "waveglow": "WaveGlow"}
+
+
+def _try_load(loader_name: str, checkpoint_path: Optional[str],
+              vocoder: str = "hifigan", **kw):
+    """Run a loader of ``models.<vocoder>``, returning None (with the JAX
+    package's message, or its like for WaveGlow) on ANY failure -- missing
+    checkpoint, wrong layout -- so callers fall back to Griffin-Lim instead
+    of crashing."""
     try:
-        from ..models import hifigan
-        return getattr(hifigan, loader_name)(checkpoint_path, **kw)
+        module = importlib.import_module(f"..models.{vocoder}", __package__)
+        return getattr(module, loader_name)(checkpoint_path, **kw)
     except Exception as e:
-        print(f"HiFi-GAN unavailable ({type(e).__name__}: {e}); "
-              f"falling back to Griffin-Lim.")
+        print(f"{_VOCODER_NAMES[vocoder]} unavailable "
+              f"({type(e).__name__}: {e}); falling back to Griffin-Lim.")
         return None
 
 
@@ -131,3 +137,20 @@ def try_load_hifigan_params(checkpoint_path: Optional[str] = None,
     """The HiFi-GAN generator on ``device`` (the ``hifigan_params`` of the
     fused synthesis path), or None on any failure (see :func:`_try_load`)."""
     return _try_load("load_hifigan_params", checkpoint_path, device=device)
+
+
+def try_load_waveglow(checkpoint_path: Optional[str] = None,
+                      device: Union[str, torch.device] = "cuda"):
+    """WaveGlow vocoder callable on ``device``
+    (``models/waveglow.py::load_waveglow_vocoder``), or None on any
+    failure (see :func:`_try_load`)."""
+    return _try_load("load_waveglow_vocoder", checkpoint_path, "waveglow",
+                     device=device)
+
+
+def try_load_waveglow_params(checkpoint_path: Optional[str] = None,
+                             device: Union[str, torch.device] = "cuda"):
+    """The WaveGlow module on ``device`` (the ``waveglow`` of the fused
+    synthesis path), or None on any failure (see :func:`_try_load`)."""
+    return _try_load("load_waveglow_params", checkpoint_path, "waveglow",
+                     device=device)
