@@ -11,7 +11,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.convbn_kernel import conv_bn_act
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .layers import BatchNorm, BiLSTM, Conv1d, Embedding
 
 
@@ -35,7 +35,11 @@ def encoder_apply(encoder: Encoder, tokens: torch.Tensor,
     """tokens (B, T_enc) int -> memory (B, T_enc, 512) fp32.  ``train``
     normalises with batch statistics and updates the running ones; eval
     mode with ``cfg.fused_convbn`` runs each layer as one folded
-    conv + BatchNorm + ReLU (``ops/convbn_kernel.py``)."""
+    conv + BatchNorm + ReLU (``ops/convbn_kernel.py``).  On a CUDA device
+    the BiLSTM replays CUDA graphs (``models/layers.py::BiLSTM``); the
+    counter ``encoder.calls`` counts the calls, beside the BiLSTM's
+    ``encoder.graph_replays`` and ``encoder.graph_captures``."""
+    count("encoder.calls")
     with span("encoder"):
         x = encoder.embedding(tokens).transpose(1, 2)     # (B, D, T)
         fused_eval = not train and encoder.cfg.fused_convbn

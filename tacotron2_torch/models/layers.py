@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.collectives import all_reduce_sum_grad, is_distributed
+from .graphs import GraphCache
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -162,12 +163,21 @@ class LSTMCell(nn.Module):
 
     def gates(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """Pre-activation gates (B, 4H), fp32."""
-        return (linear(x, self.weight_ih) + linear(h, self.weight_hh)
-                + self.bias_ih.float() + self.bias_hh.float())
+        return lstm_gates(x, h, self.weight_ih, self.weight_hh,
+                          self.bias_ih, self.bias_hh)
 
     def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         return lstm_update(self.gates(x, h), c)
+
+
+def lstm_gates(x: torch.Tensor, h: torch.Tensor, weight_ih: torch.Tensor,
+               weight_hh: torch.Tensor, bias_ih: torch.Tensor,
+               bias_hh: torch.Tensor) -> torch.Tensor:
+    """:class:`LSTMCell`'s pre-activation gates (B, 4H), fp32, from its four
+    tensors given explicitly."""
+    return (linear(x, weight_ih) + linear(h, weight_hh)
+            + bias_ih.float() + bias_hh.float())
 
 
 def lstm_update(gates: torch.Tensor, c: torch.Tensor
@@ -179,32 +189,60 @@ def lstm_update(gates: torch.Tensor, c: torch.Tensor
     return h_new, c_new
 
 
+def lstm_scan(xs: torch.Tensor, weight_ih: torch.Tensor,
+              weight_hh: torch.Tensor, bias_ih: torch.Tensor,
+              bias_hh: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """One direction of :class:`BiLSTM`: the cell stepped over (B, T, in)
+    from zero state, last step first where ``reverse``; (B, T, H)."""
+    b, t, _ = xs.shape
+    h = xs.new_zeros(b, weight_hh.shape[1])
+    c = xs.new_zeros(b, weight_hh.shape[1])
+    out = [None] * t
+    for i in (range(t - 1, -1, -1) if reverse else range(t)):
+        h, c = lstm_update(lstm_gates(xs[:, i], h, weight_ih, weight_hh,
+                                      bias_ih, bias_hh), c)
+        out[i] = h
+    return torch.stack(out, dim=1)
+
+
+def bilstm_scan(xs: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+    """:class:`BiLSTM` as a function of its input and its eight tensors
+    (:meth:`BiLSTM.weights`' order): (B, T, in) -> (B, T, 2H)."""
+    return torch.cat([lstm_scan(xs, *weights[:4], reverse=False),
+                      lstm_scan(xs, *weights[4:], reverse=True)], dim=-1)
+
+
 class BiLSTM(nn.Module):
     """Bidirectional LSTM over the full padded length (unpacked, as the
     reference feeds padded batches to ``nn.LSTM``), written as a loop over
-    the cell so that the dtype policy is the cell's."""
+    the cell so that the dtype policy is the cell's.
+
+    On the CPU the loop runs eagerly.  On a CUDA device it is
+    :func:`bilstm_scan` captured as CUDA graphs, one forward (and, where a
+    gradient is wanted, one backward) a shape, at the shape's first call,
+    and replayed (``models/graphs.py``): the same operations in the same
+    order, so the same bits, for one launch where the loop makes about 25
+    a step each way (and as many again in its backward)."""
 
     def __init__(self, in_dim: int, hidden: int):
         super().__init__()
         self.fwd = LSTMCell(in_dim, hidden)
         self.bwd = LSTMCell(in_dim, hidden)
+        self.graphs = GraphCache(bilstm_scan, "encoder")
 
-    @staticmethod
-    def _scan(cell: LSTMCell, xs: torch.Tensor, reverse: bool
-              ) -> torch.Tensor:
-        b, t, _ = xs.shape
-        h = xs.new_zeros(b, cell.hidden)
-        c = xs.new_zeros(b, cell.hidden)
-        out = [None] * t
-        for i in (range(t - 1, -1, -1) if reverse else range(t)):
-            h, c = cell(xs[:, i], h, c)
-            out[i] = h
-        return torch.stack(out, dim=1)
+    def weights(self) -> Tuple[torch.Tensor, ...]:
+        """The eight tensors :func:`bilstm_scan` takes: each direction's
+        ``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh``, forward
+        first (under ``torch.func.functional_call``, the stand-ins)."""
+        return tuple(getattr(cell, n) for cell in (self.fwd, self.bwd)
+                     for n in ("weight_ih", "weight_hh", "bias_ih",
+                               "bias_hh"))
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         """(B, T, in) -> (B, T, 2H)."""
-        return torch.cat([self._scan(self.fwd, xs, False),
-                          self._scan(self.bwd, xs, True)], dim=-1)
+        if xs.is_cuda:
+            return self.graphs(xs, *self.weights())
+        return bilstm_scan(xs, *self.weights())
 
 
 def lstm_cell_on_axis(cell: LSTMCell, names: Sequence[str], axis,

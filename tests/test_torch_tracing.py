@@ -319,6 +319,7 @@ def test_synthesize_wav_spans(vocoder):
     for a, b in zip(got[1:], got[2:]):
         assert a.end_ns <= b.start_ns
     assert profiling.counts() == {
+        "encoder.calls": 1,
         "postnet.frames": 2 * SMALL["max_decoder_steps"],
         "vocoder.frames": 2 * SMALL["max_decoder_steps"]}
     assert len(wavs) == 2

@@ -110,11 +110,13 @@ def test_postnet_frames_count_the_buffer(models):
               device="cpu")
     profiling.enable()
     tacotron2_infer(models[80], tokens, **kw)
-    assert profiling.counts() == {"postnet.frames": 2 * MAX_STEPS}
+    assert profiling.counts() == {"encoder.calls": 1,
+                                  "postnet.frames": 2 * MAX_STEPS}
     assert "trim" not in [s.name for s in profiling.drain()]
     profiling.enable()
     tacotron2_infer(models[80], tokens, trim=fused.trim_to_bucket, **kw)
-    assert profiling.counts() == {"postnet.frames": 2 * 128}
+    assert profiling.counts() == {"encoder.calls": 1,
+                                  "postnet.frames": 2 * 128}
     assert [s.name for s in profiling.spans()] == ["encoder", "decode",
                                                    "trim", "postnet"]
 
@@ -145,7 +147,8 @@ def test_hifigan_route_delivers_the_whole_buffers_samples(models,
     assert full_mel.shape[1] == MAX_STEPS
     assert full_wav.shape == (2, MAX_STEPS * hop)
     assert cut_mel.shape[1] == 128 and cut_wav.shape == (2, 128 * hop)
-    assert profiling.counts() == {"postnet.frames": 2 * 128,
+    assert profiling.counts() == {"encoder.calls": 1,
+                                  "postnet.frames": 2 * 128,
                                   "vocoder.frames": 2 * 128}
     assert torch.equal(ends, cut_ends) and ends.tolist() == [STOP, STOP]
     for b, e in enumerate(ends.tolist()):
