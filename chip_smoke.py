@@ -2764,6 +2764,7 @@ def serving_phase(dev, smi: str) -> dict:
     from tacotron2_torch.infer.longform import synthesize_longform
     from tacotron2_torch.infer.streaming import stream_mels
     from tacotron2_torch.infer.synthesize import load_model
+    from tacotron2_torch.infer.vocode import load_vocoder, vocode_array
     from tacotron2_torch.models import hifigan as hg
     from tacotron2_torch.models.encoder import encoder_apply
     from tacotron2_torch.models.tacotron2 import (
@@ -2881,8 +2882,8 @@ def serving_phase(dev, smi: str) -> dict:
                           ("hifigan bf16", "hifigan"),
                           ("hifigan fp32", "hifigan")):
             if name == "hifigan fp32":
-                service._hifigan_vocoder = hg.load_hifigan_vocoder(
-                    device=dev)
+                service._hifigan_vocoder = load_vocoder("hifigan",
+                                                        device=dev)
             status, body, first_s, total_s = http_post(
                 url + "/synthesize_streaming",
                 {"text": texts[0], "vocoder": voc, "chunk_frames": 64},
@@ -2902,8 +2903,7 @@ def serving_phase(dev, smi: str) -> dict:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             wav, mels = synthesize_longform(service.model, paragraph,
-                                            hifigan_params=card_gen,
-                                            device=dev)
+                                            vocoder=card_gen, device=dev)
             long_s = time.perf_counter() - t1
         ends = [m.shape[0] for m in mels]
         check(len(mels) == len(texts) and all(
@@ -3082,11 +3082,13 @@ def serving_phase(dev, smi: str) -> dict:
                 m, texts[0], chunk_frames=64, apply_postnet=True,
                 device=dev)))
         voc32 = service._hifigan_vocoder
-        one_shot = np.frombuffer(srv._pcm16(voc32(full_mel.T[None])[0]),
-                                 "<i2").astype(np.int32)
-        voc16 = hg.load_hifigan_vocoder(bf16=True, device=dev)
-        one_shot16 = np.frombuffer(srv._pcm16(voc16(full_mel.T[None])[0]),
-                                   "<i2").astype(np.int32)
+        one_shot = np.frombuffer(srv._pcm16(
+            vocode_array(voc32, full_mel[None], dev)[0]),
+            "<i2").astype(np.int32)
+        voc16 = load_vocoder("hifigan", bf16=True, device=dev)
+        one_shot16 = np.frombuffer(srv._pcm16(
+            vocode_array(voc16, full_mel[None], dev)[0]),
+            "<i2").astype(np.int32)
         n_samples = full_mel.shape[0] * hop
         check(all(v.shape == (n_samples,) for v in streams.values()),
               f"phase 17 streams: {[v.shape for v in streams.values()]} vs "
@@ -4103,6 +4105,7 @@ def dp_serving(dev) -> dict:
     from tacotron2_torch.infer.fused import (synthesize_wav,
                                              synthesize_wav_fused)
     from tacotron2_torch.infer.sharded import _pad_rows
+    from tacotron2_torch.infer.vocode import GriffinLim
     from tacotron2_torch.infer.synthesize import load_model
     from tacotron2_torch.ops.convbn_kernel import conv_bn_act
     from tacotron2_torch.ops.decoder_megakernel import decoder_infer_mega
@@ -4136,10 +4139,10 @@ def dp_serving(dev) -> dict:
                 (n, acfg.n_fft // 2 + 1, TRAINED_MAX_STEPS), 0, dev)
             alone = []
             for r in range(n):
-                w, _, e = synthesize_wav_fused(
-                    model, acfg, tokens[r:r + 1], lengths[r:r + 1],
-                    max_steps=TRAINED_MAX_STEPS, gl_iters=DP_GL_ITERS,
-                    init_phase=phase[r:r + 1], device=dev)
+                w, _, _, e = synthesize_wav_fused(
+                    model, GriffinLim(acfg, DP_GL_ITERS, phase[r:r + 1]),
+                    acfg, tokens[r:r + 1], lengths[r:r + 1],
+                    max_steps=TRAINED_MAX_STEPS, device=dev)
                 alone.append(w[0, :int(e[0]) * hop].cpu().numpy())
             row_gap = [float(np.abs(a - b_).max()) if a.shape == b_.shape
                        else None for a, b_ in zip(alone, batched)]

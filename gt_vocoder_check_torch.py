@@ -136,13 +136,14 @@ def main(args) -> dict:
         print(f"Saved: {p_path}")
 
     if args.hifigan:
-        from tacotron2_torch.infer.vocode import try_load_hifigan
-        vocode = try_load_hifigan(device=device)
+        from tacotron2_torch.infer.vocode import (try_load_vocoder,
+                                                  vocode_array)
+        vocode = try_load_vocoder("hifigan", device=device)
         if vocode is None:
             print("HiFi-GAN synthesis failed: generator unavailable")
             report["hifigan_error"] = "generator unavailable"
         else:
-            wav_h = vocode(mel[None])[0]
+            wav_h = vocode_array(vocode, mel.T[None], device)[0]
             h_path = os.path.join(args.output_dir,
                                   f"{basename}_gt_hifigan.wav")
             save_wav(h_path, wav_h, cfg.sampling_rate)

@@ -80,18 +80,15 @@ def main(argv: Optional[List[str]] = None) -> None:
                                                   next_output_path,
                                                   synthesize,
                                                   synthesize_mels)
-    from tacotron2_torch.infer.vocode import (try_load_hifigan,
-                                              try_load_hifigan_params,
-                                              try_load_waveglow,
+    from tacotron2_torch.infer.vocode import (GriffinLim, try_load_vocoder,
                                               vocode_mels)
 
-    def vocoder_callable():
-        if args.vocoder == "hifigan":
-            return try_load_hifigan(device=args.device)
-        if args.vocoder == "waveglow":
-            return try_load_waveglow(args.waveglow_checkpoint,
-                                     device=args.device)
-        return None
+    def neural_vocoder():
+        """The neural vocoder ``--vocoder`` names, or None for Griffin-Lim
+        (asked for, or the fallback)."""
+        return try_load_vocoder(
+            args.vocoder, args.waveglow_checkpoint
+            if args.vocoder == "waveglow" else None, args.device)
 
     if args.batch_file:
         with open(args.batch_file, "r", encoding="utf-8") as f:
@@ -100,7 +97,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             parser.error("--batch_file is empty")
         cfg = _make_cfg(args)
         model = load_model(args.checkpoint, cfg, args.device)
-        vocode = vocoder_callable()
+        vocode = (neural_vocoder()
+                  or GriffinLim(cfg.audio, args.griffinlim_iters))
         print(f"Batch synthesis: {len(texts)} texts in one decode")
         mels, _ = synthesize_mels(model, texts, speaker_id=args.speaker_id,
                                   device=args.device)
@@ -109,9 +107,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         chunk = 16
         for s in range(0, len(mels), chunk):
             part = list(mels[s:s + chunk])
-            wavs = vocode_mels(part, cfg.audio, vocoder=vocode,
-                               griffinlim_iters=args.griffinlim_iters,
-                               device=args.device)
+            wavs = vocode_mels(part, cfg.audio, vocode, device=args.device)
             for mel, wav in zip(part, wavs):
                 out_path = next_output_path(args.output_dir)
                 save_wav(out_path, wav, cfg.audio.sampling_rate)
@@ -130,14 +126,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         from tacotron2_torch.infer.longform import synthesize_longform
         cfg = _make_cfg(args)
         model = load_model(args.checkpoint, cfg, args.device)
-        # HiFi-GAN goes into the proportional pipeline as the generator
-        # (longform.py), not as an external vocoder callable, which would
-        # take the modular path; WaveGlow takes the modular path.
-        hp = (try_load_hifigan_params(device=args.device)
-              if args.vocoder == "hifigan" else None)
-        wg = vocoder_callable() if args.vocoder == "waveglow" else None
+        # HiFi-GAN and Griffin-Lim take the proportional route
+        # (longform.py), WaveGlow the modular route
+        vocode = neural_vocoder()
         wav, mels = synthesize_longform(
-            model, text, cfg, hifigan_params=hp, vocoder=wg,
+            model, text, cfg, vocoder=vocode,
+            modular=vocode is not None and args.vocoder == "waveglow",
             griffinlim_iters=args.griffinlim_iters,
             speaker_id=args.speaker_id, device=args.device)
         out_path = next_output_path(args.output_dir)

@@ -3,11 +3,12 @@
 Counterpart of ``tacotron2_tpu/infer/fused.py``.  There each function is
 one compiled program; here each is one eager function on device tensors
 with no host synchronisation inside it: encoder + decode kernel + postnet
-+ vocoder (mel inversion + Griffin-Lim, the HiFi-GAN generator of
-``models/hifigan.py`` where ``hifigan_params`` is given, or WaveGlow of
-``models/waveglow.py`` where ``waveglow`` is given) are queued on the
-current stream back to back, and the host waits once, when it fetches the
-result.
++ vocoder are queued on the current stream back to back, and the host
+waits once, when it fetches the result.  The vocoder is one argument, a
+callable of the seam ``infer/vocode.py`` (``GriffinLim``, the HiFi-GAN
+generator of ``models/hifigan.py`` in place of the JAX package's params
+pytree, or WaveGlow of ``models/waveglow.py``); every function here
+vocodes through :func:`_vocode`, inside the ``vocoder`` span.
 
 Frames beyond the gate stop are masked to the log floor before vocoding,
 so the vocoder sees silence there; the caller trims the returned waveform
@@ -34,9 +35,6 @@ The two-phase split (``decode_mel_fused`` + ``vocode_bucket_pcm16``) keeps
 the postnet mel on the device between the phases and picks the bucket from
 the decoded length; it costs a second synchronise, which suits serving
 where one decode feeds retries or batches.
-
-``hifigan_params`` is the generator (``models/hifigan.py::HiFiGAN``) on
-the model's device, in place of the JAX package's params pytree.
 """
 
 from __future__ import annotations
@@ -47,30 +45,14 @@ import numpy as np
 import torch
 
 from ..config import AudioConfig, Config
-from ..dsp.griffinlim import griffin_lim, mel_to_linear
-from ..models.hifigan import HiFiGAN, hifigan_apply, hifigan_apply_chunked
 from ..models.tacotron2 import Tacotron2, make_speaker_ids, tacotron2_infer
-from ..models.waveglow import WaveGlow, waveglow_infer
+from ..models.waveglow import WaveGlow
 from ..text import pad_sequences, text_to_sequence
 from ..utils.profiling import count, span
+from .vocode import GriffinLim, Vocoder
 
 Device = Union[str, torch.device]
 Trim = Optional[Callable[[int, int], int]]
-
-
-def _griffin_lim_wav(mel: torch.Tensor, acfg: AudioConfig,
-                     gl_iters: int,
-                     init_phase: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
-    """(B, S, n_mels) masked log-power mel -> (B, S * hop) waveform."""
-    mel_lin = torch.exp(mel.transpose(1, 2))               # (B, n_mels, S)
-    linear = mel_to_linear(mel_lin, sr=acfg.sampling_rate, n_fft=acfg.n_fft,
-                           n_mels=acfg.n_mels, fmin=acfg.fmin,
-                           fmax=acfg.fmax)
-    return griffin_lim(linear, n_fft=acfg.n_fft, hop_length=acfg.hop_length,
-                       win_length=acfg.win_length, n_iter=gl_iters,
-                       length=mel.shape[1] * acfg.hop_length,
-                       init_phase=init_phase)
 
 
 def _fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
@@ -87,26 +69,39 @@ def _fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
         return [h.numpy() for h in host]
 
 
-def synthesize_wav_fused(model: Tacotron2, acfg: AudioConfig, tokens,
-                         text_lengths=None, speaker_ids=None, *,
+def _vocode(vocoder: Vocoder, mel: torch.Tensor) -> torch.Tensor:
+    """Masked (B, S, n_mels) mel -> (B, S * hop) waveform, the vocoder's
+    call alone inside the ``vocoder`` span."""
+    with span("vocoder"):
+        count("vocoder.frames", mel.shape[0] * mel.shape[1])
+        return vocoder(mel.transpose(1, 2))
+
+
+def synthesize_wav_fused(model: Tacotron2, vocoder: Vocoder,
+                         acfg: AudioConfig, tokens, text_lengths=None,
+                         speaker_ids=None, *,
                          max_steps: Optional[int] = None,
                          gate_threshold: Optional[float] = None,
-                         stop_mode: str = "any", gl_iters: int = 60,
+                         stop_mode: str = "any",
                          forced_stop_at: Optional[int] = None,
-                         init_phase: Optional[torch.Tensor] = None,
                          trim: Trim = None, device: Device = "cuda"
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """tokens (B, T_enc) -> (wav (B, S*hop), n_frames, frame_ends), all on
-    the device.
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """tokens (B, T_enc) -> (wav (B, S*hop), mel_postnet (B, S, n_mels),
+    n_frames, frame_ends), all on the device, with ``vocoder``
+    (``infer/vocode.py``) queued behind the decode.
 
-    Waveforms are Griffin-Lim reconstructions of the postnet mels; sample
-    b's audio is valid up to ``frame_ends[b] * hop_length``.
+    The reference's primary synthesis path is Tacotron 2 -> HiFi-GAN
+    (reference: inference.py:40-54,71-74).  Frames past the gate stop are
+    masked to the log-mel floor, so the vocoder renders silence there and
+    the returned mel is the masked one; sample b's audio is valid up to
+    ``frame_ends[b] * hop_length``.  The vocoder runs over the whole
+    buffer: Griffin-Lim from the seed-0 phase drawn for its (B, F, S)
+    shape, WaveGlow from the seed-0 noise drawn for its (B, 8, S * 32).
     ``forced_stop_at`` force-fires the gate at that frame — see
     models/decoder.py::decoder_infer.  ``trim`` cuts the buffer after the
     decode (``models/tacotron2.py::tacotron2_infer``), so S is
-    ``max_steps`` or the cut length.  ``init_phase`` (B, n_fft // 2 + 1,
-    S) is Griffin-Lim's initial phase (default: drawn from seed 0 for
-    this batch's S).
+    ``max_steps`` or the cut length.
     """
     mel, n_frames, frame_ends = decode_mel_fused(
         model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
@@ -114,78 +109,7 @@ def synthesize_wav_fused(model: Tacotron2, acfg: AudioConfig, tokens,
         forced_stop_at=forced_stop_at, trim=trim,
         device=device)                                   # (B, S, n_mels)
     mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
-    with span("vocoder"):
-        count("vocoder.frames", mel.shape[0] * mel.shape[1])
-        wav = _griffin_lim_wav(mel, acfg, gl_iters, init_phase)
-    return wav, n_frames, frame_ends
-
-
-def synthesize_wav_fused_hifigan(model: Tacotron2, hifigan_params: HiFiGAN,
-                                 acfg: AudioConfig, tokens,
-                                 text_lengths=None, speaker_ids=None, *,
-                                 max_steps: Optional[int] = None,
-                                 gate_threshold: Optional[float] = None,
-                                 stop_mode: str = "any",
-                                 vocoder_chunk_frames: Optional[int] = None,
-                                 trim: Trim = None, device: Device = "cuda"
-                                 ) -> Tuple[torch.Tensor, torch.Tensor,
-                                            torch.Tensor, torch.Tensor]:
-    """tokens (B, T_enc) -> (wav (B, S*hop), mel_postnet (B, S, n_mels),
-    n_frames, frame_ends), all on the device, with the neural vocoder
-    queued behind the decode.
-
-    The reference's primary synthesis path is Tacotron 2 -> HiFi-GAN
-    (reference: inference.py:40-54,71-74).  Frames past the gate stop are
-    masked to the log-mel floor, so the vocoder renders silence there;
-    trim returned audio at ``frame_ends[b] * hop_length`` (the generator's
-    total upsampling 256 == hop_length).
-
-    ``vocoder_chunk_frames`` bounds the generator's peak activation memory
-    by vocoding the mel in exact receptive-field-overlapped windows of that
-    many frames (``models/hifigan.py::hifigan_apply_chunked``).  ``trim``
-    cuts the buffer after the decode, so S is ``max_steps`` or the cut
-    length (:func:`synthesize_wav_fused`).
-    """
-    mel, n_frames, frame_ends = decode_mel_fused(
-        model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
-        gate_threshold=gate_threshold, stop_mode=stop_mode, trim=trim,
-        device=device)
-    mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
-    mel_ct = mel.transpose(1, 2)                           # (B, n_mels, S)
-    with span("vocoder"):
-        count("vocoder.frames", mel.shape[0] * mel.shape[1])
-        if vocoder_chunk_frames:
-            wav = hifigan_apply_chunked(hifigan_params, mel_ct,
-                                        chunk=vocoder_chunk_frames)
-        else:
-            wav = hifigan_apply(hifigan_params, mel_ct)
-    return wav, mel, n_frames, frame_ends
-
-
-def synthesize_wav_fused_waveglow(model: Tacotron2, waveglow: WaveGlow,
-                                  acfg: AudioConfig, tokens,
-                                  text_lengths=None, speaker_ids=None, *,
-                                  max_steps: Optional[int] = None,
-                                  gate_threshold: Optional[float] = None,
-                                  stop_mode: str = "any",
-                                  trim: Trim = None, device: Device = "cuda"
-                                  ) -> Tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor, torch.Tensor]:
-    """WaveGlow twin of :func:`synthesize_wav_fused_hifigan`: (wav (B,
-    S*hop), mel_postnet (B, S, n_mels), n_frames, frame_ends), all on the
-    device.  The masked buffer is vocoded whole (WaveGlow reaches about 96
-    frames either side, so no row is cut apart), from the seed-0 noise
-    drawn for its (B, 8, S * 32) shape (``models/waveglow.py::
-    waveglow_infer``)."""
-    mel, n_frames, frame_ends = decode_mel_fused(
-        model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
-        gate_threshold=gate_threshold, stop_mode=stop_mode, trim=trim,
-        device=device)
-    mel = _mask_and_slice(mel, frame_ends, mel.shape[1], acfg.mel_eps)
-    with span("vocoder"):
-        count("vocoder.frames", mel.shape[0] * mel.shape[1])
-        wav = waveglow_infer(waveglow, mel.transpose(1, 2))
-    return wav, mel, n_frames, frame_ends
+    return _vocode(vocoder, mel), mel, n_frames, frame_ends
 
 
 # Mel-length buckets for the length-proportional path: the 128-frame grid
@@ -234,26 +158,17 @@ def _to_pcm16(wav: torch.Tensor) -> torch.Tensor:
                        -32768.0, 32767.0).to(torch.int16)
 
 
-def vocode_bucket_pcm16(mel: torch.Tensor, frame_ends: torch.Tensor,
-                        acfg: AudioConfig, bucket: int,
-                        gl_iters: int = 60) -> torch.Tensor:
+def vocode_bucket_pcm16(vocoder: Vocoder, mel: torch.Tensor,
+                        frame_ends: torch.Tensor, acfg: AudioConfig,
+                        bucket: int) -> torch.Tensor:
     """Device-resident mel (B, S, n_mels) -> int16 PCM (B, bucket*hop)
-    via Griffin-Lim over just the ``bucket``-frame prefix.
+    via ``vocoder`` over just the ``bucket``-frame prefix.
 
     Phase 2 of the bucketed pipeline: compute AND output transfer
     proportional to the bucket — a 300-frame utterance runs 384 frames,
     not the 1000-frame tail."""
     mel = _mask_and_slice(mel, frame_ends, bucket, acfg.mel_eps)
-    return _to_pcm16(_griffin_lim_wav(mel, acfg, gl_iters))
-
-
-def vocode_bucket_hifigan_pcm16(hifigan_params: HiFiGAN, mel: torch.Tensor,
-                                frame_ends: torch.Tensor, acfg: AudioConfig,
-                                bucket: int) -> torch.Tensor:
-    """HiFi-GAN twin of :func:`vocode_bucket_pcm16` (the reference's
-    primary vocoder, reference: inference.py:40-54)."""
-    mel = _mask_and_slice(mel, frame_ends, bucket, acfg.mel_eps)
-    return _to_pcm16(hifigan_apply(hifigan_params, mel.transpose(1, 2)))
+    return _to_pcm16(_vocode(vocoder, mel))
 
 
 def pick_bucket(n_frames: int, max_steps: int,
@@ -283,7 +198,7 @@ def synthesize_wav_buckets(model: Tacotron2, acfg: AudioConfig, tokens,
                            max_steps: Optional[int] = None,
                            gate_threshold: Optional[float] = None,
                            stop_mode: str = "any", gl_iters: int = 60,
-                           hifigan_params=None,
+                           vocoder: Optional[Vocoder] = None,
                            forced_stop_at: Optional[int] = None,
                            buckets: Tuple[int, ...] = VOCODE_BUCKETS,
                            device: Device = "cuda"
@@ -293,21 +208,17 @@ def synthesize_wav_buckets(model: Tacotron2, acfg: AudioConfig, tokens,
 
     The two-phase length-proportional pipeline: decode (mel stays on the
     device) -> fetch frame_ends (scalars) -> pick the smallest covering
-    bucket -> bucket-sized vocode returning int16 PCM.  Sample b's audio
-    is valid up to ``frame_ends[b] * hop_length`` samples; divide by
-    32767 for float."""
+    bucket -> bucket-sized vocode (``vocoder``, Griffin-Lim at ``gl_iters``
+    where None) returning int16 PCM.  Sample b's audio is valid up to
+    ``frame_ends[b] * hop_length`` samples; divide by 32767 for float."""
     mel, _, frame_ends = decode_mel_fused(
         model, tokens, text_lengths, speaker_ids, max_steps=max_steps,
         gate_threshold=gate_threshold, stop_mode=stop_mode,
         forced_stop_at=forced_stop_at, device=device)
     ends_np, = _fetch(frame_ends)                          # tiny copy
     bucket = pick_bucket(max(int(ends_np.max()), 1), mel.shape[1], buckets)
-    if hifigan_params is not None:
-        pcm = vocode_bucket_hifigan_pcm16(hifigan_params, mel, frame_ends,
-                                          acfg, bucket)
-    else:
-        pcm = vocode_bucket_pcm16(mel, frame_ends, acfg, bucket,
-                                  gl_iters=gl_iters)
+    pcm = vocode_bucket_pcm16(vocoder or GriffinLim(acfg, gl_iters), mel,
+                              frame_ends, acfg, bucket)
     return pcm, ends_np
 
 
@@ -325,65 +236,37 @@ def estimate_frames(n_tokens: int, frames_per_token: float = FRAMES_PER_TOKEN,
     return int(np.ceil(frames_per_token * n_tokens + margin))
 
 
-def _synthesize_pcm_bucket(model: Tacotron2,
-                           hifigan_params: Optional[HiFiGAN],
-                           acfg: AudioConfig, tokens, text_lengths,
-                           speaker_ids, *, bucket: int,
-                           gate_threshold: Optional[float], stop_mode: str,
-                           gl_iters: int, forced_stop_at: Optional[int],
-                           device: Device,
-                           waveglow: Optional[WaveGlow] = None
-                           ) -> Tuple[torch.Tensor, torch.Tensor,
-                                      torch.Tensor]:
-    """Decode capped at ``bucket`` -> mask past the gate stop ->
-    bucket-length vocode (HiFi-GAN where ``hifigan_params`` is given,
-    WaveGlow where ``waveglow`` is, Griffin-Lim otherwise) -> int16 PCM,
-    with no host synchronisation.
-    Returns (pcm, frame_ends, masked mel), all on the device."""
-    mel, _, frame_ends = decode_mel_fused(
-        model, tokens, text_lengths, speaker_ids, max_steps=bucket,
-        gate_threshold=gate_threshold, stop_mode=stop_mode,
-        forced_stop_at=forced_stop_at, device=device)
-    mel = _mask_and_slice(mel, frame_ends, bucket, acfg.mel_eps)
-    if hifigan_params is not None:
-        wav = hifigan_apply(hifigan_params, mel.transpose(1, 2))
-    elif waveglow is not None:
-        wav = waveglow_infer(waveglow, mel.transpose(1, 2))
-    else:
-        wav = _griffin_lim_wav(mel, acfg, gl_iters)
-    return _to_pcm16(wav), frame_ends, mel
-
-
 def synthesize_pcm_proportional(model: Tacotron2, acfg: AudioConfig, tokens,
                                 text_lengths=None, speaker_ids=None, *,
                                 expected_frames: Optional[int] = None,
                                 max_steps: Optional[int] = None,
                                 gate_threshold: Optional[float] = None,
                                 stop_mode: str = "any", gl_iters: int = 60,
-                                hifigan_params=None,
+                                vocoder: Optional[Vocoder] = None,
                                 forced_stop_at: Optional[int] = None,
                                 buckets: Tuple[int, ...] = VOCODE_BUCKETS,
                                 frames_per_token: float = FRAMES_PER_TOKEN,
                                 frames_margin: int = FRAMES_MARGIN,
                                 return_mel: bool = False,
-                                device: Device = "cuda",
-                                waveglow: Optional[WaveGlow] = None):
+                                device: Device = "cuda"):
     """tokens (B, T_enc) -> (pcm16 (B, bucket*hop) int16 np, frame_ends np,
     bucket) — the LENGTH-PROPORTIONAL synthesis path.
 
     Picks the mel bucket from the text length BEFORE any device work (or
-    from ``expected_frames`` when the caller knows better), runs the
-    bucket-sized pipeline, and fetches PCM + frame_ends with non-blocking
-    copies and one synchronise.  If the gate never fired inside the
-    bucket, escalates once to the full ``max_steps``.  Sample b's audio is
-    valid up to ``frame_ends[b] * hop_length`` samples; divide by 32767
-    for float.
+    from ``expected_frames`` when the caller knows better), then decodes
+    capped at the bucket, masks past the gate stop and vocodes the bucket
+    (``vocoder``, Griffin-Lim at ``gl_iters`` where None) to int16 PCM
+    with no host synchronisation, and fetches PCM + frame_ends with
+    non-blocking copies and one synchronise.  If the gate never fired
+    inside the bucket, escalates once to the full ``max_steps``.  Sample
+    b's audio is valid up to ``frame_ends[b] * hop_length`` samples;
+    divide by 32767 for float.
 
     ``return_mel=True`` appends the (B, bucket, n_mels) post-gate-masked
     postnet mel as a fourth element, fetched in the same round (for
     diagnostics — the reference prints mel stats before vocoding,
-    reference: inference.py:98-111).  ``waveglow`` vocodes with WaveGlow
-    (``models/waveglow.py``) where no ``hifigan_params`` is given."""
+    reference: inference.py:98-111)."""
+    vocoder = vocoder or GriffinLim(acfg, gl_iters)
     limit = (model.cfg.max_decoder_steps if max_steps is None else max_steps)
     if expected_frames is None:
         if text_lengths is not None:
@@ -394,12 +277,12 @@ def synthesize_pcm_proportional(model: Tacotron2, acfg: AudioConfig, tokens,
                                           frames_margin)
     bucket = pick_bucket(expected_frames, limit, buckets)
     while True:
-        pcm, ends, mel = _synthesize_pcm_bucket(
-            model, hifigan_params, acfg, tokens, text_lengths, speaker_ids,
-            bucket=bucket,
+        mel, _, ends = decode_mel_fused(
+            model, tokens, text_lengths, speaker_ids, max_steps=bucket,
             gate_threshold=gate_threshold, stop_mode=stop_mode,
-            gl_iters=gl_iters, forced_stop_at=forced_stop_at, device=device,
-            waveglow=waveglow)
+            forced_stop_at=forced_stop_at, device=device)
+        mel = _mask_and_slice(mel, ends, bucket, acfg.mel_eps)
+        pcm = _to_pcm16(_vocode(vocoder, mel))
         fetched = _fetch(pcm, ends, *([mel] if return_mel else []))
         pcm_np, ends_np = fetched[:2]
         if bucket >= limit or int(ends_np.max()) < bucket:
@@ -420,35 +303,26 @@ def synthesize_wav(model: Tacotron2, texts: Sequence[str],
                    device: Device = "cuda",
                    waveglow: Optional[WaveGlow] = None) -> List[np.ndarray]:
     """Host convenience: texts -> list of trimmed float32 waveforms via
-    :func:`synthesize_wav_fused_hifigan` when ``hifigan_params`` is given,
-    :func:`synthesize_wav_fused_waveglow` when ``waveglow`` is,
-    :func:`synthesize_wav_fused` (Griffin-Lim) otherwise, on the cut route
-    (:func:`trim_to_bucket`): the postnet and the vocoder run over the
-    bucket that ends just past the batch's last stop.  Griffin-Lim draws
-    its initial phase for that bucket, so where the route cuts its audio
-    differs from the whole buffer's (and the JAX package's)."""
+    :func:`synthesize_wav_fused` on the cut route (:func:`trim_to_bucket`):
+    the postnet and the vocoder run over the bucket that ends just past
+    the batch's last stop.  The vocoder is ``hifigan_params`` (a
+    ``models/hifigan.py::HiFiGAN``) or ``waveglow`` (a
+    ``models/waveglow.py::WaveGlow``) where given, Griffin-Lim at
+    ``gl_iters`` otherwise.  Griffin-Lim draws its initial phase for the
+    cut bucket, so where the route cuts its audio differs from the whole
+    buffer's (and the JAX package's)."""
     cfg = cfg or Config()
+    vocoder = hifigan_params or waveglow or GriffinLim(cfg.audio, gl_iters)
     with span("synthesize_wav", root=True):
         with span("frontend"):
             seqs = [text_to_sequence(t) or [0] for t in texts]
             tokens, lengths = pad_sequences(seqs, pad_multiple=16)
         speaker_ids = make_speaker_ids(speaker_id, len(texts), model.cfg)
         stop_mode = "all" if len(texts) > 1 else "any"
-        if hifigan_params is not None:
-            wav, _, _, ends = synthesize_wav_fused_hifigan(
-                model, hifigan_params, cfg.audio, tokens, lengths,
-                speaker_ids, max_steps=max_steps, stop_mode=stop_mode,
-                trim=trim_to_bucket, device=device)
-        elif waveglow is not None:
-            wav, _, _, ends = synthesize_wav_fused_waveglow(
-                model, waveglow, cfg.audio, tokens, lengths, speaker_ids,
-                max_steps=max_steps, stop_mode=stop_mode,
-                trim=trim_to_bucket, device=device)
-        else:
-            wav, _, ends = synthesize_wav_fused(
-                model, cfg.audio, tokens, lengths, speaker_ids,
-                max_steps=max_steps, gl_iters=gl_iters, stop_mode=stop_mode,
-                trim=trim_to_bucket, device=device)
+        wav, _, _, ends = synthesize_wav_fused(
+            model, vocoder, cfg.audio, tokens, lengths, speaker_ids,
+            max_steps=max_steps, stop_mode=stop_mode, trim=trim_to_bucket,
+            device=device)
         wav_np, ends_np = _fetch(wav, ends)
         return [wav_np[b, : int(ends_np[b]) * cfg.audio.hop_length]
                 for b in range(len(texts))]

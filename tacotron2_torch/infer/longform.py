@@ -18,10 +18,9 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..models.hifigan import HiFiGAN
 from ..models.tacotron2 import Tacotron2, make_speaker_ids, tacotron2_infer
 from ..text import pad_sequences, text_to_sequence
-from .vocode import vocode_mel
+from .vocode import GriffinLim, Vocoder, vocode_mel
 
 _SENTENCE_SPLIT = re.compile(r"(?<=[.!?;])\s+")
 
@@ -45,24 +44,24 @@ def synthesize_longform(model: Tacotron2, text: str,
                         gate_threshold: Optional[float] = None,
                         silence_ms: float = 120.0,
                         token_buckets: Sequence[int] = (32, 64, 128, 256),
-                        vocoder=None,
+                        vocoder: Optional[Vocoder] = None,
                         griffinlim_iters: int = 60,
                         speaker_id: Optional[int] = None,
-                        hifigan_params: Optional[HiFiGAN] = None,
+                        modular: bool = False,
                         device: Union[str, torch.device] = "cuda"
                         ) -> Tuple[np.ndarray, List[np.ndarray]]:
     """Paragraph -> (waveform, per-sentence mels).
 
-    Default path: each token-bucket group goes through the
-    length-proportional pipeline (``infer/fused.py::
-    synthesize_pcm_proportional``) -- batched sentence decode capped at the
-    text-predicted mel bucket, bucket-length vocode (Griffin-Lim, or the
-    generator ``hifigan_params``), and int16 PCM + frame_ends + mels
-    fetched in one round a group.
+    ``vocoder`` is a callable of the seam ``infer/vocode.py``; None is
+    Griffin-Lim at ``griffinlim_iters``.  Default route: each token-bucket
+    group goes through the length-proportional pipeline
+    (``infer/fused.py::synthesize_pcm_proportional``) -- batched sentence
+    decode capped at the text-predicted mel bucket, bucket-length vocode,
+    and int16 PCM + frame_ends + mels fetched in one round a group.
 
-    ``vocoder``: optional callable (B, n_mels, T) -> (B, samples) -- an
-    EXTERNAL vocoder; passing one takes the modular path (decode, fetch
-    mels, vocode per sentence on the caller's terms).
+    ``modular`` takes the modular route instead: decode per bucket, fetch
+    the mels, vocode each sentence on its own (``vocode_mel``, padded to
+    its 128-frame bucket).
     """
     cfg = cfg or Config()
     max_steps = max_steps_per_sentence or model.cfg.max_decoder_steps
@@ -94,7 +93,7 @@ def synthesize_longform(model: Tacotron2, text: str,
                        np.float32)
     hop = cfg.audio.hop_length
 
-    if vocoder is None:
+    if not modular:
         # Proportional path: one bucket pipeline per token group, PCM +
         # frame_ends + mels in a single fetch round.
         from .fused import synthesize_pcm_proportional
@@ -107,8 +106,7 @@ def synthesize_longform(model: Tacotron2, text: str,
                 model, cfg.audio, tokens, lengths, speaker_ids,
                 max_steps=max_steps, gate_threshold=gate_threshold,
                 stop_mode="all", gl_iters=griffinlim_iters,
-                hifigan_params=hifigan_params, return_mel=True,
-                device=device)
+                vocoder=vocoder, return_mel=True, device=device)
             for row, i in enumerate(idxs):
                 n = int(ends[row])
                 mels[i] = np.asarray(mel[row, :n])          # (n, n_mels)
@@ -122,8 +120,7 @@ def synthesize_longform(model: Tacotron2, text: str,
                 pieces.append(silence)
         return np.concatenate(pieces), [m for m in mels if m is not None]
 
-    # Modular path: decode per bucket, fetch mels, run the caller's
-    # external vocoder per sentence.
+    # Modular path: decode per bucket, fetch mels, vocode per sentence.
     for bucket, idxs in sorted(groups.items()):
         tokens, lengths = pad_sequences([seqs[i] for i in idxs],
                                         pad_to=bucket)
@@ -140,10 +137,10 @@ def synthesize_longform(model: Tacotron2, text: str,
             mels[i] = mel_post[row, :int(ends[row])]
 
     # Vocode + concatenate with inter-sentence silence.
+    vocoder = vocoder or GriffinLim(cfg.audio, griffinlim_iters)
     pieces = []
     for i, mel in enumerate(mels):
-        wav = vocode_mel(mel, cfg.audio, vocoder=vocoder,
-                         griffinlim_iters=griffinlim_iters, device=device)
+        wav = vocode_mel(mel, cfg.audio, vocoder, device=device)
         pieces.append(np.asarray(wav, np.float32))
         if i < len(mels) - 1:
             pieces.append(silence)

@@ -57,7 +57,8 @@ from ..config import Config
 from ..models.tacotron2 import cast_params_bf16, make_speaker_ids
 from ..utils.device import resolve_device
 from .synthesize import load_model, synthesize_mels
-from .vocode import vocode_mel, vocode_mels
+from .vocode import (GriffinLim, load_vocoder, vocode_array, vocode_mel,
+                     vocode_mels)
 
 # the CUDA sources of the serving path's kernels (ops/_build.py)
 SERVING_KERNELS = ("decoder_infer", "conv_bn_act", "attention_tail")
@@ -104,6 +105,7 @@ class TTSService:
         if bf16:
             self.model = cast_params_bf16(self.model)
         self.griffinlim_iters = griffinlim_iters
+        self._griffinlim = GriffinLim(self.cfg.audio, griffinlim_iters)
         self._bf16 = bf16
         self._vocoder_chunk_frames = vocoder_chunk_frames
         self._lock = threading.Lock()
@@ -146,22 +148,24 @@ class TTSService:
     def _hifigan(self):
         with self._hifigan_lock:
             if self._hifigan_vocoder is None:
-                from ..models.hifigan import load_hifigan_vocoder
                 # --bf16 applies to the generator too (halved
                 # activations); chunk_frames bounds its peak activations
                 # for large-batch / long-utterance configurations (exact
                 # chunked evaluation).
-                self._hifigan_vocoder = load_hifigan_vocoder(
-                    bf16=self._bf16,
+                self._hifigan_vocoder = load_vocoder(
+                    "hifigan", bf16=self._bf16,
                     chunk_frames=self._vocoder_chunk_frames,
                     device=self.device)
             return self._hifigan_vocoder
 
+    def _vocoder(self, name: str):
+        """The vocoder a request names: HiFi-GAN for "hifigan" (loaded on
+        first use), Griffin-Lim for any other name."""
+        return self._hifigan() if name == "hifigan" else self._griffinlim
+
     def _vocode_to_wav(self, mel, vocoder: str) -> bytes:
-        audio = vocode_mel(
-            mel, self.cfg.audio,
-            vocoder=self._hifigan() if vocoder == "hifigan" else None,
-            griffinlim_iters=self.griffinlim_iters, device=self.device)
+        audio = vocode_mel(mel, self.cfg.audio, self._vocoder(vocoder),
+                           device=self.device)
         return _wav_bytes(audio, self.cfg.audio.sampling_rate)
 
     def stream_pcm(self, text: str, vocoder: str = "griffinlim",
@@ -223,8 +227,7 @@ class TTSService:
                     return
                 mel = (chunk if ctx is None
                        else np.concatenate([ctx, chunk], axis=0))
-                audio = vocode_mel(mel, self.cfg.audio, vocoder=None,
-                                   griffinlim_iters=self.griffinlim_iters,
+                audio = vocode_mel(mel, self.cfg.audio, self._griffinlim,
                                    device=self.device)
                 if ctx is not None:
                     audio = audio[ctx.shape[0] * hop:]
@@ -270,7 +273,7 @@ class TTSService:
                     # right edge is then the same one the one-shot call
                     # sees at the utterance end.
                     buf = np.concatenate([left, pending])
-                    audio = np.asarray(voc(buf.T[None])[0])
+                    audio = vocode_array(voc, buf[None], self.device)[0]
                     flush = audio[left.shape[0] * hop:]
                 else:
                     body = np.concatenate([pending, chunk])
@@ -282,7 +285,8 @@ class TTSService:
                             buf = np.concatenate([buf, np.full(
                                 (bufmax - buf.shape[0], n_mels), log_eps,
                                 np.float32)])
-                        audio = np.asarray(voc(buf.T[None])[0])
+                        audio = vocode_array(voc, buf[None],
+                                             self.device)[0]
                         piece = audio[lo * hop:(lo + emit) * hop]
                         left = np.concatenate([left, body[:emit]])[-r:]
                         pending = body[emit:]
@@ -556,11 +560,8 @@ class BatchingTTSService(TTSService):
             by_voc.setdefault(item.vocoder, []).append((item, mel))
         for voc, pairs in by_voc.items():
             try:
-                wavs = vocode_mels(
-                    [m for _, m in pairs], self.cfg.audio,
-                    vocoder=self._hifigan() if voc == "hifigan" else None,
-                    griffinlim_iters=self.griffinlim_iters,
-                    device=self.device)
+                wavs = vocode_mels([m for _, m in pairs], self.cfg.audio,
+                                   self._vocoder(voc), device=self.device)
                 for (item, _), w in zip(pairs, wavs):
                     item.wav = _wav_bytes(w, self.cfg.audio.sampling_rate)
             except Exception as group_err:

@@ -5,10 +5,11 @@ GSPMD partitions one fused program over the mesh's ``data`` axis.  Here
 the synthesizer keeps one model replica per device of a
 ``parallel/mesh.py::make_mesh`` (weights copied once, at construction),
 splits the padded batch into one shard per replica and runs each shard
-through ``infer/fused.py``'s tokens -> waveform functions on its own
-device.  Every shard's work is queued before any result is fetched, so
-several cards decode at once.  Griffin-Lim starts each shard from its
-rows of the initial phase one process draws for the whole batch.  Each shard decodes with
+through ``infer/fused.py::synthesize_wav_fused`` on its own device, with
+its own copy of the vocoder.  Every shard's work is queued before any
+result is fetched, so several cards decode at once.  Griffin-Lim starts
+each shard from its rows of the initial phase one process draws for the
+whole batch.  Each shard decodes with
 ``stop_mode="all"`` and stops when all of its own items have, as the JAX
 megakernel stops per shard (``tacotron2_tpu/ops/decoder_megakernel.py:
 112-124``); every item is trimmed at its own ``frame_end``.
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -45,7 +47,8 @@ from ..models.tacotron2 import Tacotron2, make_speaker_ids
 from ..parallel.mesh import Mesh, param_shardings, shard_of
 from ..parallel.model_axis import DeviceAxis
 from ..text import pad_sequences, text_to_sequence
-from .fused import _fetch, synthesize_wav_fused, synthesize_wav_fused_hifigan
+from .fused import _fetch, synthesize_wav_fused
+from .vocode import GriffinLim
 
 
 def _pad_rows(arr: np.ndarray, n_rows: int) -> np.ndarray:
@@ -99,14 +102,15 @@ class ShardedSynthesizer:
         grid = make_mesh(n_data=2, n_model=2, devices=[...])  # 4 devices
         synth = ShardedSynthesizer(model, grid, cfg, tensor_parallel=True)
 
-    ``hifigan_params`` (a ``models/hifigan.py::HiFiGAN``) switches the
-    vocoder from Griffin-Lim to HiFi-GAN.  Batches whose size is not a
-    multiple of the replica count are padded by repeating the last item;
-    outputs are trimmed back.
+    ``vocoder`` (a module of the seam ``infer/vocode.py``:
+    ``models/hifigan.py::HiFiGAN`` or ``models/waveglow.py::WaveGlow``),
+    copied to each replica's lead device, takes the place of Griffin-Lim
+    at ``gl_iters``.  Batches whose size is not a multiple of the replica
+    count are padded by repeating the last item; outputs are trimmed back.
     """
 
     def __init__(self, model: Tacotron2, mesh: Mesh,
-                 cfg: Optional[Config] = None, hifigan_params=None,
+                 cfg: Optional[Config] = None, vocoder=None,
                  gl_iters: int = 60, tensor_parallel: bool = False):
         if "data" not in getattr(mesh, "axis_names", ()):
             raise ValueError(f"mesh must have a 'data' axis, has "
@@ -117,13 +121,13 @@ class ShardedSynthesizer:
         self.cfg = cfg or Config()
         self.mesh = mesh
         self.n_data = mesh.shape["data"]
-        self.gl_iters = gl_iters
         self.leads = [row[0] for row in mesh.devices]
         self.replicas = [_tp_replica(model, row) if tensor_parallel
                          else copy.deepcopy(model).to(row[0])
                          for row in mesh.devices]
-        self.vocoders = [None if hifigan_params is None
-                         else copy.deepcopy(hifigan_params).to(d)
+        self.vocoders = [GriffinLim(self.cfg.audio, gl_iters)
+                         if vocoder is None
+                         else copy.deepcopy(vocoder).to(d)
                          for d in self.leads]
 
     def close(self):
@@ -176,16 +180,12 @@ class ShardedSynthesizer:
             args = (tokens[rows], lengths[rows],
                     None if spk is None else spk[rows])
             with _on(dev):
-                if voc is not None:
-                    wav, _, _, ends = synthesize_wav_fused_hifigan(
-                        model, voc, cfg.audio, *args, max_steps=max_steps,
-                        stop_mode="all", device=dev)
-                else:
-                    wav, _, ends = synthesize_wav_fused(
-                        model, cfg.audio, *args, max_steps=max_steps,
-                        gl_iters=self.gl_iters, stop_mode="all",
-                        init_phase=phase(dev, rows),
-                        device=dev)
+                if isinstance(voc, GriffinLim):
+                    voc = dataclasses.replace(voc,
+                                              init_phase=phase(dev, rows))
+                wav, _, _, ends = synthesize_wav_fused(
+                    model, voc, cfg.audio, *args, max_steps=max_steps,
+                    stop_mode="all", device=dev)
             outs.append((dev, wav, ends))
         hop = cfg.audio.hop_length
         wavs = []

@@ -1,8 +1,9 @@
 """Text-to-speech synthesis pipeline, the port's serving entry points.
 
 Counterpart of ``tacotron2_tpu/infer/synthesize.py``: load weights ->
-text_to_sequence -> autoregressive mel decode -> vocoder (HiFi-GAN or
-Griffin-Lim) -> auto-numbered output WAV.  Batched synthesis is a first-class capability.
+text_to_sequence -> autoregressive mel decode -> vocoder (HiFi-GAN,
+WaveGlow or Griffin-Lim, ``infer/vocode.py``) -> auto-numbered output WAV.
+Batched synthesis is a first-class capability.
 :func:`synthesize_mels_tokens` is the same from token ids on.
 """
 
@@ -146,13 +147,11 @@ def synthesize(text: str, checkpoint_path: str, output_dir: str,
     # "hifigan" tries HiFi-GAN and falls back to Griffin-Lim with a
     # message; "waveglow" likewise; any other name is Griffin-Lim (as in
     # the JAX package)
-    from .vocode import try_load_hifigan_params, try_load_waveglow_params
-    hifigan_params = (try_load_hifigan_params(device=device)
-                      if vocoder.lower() == "hifigan" else None)
-    waveglow = (try_load_waveglow_params(waveglow_checkpoint, device=device)
-                if vocoder.lower() == "waveglow" else None)
-    name = ("HiFi-GAN" if hifigan_params is not None else
-            "WaveGlow" if waveglow is not None else "Griffin-Lim")
+    from .vocode import VOCODERS, try_load_vocoder
+    key = vocoder.lower()
+    voc = try_load_vocoder(key, waveglow_checkpoint if key == "waveglow"
+                           else None, device)
+    name = VOCODERS[key] if voc is not None else "Griffin-Lim"
 
     # Length-proportional path: the mel bucket is picked from the text
     # length before any device work, encoder + decode + postnet + vocoder
@@ -167,8 +166,8 @@ def synthesize(text: str, checkpoint_path: str, output_dir: str,
     speaker_ids = make_speaker_ids(speaker_id, 1, cfg.model)
     pcm, ends, bucket, mel = synthesize_pcm_proportional(
         model, cfg.audio, tokens, lengths, speaker_ids,
-        gl_iters=griffinlim_iters, hifigan_params=hifigan_params,
-        return_mel=True, device=device, waveglow=waveglow)
+        gl_iters=griffinlim_iters, vocoder=voc, return_mel=True,
+        device=device)
     n0 = int(ends[0])
     if n0 < 3:
         print(f"[WARN] Very short mel length ({n0}) - possible "

@@ -1,18 +1,25 @@
-"""Shared vocoding helper with a handful of stable shapes.
+"""The vocoder seam, and the shared vocoding helper of the modular path.
 
-Counterpart of ``tacotron2_tpu/infer/vocode.py``.  Gate-trimmed mels have
-arbitrary lengths; this helper pads the time axis to 128-frame buckets
-(log-floor frames), vocodes, and trims the audio back, so that batched
-traffic stacks mels of one bucket into one vocoder call and the cached
-window-sum envelopes (``dsp/stft.py``) are reused.  ``vocoder`` is a
-callable (the HiFi-GAN closure of :func:`try_load_hifigan`, or WaveGlow's
-of :func:`try_load_waveglow`) or None for Griffin-Lim.  The loaders return
-None, with a message (the JAX package's for HiFi-GAN), when the vocoder
-cannot be loaded, so that callers fall back to Griffin-Lim.
+A vocoder is any callable ``mel (B, n_mels, S) log-mel on the device ->
+waveform (B, S * hop) on the device``.  The port has three:
+:class:`GriffinLim` here, ``models/hifigan.py::HiFiGAN`` and
+``models/waveglow.py::WaveGlow`` (each module's ``forward`` is its
+inference).  :func:`load_vocoder` reads a neural one from NVIDIA's
+checkpoint; :func:`try_load_vocoder` returns None instead, with the JAX
+package's message (or its like for WaveGlow), so that callers fall back to
+Griffin-Lim.  Every synthesis path takes one such callable.
+
+Counterpart of ``tacotron2_tpu/infer/vocode.py``: gate-trimmed mels have
+arbitrary lengths; :func:`vocode_mels` pads the time axis to 128-frame
+buckets (log-floor frames), vocodes, and trims the audio back, so that
+batched traffic stacks mels of one bucket into one vocoder call and the
+cached window-sum envelopes (``dsp/stft.py``) are reused.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import importlib
 from typing import Callable, List, Optional, Sequence, Union
 
@@ -23,42 +30,97 @@ from ..config import AudioConfig
 from ..dsp.griffinlim import griffin_lim, mel_to_linear
 from ..utils.device import resolve_device
 
+Vocoder = Callable[[torch.Tensor], torch.Tensor]
+Device = Union[str, torch.device]
+
 _FRAME_BUCKET = 128
 
 
-def _griffin_lim_batch(mels: np.ndarray, cfg: AudioConfig, iters: int,
-                       device: torch.device) -> np.ndarray:
-    """(G, t_pad, n_mels) log-power mels -> (G, t_pad * hop) audio."""
-    t_pad = mels.shape[1]
-    # exp: these are log-power mels; explicit length covers ALL t_pad
-    # frames (griffin_lim's default hop*(T-1) would drop the last one)
-    mel_power = torch.exp(torch.from_numpy(
-        np.ascontiguousarray(mels.transpose(0, 2, 1))).to(device))
-    linear = mel_to_linear(mel_power, sr=cfg.sampling_rate, n_fft=cfg.n_fft,
-                           n_mels=cfg.n_mels, fmin=cfg.fmin, fmax=cfg.fmax)
-    return griffin_lim(linear, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
-                       win_length=cfg.win_length, n_iter=iters,
-                       length=t_pad * cfg.hop_length).cpu().numpy()
+@dataclasses.dataclass(frozen=True, eq=False)
+class GriffinLim:
+    """Mel inversion + ``iters`` Griffin-Lim rounds as a vocoder.
+
+    The mel is log-power; the waveform covers all S frames (an explicit
+    length: ``griffin_lim``'s default hop * (S - 1) would drop the last).
+    ``init_phase`` (B, n_fft // 2 + 1, S) is the initial phase; None draws
+    it from seed 0 for the call's shape on the mel's device."""
+    acfg: AudioConfig
+    iters: int = 60
+    init_phase: Optional[torch.Tensor] = None
+
+    def __call__(self, mel: torch.Tensor) -> torch.Tensor:
+        a = self.acfg
+        linear = mel_to_linear(torch.exp(mel), sr=a.sampling_rate,
+                               n_fft=a.n_fft, n_mels=a.n_mels, fmin=a.fmin,
+                               fmax=a.fmax)
+        return griffin_lim(linear, n_fft=a.n_fft, hop_length=a.hop_length,
+                           win_length=a.win_length, n_iter=self.iters,
+                           length=mel.shape[-1] * a.hop_length,
+                           init_phase=self.init_phase)
 
 
-def vocode_mel(mel: np.ndarray, cfg: AudioConfig,
-               vocoder: Optional[Callable] = None,
-               griffinlim_iters: int = 60,
-               device: Union[str, torch.device] = "cuda") -> np.ndarray:
-    """(T, n_mels) log-mel -> waveform (T * hop samples).
+# the neural vocoders by name, as the fallback message spells them
+VOCODERS = {"hifigan": "HiFi-GAN", "waveglow": "WaveGlow"}
 
-    ``vocoder``: optional callable (B, n_mels, T) -> (B, samples); None
-    uses Griffin-Lim on ``device``.
-    """
-    t_true = int(mel.shape[0])
-    t_pad = -(-t_true // _FRAME_BUCKET) * _FRAME_BUCKET
-    mel = _pad_frames(mel, t_pad, cfg.mel_eps)
-    if vocoder is not None:
-        audio = np.asarray(vocoder(mel.T[None])[0])
-    else:
-        audio = _griffin_lim_batch(mel[None], cfg, griffinlim_iters,
-                                   resolve_device(device))[0]
-    return audio[: t_true * cfg.hop_length]
+
+def load_vocoder(name: str, checkpoint_path: Optional[str] = None,
+                 device: Device = "cuda", *, bf16: bool = False,
+                 chunk_frames: Optional[int] = None) -> Vocoder:
+    """The neural vocoder ``name`` ("hifigan" or "waveglow") read from
+    NVIDIA's checkpoint (``models/<name>.py::load_<name>_params``: the
+    argument, the environment variable, the file in the working
+    directory) onto ``device``.
+
+    ``bf16`` casts its weights (half the activation memory); the audio
+    stays fp32.  ``chunk_frames`` (HiFi-GAN) bounds the generator's peak
+    activation memory by the exact chunked evaluation
+    (``models/hifigan.py::hifigan_apply_chunked``)."""
+    if name not in VOCODERS:
+        raise ValueError(f"unknown vocoder {name!r}; one of {list(VOCODERS)}")
+    if chunk_frames is not None and (chunk_frames < 1 or name != "hifigan"):
+        raise ValueError(f"chunk_frames must be >= 1 and is HiFi-GAN's, got "
+                         f"{chunk_frames} for {name}")
+    module = importlib.import_module(f"..models.{name}", __package__)
+    model = getattr(module, f"load_{name}_params")(checkpoint_path, device)
+    if bf16:
+        model = model.to(torch.bfloat16)
+    if chunk_frames:
+        return functools.partial(module.hifigan_apply_chunked, model,
+                                 chunk=chunk_frames)
+    return model
+
+
+def try_load_vocoder(name: str, checkpoint_path: Optional[str] = None,
+                     device: Device = "cuda", **kw) -> Optional[Vocoder]:
+    """:func:`load_vocoder`, or None where ``name`` names no neural vocoder
+    (the JAX package takes any other name for Griffin-Lim) or where it
+    cannot be loaded -- a missing checkpoint, a wrong layout -- after one
+    line saying so, so that callers fall back to Griffin-Lim instead of
+    crashing."""
+    if name not in VOCODERS:
+        return None
+    try:
+        return load_vocoder(name, checkpoint_path, device, **kw)
+    except Exception as e:
+        print(f"{VOCODERS[name]} unavailable ({type(e).__name__}: {e}); "
+              f"falling back to Griffin-Lim.")
+        return None
+
+
+def vocode_array(vocoder: Vocoder, mels: np.ndarray,
+                 device: Device = "cuda") -> np.ndarray:
+    """(G, T, n_mels) log-mels on the host -> (G, T * hop) audio on the
+    host, through ``vocoder`` on ``device``."""
+    mel_ct = torch.from_numpy(np.ascontiguousarray(
+        mels.transpose(0, 2, 1), np.float32)).to(resolve_device(device))
+    return vocoder(mel_ct).cpu().numpy()
+
+
+def vocode_mel(mel: np.ndarray, cfg: AudioConfig, vocoder: Vocoder,
+               device: Device = "cuda") -> np.ndarray:
+    """(T, n_mels) log-mel -> waveform (T * hop samples), the mel padded
+    to its 128-frame bucket for the vocoder."""
+    return vocode_mels([mel], cfg, vocoder, device=device)[0]
 
 
 def _pad_frames(mel: np.ndarray, t_pad: int, eps: float) -> np.ndarray:
@@ -71,10 +133,8 @@ def _pad_frames(mel: np.ndarray, t_pad: int, eps: float) -> np.ndarray:
 
 
 def vocode_mels(mels: Sequence[np.ndarray], cfg: AudioConfig,
-                vocoder: Optional[Callable] = None,
-                griffinlim_iters: int = 60, max_group: int = 16,
-                device: Union[str, torch.device] = "cuda"
-                ) -> List[np.ndarray]:
+                vocoder: Vocoder, max_group: int = 16,
+                device: Device = "cuda") -> List[np.ndarray]:
     """Batched counterpart of :func:`vocode_mel` for a list of
     variable-length (T_i, n_mels) mels — returns trimmed waveforms in
     order.
@@ -93,64 +153,10 @@ def vocode_mels(mels: Sequence[np.ndarray], cfg: AudioConfig,
     groups = [(t_pad, all_idxs[s:s + max_group])
               for t_pad, all_idxs in buckets.items()
               for s in range(0, len(all_idxs), max_group)]
-    if vocoder is None:
-        device = resolve_device(device)
     for t_pad, idxs in groups:
         stacked = np.stack([_pad_frames(mels[i], t_pad, cfg.mel_eps)
                             for i in idxs])            # (G, t_pad, n_mels)
-        if vocoder is not None:
-            audio = np.asarray(vocoder(stacked.transpose(0, 2, 1)))
-        else:
-            audio = _griffin_lim_batch(stacked, cfg, griffinlim_iters, device)
+        audio = vocode_array(vocoder, stacked, device)
         for j, i in enumerate(idxs):
             out[i] = audio[j, : int(mels[i].shape[0]) * cfg.hop_length]
     return out
-
-
-_VOCODER_NAMES = {"hifigan": "HiFi-GAN", "waveglow": "WaveGlow"}
-
-
-def _try_load(loader_name: str, checkpoint_path: Optional[str],
-              vocoder: str = "hifigan", **kw):
-    """Run a loader of ``models.<vocoder>``, returning None (with the JAX
-    package's message, or its like for WaveGlow) on ANY failure -- missing
-    checkpoint, wrong layout -- so callers fall back to Griffin-Lim instead
-    of crashing."""
-    try:
-        module = importlib.import_module(f"..models.{vocoder}", __package__)
-        return getattr(module, loader_name)(checkpoint_path, **kw)
-    except Exception as e:
-        print(f"{_VOCODER_NAMES[vocoder]} unavailable "
-              f"({type(e).__name__}: {e}); falling back to Griffin-Lim.")
-        return None
-
-
-def try_load_hifigan(checkpoint_path: Optional[str] = None,
-                     device: Union[str, torch.device] = "cuda"):
-    """HiFi-GAN vocoder callable on ``device``, or None on any failure (see
-    :func:`_try_load`)."""
-    return _try_load("load_hifigan_vocoder", checkpoint_path, device=device)
-
-
-def try_load_hifigan_params(checkpoint_path: Optional[str] = None,
-                            device: Union[str, torch.device] = "cuda"):
-    """The HiFi-GAN generator on ``device`` (the ``hifigan_params`` of the
-    fused synthesis path), or None on any failure (see :func:`_try_load`)."""
-    return _try_load("load_hifigan_params", checkpoint_path, device=device)
-
-
-def try_load_waveglow(checkpoint_path: Optional[str] = None,
-                      device: Union[str, torch.device] = "cuda"):
-    """WaveGlow vocoder callable on ``device``
-    (``models/waveglow.py::load_waveglow_vocoder``), or None on any
-    failure (see :func:`_try_load`)."""
-    return _try_load("load_waveglow_vocoder", checkpoint_path, "waveglow",
-                     device=device)
-
-
-def try_load_waveglow_params(checkpoint_path: Optional[str] = None,
-                             device: Union[str, torch.device] = "cuda"):
-    """The WaveGlow module on ``device`` (the ``waveglow`` of the fused
-    synthesis path), or None on any failure (see :func:`_try_load`)."""
-    return _try_load("load_waveglow_params", checkpoint_path, "waveglow",
-                     device=device)

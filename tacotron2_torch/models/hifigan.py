@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import copy
 import os
-from typing import Callable, Mapping, Optional, Sequence, Union
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -249,32 +249,3 @@ def load_hifigan_params(checkpoint_path: Optional[str] = None,
     sd = ckpt.get("generator", ckpt)
     return params_from_nvidia_state_dict(sd).to(device)
 
-
-def load_hifigan_vocoder(checkpoint_path: Optional[str] = None,
-                         bf16: bool = False,
-                         chunk_frames: Optional[int] = None,
-                         device: Union[str, torch.device] = "cuda"
-                         ) -> Callable[[object], np.ndarray]:
-    """Load the NGC generator checkpoint and return a vocoder callable
-    ``mel (B, 80, T) -> wav (B, T * 256)`` (numpy out; numpy or a tensor
-    in).
-
-    ``bf16`` casts the generator weights (half the activation memory);
-    the audio stays fp32.  ``chunk_frames`` bounds peak activation memory
-    through the exact chunked evaluation (:func:`hifigan_apply_chunked`).
-    """
-    if chunk_frames is not None and chunk_frames < 1:
-        raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
-    model = load_hifigan_params(checkpoint_path, device)
-    if bf16:
-        model = cast_hifigan_bf16(model)
-    dev = model.conv_pre.weight.device
-
-    def vocode(mel) -> np.ndarray:
-        if not torch.is_tensor(mel):
-            mel = torch.from_numpy(np.ascontiguousarray(mel, np.float32))
-        mel = mel.to(dev)
-        wav = (hifigan_apply_chunked(model, mel, chunk=chunk_frames)
-               if chunk_frames else hifigan_apply(model, mel))
-        return wav.cpu().numpy()
-    return vocode

@@ -52,7 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Dict, List, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -346,18 +346,3 @@ def load_waveglow_params(checkpoint_path: Optional[str] = None,
         sd = sd.state_dict()
     return params_from_nvidia_state_dict(sd).to(device)
 
-
-def load_waveglow_vocoder(checkpoint_path: Optional[str] = None,
-                          device: Union[str, torch.device] = "cuda"
-                          ) -> Callable[[object], np.ndarray]:
-    """Load a checkpoint (:func:`load_waveglow_params`) and return a
-    vocoder callable ``mel (B, 80, T) -> wav (B, T * 256)`` (numpy out;
-    numpy or a tensor in), the seed-0 noise a call."""
-    model = load_waveglow_params(checkpoint_path, device)
-    dev = model.upsample.weight.device
-
-    def vocode(mel) -> np.ndarray:
-        if not torch.is_tensor(mel):
-            mel = torch.from_numpy(np.ascontiguousarray(mel, np.float32))
-        return waveglow_infer(model, mel.to(dev)).cpu().numpy()
-    return vocode

@@ -132,7 +132,7 @@ def export_debug_inference(state: TrainState, batch: Dict[str, np.ndarray],
     save_alignment_plot(alignments, align_path)
     print(f"Inference alignment saved: {align_path}")
 
-    from ..infer.vocode import vocode_mel
+    from ..infer.vocode import GriffinLim, vocode_mel
     rows = []
     for b in range(mel_post.shape[0]):
         stops = np.nonzero(gates[b] > 0.5)[0]
@@ -150,7 +150,8 @@ def export_debug_inference(state: TrainState, batch: Dict[str, np.ndarray],
 
         wav_file = f"debug_infer_{b}.wav"
         save_wav(os.path.join(export_dir, wav_file),
-                 vocode_mel(mel_b, cfg.audio, device=device),
+                 vocode_mel(mel_b, cfg.audio, GriffinLim(cfg.audio),
+                            device=device),
                  cfg.audio.sampling_rate)
         rows.append({"sample_index": b, "text_file": txt_file,
                      "mel_file": mel_file, "wav_file": wav_file})

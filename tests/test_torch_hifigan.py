@@ -19,6 +19,7 @@ import torch
 from tacotron2_tpu.models import hifigan as jh
 from tacotron2_tpu.models.tacotron2 import (cast_params_bf16 as
                                             jax_cast_params_bf16)
+from tacotron2_torch.infer.vocode import load_vocoder
 from tacotron2_torch.models import hifigan as th
 from tacotron2_torch.utils.weights import (export_jax_hifigan_params,
                                            load_jax_hifigan_params)
@@ -154,7 +155,7 @@ def test_weight_norm_resolution(shared):
 
 def test_ngc_file_round_trip(shared, tmp_path, monkeypatch):
     """A ``torch.save``d NGC-layout file ({"generator": weight-normed state
-    dict}) through ``load_hifigan_params`` and the vocoder callable, against
+    dict}) through ``load_hifigan_params`` and ``load_vocoder``, against
     the JAX package's loader of the same file; the argument, then
     $HIFIGAN_CHECKPOINT, then ./hifigan_checkpoint.pt."""
     _, model = shared
@@ -168,8 +169,9 @@ def test_ngc_file_round_trip(shared, tmp_path, monkeypatch):
     np.testing.assert_allclose(
         th.hifigan_apply(got, torch.from_numpy(mel)).numpy(), ref,
         atol=TOL, rtol=0)
-    voc = th.load_hifigan_vocoder(str(path), device="cpu")
-    np.testing.assert_allclose(voc(mel), ref, atol=TOL, rtol=0)
+    voc = load_vocoder("hifigan", str(path), device="cpu")
+    np.testing.assert_allclose(voc(torch.from_numpy(mel)).numpy(), ref,
+                               atol=TOL, rtol=0)
 
     monkeypatch.setenv("HIFIGAN_CHECKPOINT", str(path))
     monkeypatch.chdir(tmp_path)
@@ -186,18 +188,20 @@ def test_vocoder_chunk_frames_and_bf16(shared, tmp_path):
     _, model = shared
     path = str(tmp_path / "plain.pt")
     torch.save({"generator": model.state_dict()}, path)
-    mel = mel_input(1, 90, seed=6, offset=-5.0)
-    full = th.load_hifigan_vocoder(path, device="cpu")(mel)
-    chunked = th.load_hifigan_vocoder(path, chunk_frames=24,
-                                      device="cpu")(torch.from_numpy(mel))
-    assert isinstance(full, np.ndarray)
+    mel = torch.from_numpy(mel_input(1, 90, seed=6, offset=-5.0))
+    full = load_vocoder("hifigan", path, device="cpu")(mel)
+    chunked = load_vocoder("hifigan", path, chunk_frames=24,
+                           device="cpu")(mel)
+    assert torch.is_tensor(full) and full.dtype == torch.float32
     assert chunked.shape == full.shape == (1, 90 * 256)
-    np.testing.assert_allclose(chunked, full, atol=CHUNK_TOL, rtol=0)
-    half = th.load_hifigan_vocoder(path, bf16=True, device="cpu")(mel)
-    assert half.dtype == np.float32
-    np.testing.assert_allclose(half, full, atol=BF16_TOL, rtol=0)
+    np.testing.assert_allclose(chunked.numpy(), full.numpy(),
+                               atol=CHUNK_TOL, rtol=0)
+    half = load_vocoder("hifigan", path, bf16=True, device="cpu")(mel)
+    assert half.dtype == torch.float32
+    np.testing.assert_allclose(half.numpy(), full.numpy(), atol=BF16_TOL,
+                               rtol=0)
     with pytest.raises(ValueError, match="chunk_frames"):
-        th.load_hifigan_vocoder(path, chunk_frames=0, device="cpu")
+        load_vocoder("hifigan", path, chunk_frames=0, device="cpu")
 
 
 def test_missing_checkpoint_file_raises(tmp_path, monkeypatch):
@@ -206,4 +210,4 @@ def test_missing_checkpoint_file_raises(tmp_path, monkeypatch):
     monkeypatch.delenv("HIFIGAN_CHECKPOINT", raising=False)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(FileNotFoundError, match="hifigan_checkpoint.pt"):
-        th.load_hifigan_vocoder(device="cpu")
+        load_vocoder("hifigan", device="cpu")

@@ -38,7 +38,7 @@ from tacotron2_torch.config import Config, ModelConfig
 from tacotron2_torch.dsp import griffinlim as tgl
 from tacotron2_torch.infer import server as srv
 from tacotron2_torch.infer.streaming import stream_mels
-from tacotron2_torch.infer.vocode import vocode_mel
+from tacotron2_torch.infer.vocode import GriffinLim, vocode_array, vocode_mel
 from tacotron2_torch.models import hifigan
 
 TINY = dict(symbols_embedding_dim=32, encoder_embedding_dim=32,
@@ -254,9 +254,8 @@ def test_batch_padded_to_power_of_two_by_repeating_last(batching_service,
         return orig(model, texts, **kw)
 
     def fake_hifigan(mel_bct):
-        calls.append(mel_bct.shape)
-        return np.zeros((mel_bct.shape[0], mel_bct.shape[2] * 256),
-                        np.float32)
+        calls.append(tuple(mel_bct.shape))
+        return torch.zeros(mel_bct.shape[0], mel_bct.shape[2] * 256)
 
     monkeypatch.setattr(srv, "synthesize_mels", spy)
     monkeypatch.setattr(svc, "_hifigan_vocoder", fake_hifigan)
@@ -554,17 +553,13 @@ def test_streamed_hifigan_matches_one_shot(batching_service, monkeypatch):
     same mel within one LSB (the receptive-field hold-back)."""
     svc = batching_service
     gen = hifigan.hifigan_init(seed=3)
-
-    def voc(mel_bct):
-        return hifigan.hifigan_apply(
-            gen, torch.from_numpy(np.ascontiguousarray(mel_bct))).numpy()
-
-    monkeypatch.setattr(svc, "_hifigan_vocoder", voc)
+    monkeypatch.setattr(svc, "_hifigan_vocoder", gen)
     text = "Exact streaming check."
     streamed = np.frombuffer(b"".join(svc.stream_pcm(
         text, vocoder="hifigan", chunk_frames=8)), "<i2").astype(np.int32)
-    one_shot = np.frombuffer(srv._pcm16(voc(full_stream_mel(
-        svc, text, 8).T[None])[0]), "<i2").astype(np.int32)
+    one_shot = np.frombuffer(srv._pcm16(vocode_array(
+        gen, full_stream_mel(svc, text, 8)[None], "cpu")[0]),
+        "<i2").astype(np.int32)
     assert streamed.shape == one_shot.shape == (24 * 256,)
     assert np.abs(streamed - one_shot).max() <= 1
 
@@ -577,7 +572,7 @@ def test_streamed_griffinlim_has_one_shot_length(batching_service):
     streamed = np.frombuffer(b"".join(svc.stream_pcm(
         text, vocoder="griffinlim", chunk_frames=8)), "<i2")
     one_shot = vocode_mel(full_stream_mel(svc, text, 8), svc.cfg.audio,
-                          griffinlim_iters=svc.griffinlim_iters,
+                          GriffinLim(svc.cfg.audio, svc.griffinlim_iters),
                           device="cpu")
     assert streamed.shape == one_shot.shape
     assert np.isfinite(one_shot).all() and np.abs(streamed).max() <= 32767

@@ -284,24 +284,29 @@ def test_longform_hifigan_matches_jax(tiny):
         hifigan_params=export_jax_hifigan_params(gen), **kw)
     wav, mels = longform.synthesize_longform(
         tiny["model"], "Hello world. Bye.", Config(model=ModelConfig(**TINY)),
-        hifigan_params=gen, device="cpu", **kw)
+        vocoder=gen, device="cpu", **kw)
     silence = int(22050 * 0.12)
     assert wav.shape == (4 * 256 * 2 + silence,) == np.asarray(ref_wav).shape
     assert_pcm_close(wav, ref_wav)
 
 
 def test_longform_external_vocoder_matches_jax(tiny):
-    """The modular path: decode per bucket, then the caller's vocoder."""
+    """The modular path (the JAX package's, where a vocoder is given; the
+    port's with ``modular``): decode per bucket, then the caller's
+    vocoder, on the host there and on device tensors here."""
     def vocoder(mel_bct):       # (B, n_mels, T) -> (B, T * 256)
         return np.repeat(np.tanh(np.asarray(mel_bct).mean(axis=1)), 256, -1)
 
-    kw = dict(max_steps_per_sentence=6, vocoder=vocoder)
+    def device_vocoder(mel_bct):
+        return torch.tanh(mel_bct.mean(dim=1)).repeat_interleave(256, -1)
+
+    kw = dict(max_steps_per_sentence=6)
     ref_wav, ref_mels = jlongform.synthesize_longform(
         tiny["params"], tiny["state"], "Hello world. Bye.", tiny["jcfg"],
-        **kw)
+        vocoder=vocoder, **kw)
     wav, mels = longform.synthesize_longform(
         tiny["model"], "Hello world. Bye.", Config(model=ModelConfig(**TINY)),
-        device="cpu", **kw)
+        vocoder=device_vocoder, modular=True, device="cpu", **kw)
     for m, r in zip(mels, ref_mels):
         np.testing.assert_allclose(m, r, atol=MEL_TOL, rtol=0)
     np.testing.assert_allclose(wav, np.asarray(ref_wav), atol=MEL_TOL,

@@ -24,6 +24,7 @@ stop (observed: exactly; held to 3 frames) and on the attention's path
 by more than 1.
 """
 
+import functools
 import importlib
 import os
 import re
@@ -50,10 +51,11 @@ from tacotron2_torch.dsp import griffinlim as tgl
 from tacotron2_torch.dsp.wav import load_audio
 from tacotron2_torch.infer import fused, vocode
 from tacotron2_torch.infer import synthesize as synth
-from tacotron2_torch.models import hifigan
+from tacotron2_torch.models import hifigan, waveglow
 from tacotron2_torch.models.tacotron2 import (Tacotron2, cast_params_bf16,
                                               tacotron2_infer)
 from tacotron2_torch.text import pad_sequences, text_to_sequence
+from tacotron2_torch.utils import profiling
 from tacotron2_torch.utils.weights import (export_jax_hifigan_params,
                                            load_jax_params)
 
@@ -77,6 +79,8 @@ SMOKE_FRAME_ENDS = {"The quick brown fox.": 131,
                     "It costs 42 dollars.": 174,
                     "A zorblaxian wug sings.": 171}
 MEL_TOL, WAV_TOL = 2e-3, 2e-3
+WAVEGLOW_TINY = waveglow.WaveGlowConfig(n_channels=16, n_layers=2,
+                                        n_flows=4, n_early_every=2)
 
 
 def np_tree(tree):
@@ -131,9 +135,9 @@ def test_synthesize_wav_fused(small, jax_phase, forced):
         params, state, jcfg.model, jcfg.audio, jnp.asarray(tokens),
         jnp.asarray(lengths), max_steps=12, stop_mode="all", gl_iters=2,
         forced_stop_at=None if forced is None else jnp.int32(forced))
-    wav, n, ends = fused.synthesize_wav_fused(
-        model, cfg.audio, tokens, lengths, max_steps=12, stop_mode="all",
-        gl_iters=2, forced_stop_at=forced, device="cpu")
+    wav, _, n, ends = fused.synthesize_wav_fused(
+        model, vocode.GriffinLim(cfg.audio, 2), cfg.audio, tokens, lengths,
+        max_steps=12, stop_mode="all", forced_stop_at=forced, device="cpu")
     assert int(n) == int(ref_n) == (12 if forced is None else forced)
     np.testing.assert_array_equal(ends.numpy(), np.asarray(ref_ends))
     assert wav.shape == (2, 12 * 16)
@@ -225,30 +229,32 @@ def test_vocode_mels(small, jax_phase):
     rng = np.random.default_rng(1)
     mels = [(rng.standard_normal((t, 8)) - 4).astype(np.float32)
             for t in (5, 130, 128, 7, 3)]
+    gl = vocode.GriffinLim(cfg.audio, 2)
     ref = jvocode.vocode_mels(mels, jcfg.audio, griffinlim_iters=2,
                               max_group=2)
-    got = vocode.vocode_mels(mels, cfg.audio, griffinlim_iters=2,
-                             max_group=2, device="cpu")
+    got = vocode.vocode_mels(mels, cfg.audio, gl, max_group=2, device="cpu")
     for m, g, r in zip(mels, got, ref):
         assert g.shape == (m.shape[0] * 16,)
         assert_wav_close(g, np.asarray(r))
-    one = vocode.vocode_mel(mels[0], cfg.audio, griffinlim_iters=2,
-                            device="cpu")
+    one = vocode.vocode_mel(mels[0], cfg.audio, gl, device="cpu")
     assert_wav_close(one, np.asarray(jvocode.vocode_mel(
         mels[0], jcfg.audio, griffinlim_iters=2)))
-    # a vocoder callable takes the place of Griffin-Lim
+    # a vocoder callable takes the place of Griffin-Lim: a device tensor
+    # in, a device tensor out
     calls = []
 
     def fake(mel_ct):
-        calls.append(mel_ct.shape)
-        return np.zeros((mel_ct.shape[0], mel_ct.shape[2] * 16), np.float32)
+        assert torch.is_tensor(mel_ct) and mel_ct.dtype == torch.float32
+        calls.append(tuple(mel_ct.shape))
+        return torch.zeros(mel_ct.shape[0], mel_ct.shape[2] * 16)
 
-    out = vocode.vocode_mels(mels, cfg.audio, vocoder=fake)
+    out = vocode.vocode_mels(mels, cfg.audio, fake, device="cpu")
     assert [o.shape[0] for o in out] == [m.shape[0] * 16 for m in mels]
+    assert all(isinstance(o, np.ndarray) for o in out)
     assert sorted(calls) == [(1, 8, 256), (4, 8, 128)]
     # a group is vocoded at its own size: no batch padding to discard
     calls.clear()
-    vocode.vocode_mels(mels, cfg.audio, vocoder=fake, max_group=3)
+    vocode.vocode_mels(mels, cfg.audio, fake, max_group=3, device="cpu")
     assert sorted(calls) == [(1, 8, 128), (1, 8, 256), (3, 8, 128)]
     np.testing.assert_array_equal(
         vocode._pad_frames(mels[0], 8, 1e-5),
@@ -280,7 +286,7 @@ def test_hifigan_branches_match_jax(small80):
     ref = jfused.synthesize_wav_fused_hifigan(
         params, state, jgen, jcfg.model, jcfg.audio, jnp.asarray(tokens),
         jnp.asarray(lengths), max_steps=5, stop_mode="all")
-    got = fused.synthesize_wav_fused_hifigan(
+    got = fused.synthesize_wav_fused(
         model, gen, cfg.audio, tokens, lengths, max_steps=5,
         stop_mode="all", device="cpu")
     assert got[0].shape == (2, 5 * 256) and int(got[2]) == int(ref[2]) == 5
@@ -288,13 +294,14 @@ def test_hifigan_branches_match_jax(small80):
     np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]),
                                atol=MEL_TOL, rtol=0)
     assert_wav_close(got[0].numpy(), np.asarray(ref[0]))
-    # vocoder_chunk_frames: the exact chunked generator (six windows)
+    # the exact chunked generator (six windows) as the vocoder
     one, one_len = batch(TEXTS[:1])
     kw = dict(max_steps=44, device="cpu")
-    whole = fused.synthesize_wav_fused_hifigan(model, gen, cfg.audio, one,
-                                               one_len, **kw)
-    chunked = fused.synthesize_wav_fused_hifigan(
-        model, gen, cfg.audio, one, one_len, vocoder_chunk_frames=8, **kw)
+    whole = fused.synthesize_wav_fused(model, gen, cfg.audio, one, one_len,
+                                       **kw)
+    chunked = fused.synthesize_wav_fused(
+        model, functools.partial(hifigan.hifigan_apply_chunked, gen,
+                                 chunk=8), cfg.audio, one, one_len, **kw)
     np.testing.assert_allclose(chunked[0].numpy(), whole[0].numpy(),
                                atol=2e-5, rtol=0)
     # the two-phase pipeline's HiFi-GAN vocode of the bucket
@@ -304,8 +311,8 @@ def test_hifigan_branches_match_jax(small80):
         jnp.asarray(lengths), forced_stop_at=jnp.int32(3),
         hifigan_params=jgen, **kw)
     pcm, ends = fused.synthesize_wav_buckets(
-        model, cfg.audio, tokens, lengths, forced_stop_at=3,
-        hifigan_params=gen, device="cpu", **kw)
+        model, cfg.audio, tokens, lengths, forced_stop_at=3, vocoder=gen,
+        device="cpu", **kw)
     np.testing.assert_array_equal(ends, ref_ends)
     assert pcm.shape == (2, 4 * 256)
     assert_pcm_close(pcm.numpy(), np.asarray(ref_pcm))
@@ -316,7 +323,7 @@ def test_hifigan_branches_match_jax(small80):
         jnp.asarray(one_len), forced_stop_at=jnp.int32(3),
         hifigan_params=jgen, **kw)
     got = fused.synthesize_pcm_proportional(
-        model, cfg.audio, one, one_len, forced_stop_at=3, hifigan_params=gen,
+        model, cfg.audio, one, one_len, forced_stop_at=3, vocoder=gen,
         device="cpu", **kw)
     assert got[2] == ref[2] == 4 and got[0].shape == (1, 4 * 256)
     np.testing.assert_array_equal(got[1], ref[1])
@@ -330,6 +337,49 @@ def test_hifigan_branches_match_jax(small80):
     for w, r in zip(wavs, ref_wavs):
         assert w.dtype == np.float32 and w.shape == (5 * 256,)
         assert_wav_close(w, np.asarray(r))
+
+
+@pytest.mark.parametrize("path", ["synthesize_wav_fused",
+                                  "synthesize_pcm_proportional"])
+@pytest.mark.parametrize("name", ["griffinlim", "hifigan", "waveglow"])
+def test_each_vocoder_through_the_seam(small80, name, path):
+    """Each vocoder of ``infer/vocode.py`` through either path: exactly the
+    vocoder's own waveform of the masked mel the path returns, one
+    ``vocoder`` span, and ``vocoder.frames`` = B x S."""
+    *_, model, gen, _, cfg = small80
+    voc = {"griffinlim": vocode.GriffinLim(cfg.audio, 2), "hifigan": gen,
+           "waveglow": waveglow.waveglow_init(0, WAVEGLOW_TINY).eval()}[name]
+    tokens, lengths = batch(TEXTS)
+    kw = dict(stop_mode="all", forced_stop_at=5, device="cpu")
+    profiling.disable()
+    profiling.drain()
+    profiling.enable()
+    try:
+        if path == "synthesize_wav_fused":
+            wav, mel, _, ends = fused.synthesize_wav_fused(
+                model, voc, cfg.audio, tokens, lengths, max_steps=8, **kw)
+        else:
+            pcm, ends, bucket, mel = fused.synthesize_pcm_proportional(
+                model, cfg.audio, tokens, lengths, expected_frames=6,
+                buckets=(4, 8, 16), vocoder=voc, return_mel=True, **kw)
+            assert bucket == 8
+            mel = torch.from_numpy(mel)
+    finally:
+        profiling.disable()
+    names = [s.name for s in profiling.spans()]
+    counts = profiling.counts()
+    profiling.drain()
+    assert names.count("vocoder") == 1, names
+    assert counts["vocoder.frames"] == 2 * 8
+    assert mel.shape == (2, 8, 80) and list(ends) == [5, 5]
+    floor = float(np.float32(np.log(cfg.audio.mel_eps)))
+    assert bool((mel[:, 5:] == floor).all())
+    want = voc(mel.transpose(1, 2))
+    assert want.shape == (2, 8 * 256)
+    if path == "synthesize_wav_fused":
+        assert torch.equal(wav, want)
+    else:
+        assert np.array_equal(pcm, fused._to_pcm16(want).numpy())
 
 
 FALLBACK = re.compile(r"^HiFi-GAN unavailable \((\w+): .+\); falling back "
@@ -351,8 +401,10 @@ def test_hifigan_falls_back_to_griffin_lim(small, tmp_path, capsys):
              for v in ("griffinlim", "HiFiGAN", "other")}
     out = capsys.readouterr().out
     assert jax_line and len(FALLBACK.findall(out)) == 1
-    assert vocode.try_load_hifigan_params() is None
+    assert vocode.try_load_vocoder("hifigan", device="cpu") is None
     assert FALLBACK.search(capsys.readouterr().out)
+    assert vocode.try_load_vocoder("griffinlim", device="cpu") is None
+    assert not capsys.readouterr().out
     ref, _ = load_audio(paths["griffinlim"])
     for v in ("HiFiGAN", "other"):
         got, _ = load_audio(paths[v])

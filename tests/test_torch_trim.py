@@ -18,6 +18,7 @@ import torch
 
 from tacotron2_torch.config import AudioConfig, Config, ModelConfig
 from tacotron2_torch.infer import fused
+from tacotron2_torch.infer.vocode import GriffinLim
 from tacotron2_torch.models.hifigan import hifigan_init
 from tacotron2_torch.models.tacotron2 import (Tacotron2, init_weights,
                                               tacotron2_infer)
@@ -125,8 +126,8 @@ def test_hifigan_route_delivers_the_whole_buffers_samples(models,
                                                           monkeypatch):
     """HiFi-GAN: ``synthesize_wav`` (cut to 128 frames) delivers each
     row's samples of the uncut route within round-off;
-    ``synthesize_wav_fused_hifigan`` keeps ``max_steps`` without ``trim``
-    and vocodes 128 frames with it."""
+    ``synthesize_wav_fused`` keeps ``max_steps`` without ``trim`` and
+    vocodes 128 frames with it."""
     model = models[80]
     cfg = Config(model=model.cfg, audio=AudioConfig())
     hop = cfg.audio.hop_length
@@ -135,9 +136,9 @@ def test_hifigan_route_delivers_the_whole_buffers_samples(models,
     force_stop(monkeypatch, STOP)
     kw = dict(stop_mode="all", device="cpu")
     with torch.no_grad():
-        full_wav, full_mel, _, ends = fused.synthesize_wav_fused_hifigan(
+        full_wav, full_mel, _, ends = fused.synthesize_wav_fused(
             model, hifigan, cfg.audio, tokens, lengths, **kw)
-        cut_wav, cut_mel, _, cut_ends = fused.synthesize_wav_fused_hifigan(
+        cut_wav, cut_mel, _, cut_ends = fused.synthesize_wav_fused(
             model, hifigan, cfg.audio, tokens, lengths,
             trim=fused.trim_to_bucket, **kw)
         profiling.enable()
@@ -172,8 +173,8 @@ def test_griffin_lim_route_draws_its_phase_for_the_cut(models, monkeypatch):
     tokens, lengths = batch()
     force_stop(monkeypatch, STOP)
     wavs = fused.synthesize_wav(model, TEXTS, cfg, gl_iters=2, device="cpu")
-    full_wav, _, ends = fused.synthesize_wav_fused(
-        model, acfg, tokens, lengths, stop_mode="all", gl_iters=2,
+    full_wav, _, _, ends = fused.synthesize_wav_fused(
+        model, GriffinLim(acfg, 2), acfg, tokens, lengths, stop_mode="all",
         device="cpu")
     assert full_wav.shape == (2, MAX_STEPS * hop)
     out, _, cut_ends = tacotron2_infer(model, tokens, text_lengths=lengths,
@@ -183,7 +184,7 @@ def test_griffin_lim_route_draws_its_phase_for_the_cut(models, monkeypatch):
     assert out.mel_postnet.shape[1] == 128
     assert torch.equal(ends, cut_ends)
     mel = fused._mask_and_slice(out.mel_postnet, cut_ends, 128, acfg.mel_eps)
-    ref = fused._griffin_lim_wav(mel, acfg, 2)
+    ref = GriffinLim(acfg, 2)(mel.transpose(1, 2))
     assert ref.shape == (2, 128 * hop)
     for b, e in enumerate(ends.tolist()):
         np.testing.assert_allclose(wavs[b], ref[b, :e * hop].numpy(),

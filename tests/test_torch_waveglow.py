@@ -253,13 +253,13 @@ def test_synthesize_wav_matches_reference(taco, small, monkeypatch):
 
 def test_pcm_proportional_and_fallback(taco, small, capsys):
     """The length-proportional path takes WaveGlow where it is given, and
-    the loaders fall back to Griffin-Lim, with a message, where no file
-    is."""
+    where no file is the loader raises and its ``try_`` form falls back to
+    Griffin-Lim, with a message."""
     tokens, lengths = pad_sequences([text_to_sequence("Hi there.")],
                                     pad_multiple=16)
     cfg = Config(model=ModelConfig(**TACO))
     pcm, ends, bucket = fused.synthesize_pcm_proportional(
-        taco, cfg.audio, tokens, lengths, forced_stop_at=40, waveglow=small,
+        taco, cfg.audio, tokens, lengths, forced_stop_at=40, vocoder=small,
         device="cpu")
     mel, _, fe = fused.decode_mel_fused(taco, tokens, lengths,
                                         max_steps=bucket, forced_stop_at=40,
@@ -267,11 +267,12 @@ def test_pcm_proportional_and_fallback(taco, small, capsys):
     masked = fused._mask_and_slice(mel, fe, bucket, cfg.audio.mel_eps)
     want = fused._to_pcm16(W.waveglow_infer(small, masked.transpose(1, 2)))
     assert np.array_equal(pcm, want.numpy())
-    assert vocode.try_load_waveglow_params(
-        "no/such/file.pt", device="cpu") is None
-    assert vocode.try_load_waveglow("no/such/file.pt", device="cpu") is None
+    assert vocode.try_load_vocoder(
+        "waveglow", "no/such/file.pt", device="cpu") is None
     out = capsys.readouterr().out
-    assert out.count("WaveGlow unavailable (FileNotFoundError: ") == 2
+    assert out.count("WaveGlow unavailable (FileNotFoundError: ") == 1
+    with pytest.raises(FileNotFoundError, match="WaveGlow checkpoint"):
+        vocode.load_vocoder("waveglow", "no/such/file.pt", device="cpu")
     assert "falling back to Griffin-Lim." in out
 
 

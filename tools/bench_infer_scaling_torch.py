@@ -194,6 +194,7 @@ def sweep_sharded(model, cfg, devices: Sequence, batches: Sequence[int],
     cap under stop mode "all".  Returns one record a point."""
     from tacotron2_torch.infer.fused import _fetch, synthesize_wav_fused
     from tacotron2_torch.infer.sharded import ShardedSynthesizer
+    from tacotron2_torch.infer.vocode import GriffinLim
     from tacotron2_torch.parallel import make_mesh
     from tacotron2_torch.text import pad_sequences, text_to_sequence
 
@@ -205,9 +206,10 @@ def sweep_sharded(model, cfg, devices: Sequence, batches: Sequence[int],
     records = []
     for b in batches:
         def run():
-            wav, _, _ = synthesize_wav_fused(
-                model, cfg.audio, tokens[:b], lengths[:b], None,
-                max_steps=cap, stop_mode="all", device=lead)
+            wav, *_ = synthesize_wav_fused(
+                model, GriffinLim(cfg.audio), cfg.audio, tokens[:b],
+                lengths[:b], None, max_steps=cap, stop_mode="all",
+                device=lead)
             _fetch(wav)
 
         run()
