@@ -41,7 +41,7 @@ it fails:
    main path, its error there (and over the sweeps of phases 4-5), its
    time, the plain version's, and the bound (the larger of bytes over
    3.35 TB/s and operations over the peak rate of their type, H100 SXM
-   data sheet), printed after phase 10 with all five kernels;
+   data sheet), printed after phase 24 with all seven kernels;
 8. the CUDA ``decoder_fwd_train_mega`` (the teacher-forced decoder forward)
    against its plain version at full width on seeded weights: B in
    {2, 5, 16} (5: a padded M tile in the reverse chain's products),
@@ -308,9 +308,26 @@ it fails:
     within ``GRAD_TOL``, the gap printed); every recompute of #1 the
     forward's bits; the ops the ``dots`` policy keeps, by name.
 
+24. WaveGlow's WN passes on the batched main path (``waveglow_phase``):
+    ``synthesize_wav`` of 64 seeded rows (the four sentences of phase 12,
+    16 times) on the bf16 acoustic model, which no gate stops before
+    ``WAVEGLOW_FRAMES`` (512, the bucket of ``batch-b64-waveglow``'s
+    batches), vocoded by WaveGlow at its published widths on seeded fp32
+    weights with cuDNN's TF32 on (its default, as in the cell): B=64,
+    C=512, N=16384.  Launch counters and the tracer's counters zeroed
+    before and read after: 96 launches of ``wn_gate`` and of
+    ``wn_res_skip`` and 96 fused WN layers of 96; the waveforms finite,
+    not silent and 512 x hop long.  Then the same batch again with each
+    pass held against its plain version on every layer's own inputs, bit
+    for bit, and the gate, and ``wn_res_skip`` on a first, a middle and a
+    last layer, timed (CUDA events) beside their plain PyTorch passes and
+    their bytes over 3.35 TB/s; a batch's sum of each.
+
 Phases 11-14 and 17 run after phase 7, before the training phases,
-phases 15 and 16 after phase 10, then phases 18-23 last.  The
-``kernels`` line has five entries; the serving path's three carry
+phases 15 and 16 after phase 10, then phases 18-24 last.  The
+``kernels`` line has seven entries, the five kernels above and phase
+24's two (``wn_res_skip``'s ``by_layer`` holds its three layer kinds);
+the serving path's three carry
 ``serve_path_launches``, the data path's three ``quality_path_launches``,
 the data-parallel training path's four ``dp_path_launches`` (one rank's),
 the sharded serving path's two ``sharded_path_launches``, the
@@ -5586,6 +5603,171 @@ def remat_phase(dev, smi: str) -> dict:
             "rows": out["rows"]}
 
 
+WAVEGLOW_FRAMES = 512   # the bucket of batch-b64-waveglow's batches
+WAVEGLOW_BATCH = 64
+
+
+def wn_bytes(kind: str, b: int, c: int, n: int, size: int) -> int:
+    """Bytes a WN pass needs, each input read and each output written once:
+    the gate reads p and q (2C each) and writes g (C); ``wn_res_skip``
+    reads r (2C, or C on the last layer), reads and writes x[:, :C] below
+    the last layer, and writes skip (first layer) or reads and writes it."""
+    per_position = {"gate": 2 * 2 * c + c,
+                    "first": 2 * c + 2 * c + c,
+                    "middle": 2 * c + 2 * c + 2 * c,
+                    "last": c + 2 * c}[kind]
+    return per_position * b * n * size
+
+
+def waveglow_phase(dev, smi: str, base) -> list:
+    """Phase 24: WaveGlow's WN passes on the batched main path.  ``base``
+    is the seeded full-width acoustic model.  Returns the kernels-line
+    entries of ``wn_gate`` and ``wn_res_skip``."""
+    from tacotron2_torch.config import Config
+    from tacotron2_torch.infer.fused import synthesize_wav
+    from tacotron2_torch.models import waveglow as W
+    from tacotron2_torch.models.tacotron2 import cast_params_bf16
+    from tacotron2_torch.ops import waveglow_kernel as K
+    from tacotron2_torch.utils import profiling
+
+    phase0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True      # cuDNN's default, the cell's
+    frames, texts = WAVEGLOW_FRAMES, list(SMOKE_TEXTS) * (WAVEGLOW_BATCH // 4)
+    cfg = Config(model=dataclasses.replace(base.cfg,
+                                           max_decoder_steps=frames))
+    model = cast_params_bf16(base).to(dev)
+    wcfg = W.WaveGlowConfig()
+    vocoder = W.waveglow_init(SEED, wcfg).to(dev)
+    layers = wcfg.n_flows * wcfg.n_layers
+    hop = cfg.audio.hop_length
+    synthesize_wav(model, texts[:2], cfg, max_steps=8, waveglow=vocoder,
+                   device=dev)
+
+    # the counted run: launches and counters zeroed before, read after
+    K.wn_gate.launches = K.wn_res_skip.launches = 0
+    profiling.drain()
+    profiling.enable()
+    try:
+        t1 = time.perf_counter()
+        wavs = synthesize_wav(model, texts, cfg, max_steps=frames,
+                              waveglow=vocoder, device=dev)
+        wall = time.perf_counter() - t1
+        counts = profiling.counts()
+    finally:
+        profiling.disable()
+        profiling.drain()
+    launches = (K.wn_gate.launches, K.wn_res_skip.launches)
+    fused = (counts.get("waveglow.wn_layers"),
+             counts.get("waveglow.wn_layers_fused"))
+    audio_s = sum(len(w) for w in wavs) / cfg.audio.sampling_rate
+    print(f"[waveglow] synthesize_wav, B={len(texts)} rows of {frames} "
+          f"frames (seeded weights: no row stops), fp32 WaveGlow at the "
+          f"published widths, cuDNN TF32: launches wn_gate={launches[0]} "
+          f"wn_res_skip={launches[1]}, counters waveglow.wn_layers="
+          f"{fused[0]} waveglow.wn_layers_fused={fused[1]}; {audio_s:.2f} s "
+          f"of audio in {wall:.3f} s", flush=True)
+    check(launches == (layers, layers), f"phase 24: the WaveGlow batch "
+          f"launched {launches}, expected {layers} each")
+    check(fused == (layers, layers), f"phase 24: counters {fused}, "
+          f"expected {layers} each")
+    check(len(wavs) == len(texts)
+          and all(w.shape == (frames * hop,) and np.isfinite(w).all()
+                  and np.abs(w).max() > 0 for w in wavs),
+          "phase 24: a waveform is not finite, silent or of another length")
+
+    # every layer of the same batch again, each pass against its plain
+    # version on that layer's own inputs; the first of each kind timed
+    timed, seen = {}, {"gate": 0, "res_skip": 0}
+
+    def kind_of(i: int) -> str:
+        return ("first" if i % wcfg.n_layers == 0 else "last"
+                if i % wcfg.n_layers == wcfg.n_layers - 1 else "middle")
+
+    def pair_ms(kind, fn, plain, shape, size):
+        b, c, n = shape
+        timed[kind] = dict(
+            ms=time_ms(fn, 10), plain_ms=time_ms(plain, 5),
+            bytes=wn_bytes(kind, b, c, n, size),
+            bound_ms=wn_bytes(kind, b, c, n, size) / HBM_BYTES_PER_S * 1e3)
+
+    def gate(p, q, b_in, b_cond):
+        i = seen["gate"]
+        seen["gate"] += 1
+        got = K.wn_gate(p, q, b_in, b_cond)
+        want = K.wn_gate_reference(p, q, b_in, b_cond)
+        check(torch.equal(got, want), f"phase 24: wn_gate differs from its "
+              f"plain version on layer {i} by {max_err([got], [want]):.3e}")
+        if kind_of(i) == "middle" and "gate" not in timed:
+            pair_ms("gate", lambda: K.wn_gate(p, q, b_in, b_cond),
+                    lambda: K.wn_gate_reference(p, q, b_in, b_cond),
+                    got.shape, got.element_size())
+        return got
+
+    def res_skip(r, bias, x, skip):
+        i = seen["res_skip"]
+        seen["res_skip"] += 1
+        kind = kind_of(i)
+        if kind not in timed:
+            xs = (x.clone(), None if skip is None else skip.clone())
+            pair_ms(kind, lambda: K.wn_res_skip(r, bias, *xs),
+                    lambda: K.wn_res_skip_reference(r, bias, *xs),
+                    x.shape, x.element_size())
+            del xs
+        x2, skip2 = x.clone(), None if skip is None else skip.clone()
+        want = K.wn_res_skip_reference(r, bias, x2, skip2)
+        got = K.wn_res_skip(r, bias, x, skip)
+        check(torch.equal(got, want) and torch.equal(x, x2),
+              f"phase 24: wn_res_skip differs from its plain version on "
+              f"layer {i} ({kind}) by {max_err([got, x], [want, x2]):.3e}")
+        return got
+
+    gate.launches = res_skip.launches = 0
+    swapped = {"wn_gate": W.wn_gate, "wn_res_skip": W.wn_res_skip}
+    W.wn_gate, W.wn_res_skip = gate, res_skip
+    try:
+        synthesize_wav(model, texts, cfg, max_steps=frames, waveglow=vocoder,
+                       device=dev)
+    finally:
+        W.wn_gate, W.wn_res_skip = swapped["wn_gate"], swapped["wn_res_skip"]
+        torch.backends.cudnn.allow_tf32 = tf32
+    check(seen == {"gate": layers, "res_skip": layers},
+          f"phase 24: the checked batch ran {seen}")
+    groups = frames * hop // wcfg.n_group
+    shape = f"B={len(texts)} C={wcfg.n_channels} N={groups} fp32"
+    for kind, t in timed.items():
+        print(f"[waveglow {kind}] {shape}: {t['bytes'] / 1e9:.2f} GB, bound "
+              f"{t['bound_ms']:.3f} ms at 3.35 TB/s, kernel {t['ms']:.3f} ms "
+              f"({t['bound_ms'] / t['ms']:.0%} of the bound), plain PyTorch "
+              f"passes {t['plain_ms']:.3f} ms", flush=True)
+    per_layer = {"first": 1, "middle": wcfg.n_layers - 2, "last": 1}
+    batch = {k: wcfg.n_flows * sum(n * (timed["gate"][k] + timed[m][k])
+                                   for m, n in per_layer.items())
+             for k in ("bytes", "bound_ms", "ms", "plain_ms")}
+    print(f"[waveglow] a batch's {layers} WN layers: "
+          f"{batch['bytes'] / 1e12:.3f} TB, bound {batch['bound_ms']:.1f} ms,"
+          f" kernels {batch['ms']:.1f} ms, plain passes "
+          f"{batch['plain_ms']:.1f} ms; every layer's two passes bit for "
+          f"bit their plain versions on its own inputs; phase 24 wall "
+          f"{time.perf_counter() - phase0:.1f} s ({smi})", flush=True)
+    del model, vocoder, wavs
+    torch.cuda.empty_cache()
+    source = "tacotron2_torch/csrc/waveglow_wn.cu"
+    return [
+        dict(name="wn_gate", route="cuda", source=source, replaces=None,
+             launches=launches[0], max_abs_err=0.0, ms=timed["gate"]["ms"],
+             plain_ms=timed["gate"]["plain_ms"],
+             bound_ms=timed["gate"]["bound_ms"], bound_by="bytes",
+             library_ms=None, shape=shape),
+        dict(name="wn_res_skip", route="cuda", source=source, replaces=None,
+             launches=launches[1], max_abs_err=0.0,
+             ms=timed["middle"]["ms"], plain_ms=timed["middle"]["plain_ms"],
+             bound_ms=timed["middle"]["bound_ms"], bound_by="bytes",
+             library_ms=None, shape=shape,
+             by_layer={k: timed[k] for k in per_layer}),
+    ]
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels run "
@@ -5995,7 +6177,9 @@ def main() -> int:
         tools_tmp.cleanup()
     # 23. decoder-step rematerialisation on the step-loop training path
     remat = remat_phase(dev, smi)
-    kernels += train_kernels + [conv_kernel]
+    # 24. WaveGlow's WN passes on the batched main path
+    wn_kernels = waveglow_phase(dev, smi, base)
+    kernels += train_kernels + [conv_kernel] + wn_kernels
     for entry in kernels:
         for phase in (serve, quality, parallel, tensor, c6, tools, remat):
             entry.update(phase.get(entry["name"], {}))

@@ -45,7 +45,18 @@ weight's type the first time a weight is seen (after a load or a move),
 then kept.  Each WN layer's conditioning is the product of its own
 1024-row slice of ``cond_layer`` (no (B, 8192, T * 32) tensor: 34 GB at B
 = 64 and 512 frames).  The convolutions run in the weights' type; fp32
-weights on the card run in TF32, cuDNN's default, as HiFi-GAN's do.
+weights on the card run in TF32, cuDNN's default, as HiFi-GAN's do.  A
+WN layer's three products (``in_layers[i]``, the conditioning's slice,
+``res_skip_layers[i]``) run without their biases, and its elementwise
+work is two passes of ``ops/waveglow_kernel.py`` that add them: the gate
+(both biases, the conditioning's add, tanh, sigmoid and their product,
+written once) and the residual and skip adds (``res_skip``'s bias, ``x``
+and ``skip`` updated in place).  On the card they are one CUDA kernel
+each, in the order and type of the PyTorch passes they replace, so the
+card gives those passes' bits; the CPU runs the passes themselves.  The
+counters ``waveglow.wn_layers`` and ``waveglow.wn_layers_fused`` count
+the WN layers run and those whose two passes each launched its kernel
+(read from the wrappers' launch counts).
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.waveglow_kernel import wn_gate, wn_res_skip
 from ..utils.device import resolve_device
 from ..utils.profiling import count, span
 from .hifigan import _denorm, _numpy
@@ -190,21 +202,27 @@ def draw_noise(batch: int, groups: int, n_group: int,
 
 
 def _wn(wn: WN, x0: torch.Tensor, cond_in: torch.Tensor, c: int):
-    """(b, s) of one coupling: the WN of ``x0`` and ``cond_in``."""
+    """(b, s) of one coupling: the WN of ``x0`` and ``cond_in``.  ``x``
+    and ``skip`` are this call's own buffers, which :func:`wn_res_skip`
+    updates in place."""
     x = wn.start(x0)
     skip = None
-    last = len(wn.in_layers) - 1
+    fused = 0
     for i, (layer, res_skip) in enumerate(zip(wn.in_layers,
                                               wn.res_skip_layers)):
+        launched = (wn_gate.launches + 1, wn_res_skip.launches + 1)
         rows = slice(2 * c * i, 2 * c * (i + 1))
-        a = layer(x).add_(F.conv1d(cond_in, wn.cond_layer.weight[rows],
-                                   wn.cond_layer.bias[rows]))
-        r = res_skip(torch.tanh(a[:, :c]).mul_(torch.sigmoid(a[:, c:])))
-        del a
-        if i < last:
-            x = x + r[:, :c]
-            r = r[:, c:]
-        skip = r if skip is None else skip + r
+        g = wn_gate(F.conv1d(x, layer.weight, None, layer.stride,
+                             layer.padding, layer.dilation),
+                    F.conv1d(cond_in, wn.cond_layer.weight[rows]),
+                    layer.bias, wn.cond_layer.bias[rows])
+        skip = wn_res_skip(F.conv1d(g, res_skip.weight), res_skip.bias, x,
+                           skip)
+        del g
+        fused += (wn_gate.launches, wn_res_skip.launches) == launched
+    count("waveglow.wn_layers", len(wn.in_layers))
+    if fused:
+        count("waveglow.wn_layers_fused", fused)
     out = wn.end(skip)
     h = out.shape[1] // 2
     return out[:, :h], out[:, h:]

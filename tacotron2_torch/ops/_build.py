@@ -24,7 +24,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CUDA_SOURCES = ("decoder_infer", "decoder_train_fwd", "decoder_train_bwd",
-                "conv_bn_act", "attention_tail")
+                "conv_bn_act", "attention_tail", "waveglow_wn")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
