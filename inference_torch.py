@@ -5,7 +5,8 @@ The flags are ``inference.py``'s, plus ``--device``:
 
     python inference_torch.py "Hello world." --checkpoint ckpt_dir \\
         [--output_dir generated_audio] \\
-        [--vocoder hifigan|waveglow|griffinlim] [--waveglow_checkpoint F] \\
+        [--vocoder hifigan|waveglow|bigvgan|griffinlim] \\
+        [--waveglow_checkpoint F] [--bigvgan_checkpoint F] \\
         [--device cuda|cpu]
     python inference_torch.py --input_file input.txt --longform \\
         --checkpoint ...
@@ -19,7 +20,10 @@ reads the HiFi-GAN generator from ``$HIFIGAN_CHECKPOINT`` or
 where there is none.  ``--vocoder waveglow`` reads NVIDIA's WaveGlow
 state dict from ``--waveglow_checkpoint``, ``$WAVEGLOW_CHECKPOINT`` or
 ``./waveglow_checkpoint.pt`` (``models/waveglow.py``), with the same
-fallback.
+fallback; ``--vocoder bigvgan`` NVIDIA's BigVGAN generator from
+``--bigvgan_checkpoint``, ``$BIGVGAN_CHECKPOINT`` or
+``./bigvgan_generator.pt`` (``models/bigvgan.py``), likewise, on the
+routes HiFi-GAN takes.
 """
 
 import argparse
@@ -47,11 +51,16 @@ def parse_args(argv: Optional[List[str]] = None
                         help="Path to a trained model checkpoint.")
     parser.add_argument("--output_dir", type=str, default="generated_audio")
     parser.add_argument("--vocoder", type=str, default="hifigan",
-                        choices=["hifigan", "waveglow", "griffinlim"])
+                        choices=["hifigan", "waveglow", "bigvgan",
+                                 "griffinlim"])
     parser.add_argument("--waveglow_checkpoint", type=str, default=None,
                         help="NVIDIA WaveGlow checkpoint for --vocoder "
                              "waveglow (default $WAVEGLOW_CHECKPOINT or "
                              "./waveglow_checkpoint.pt).")
+    parser.add_argument("--bigvgan_checkpoint", type=str, default=None,
+                        help="NVIDIA BigVGAN generator for --vocoder "
+                             "bigvgan (default $BIGVGAN_CHECKPOINT or "
+                             "./bigvgan_generator.pt).")
     parser.add_argument("--griffinlim_iters", type=int, default=60)
     parser.add_argument("--speaker_id", type=int, default=None,
                         help="Speaker index for multi-speaker checkpoints.")
@@ -83,12 +92,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     from tacotron2_torch.infer.vocode import (GriffinLim, try_load_vocoder,
                                               vocode_mels)
 
+    checkpoint = {"waveglow": args.waveglow_checkpoint,
+                  "bigvgan": args.bigvgan_checkpoint}.get(args.vocoder)
+
     def neural_vocoder():
         """The neural vocoder ``--vocoder`` names, or None for Griffin-Lim
         (asked for, or the fallback)."""
-        return try_load_vocoder(
-            args.vocoder, args.waveglow_checkpoint
-            if args.vocoder == "waveglow" else None, args.device)
+        return try_load_vocoder(args.vocoder, checkpoint, args.device)
 
     if args.batch_file:
         with open(args.batch_file, "r", encoding="utf-8") as f:
@@ -126,7 +136,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         from tacotron2_torch.infer.longform import synthesize_longform
         cfg = _make_cfg(args)
         model = load_model(args.checkpoint, cfg, args.device)
-        # HiFi-GAN and Griffin-Lim take the proportional route
+        # HiFi-GAN, BigVGAN and Griffin-Lim take the proportional route
         # (longform.py), WaveGlow the modular route
         vocode = neural_vocoder()
         wav, mels = synthesize_longform(
@@ -144,8 +154,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                    output_dir=args.output_dir, vocoder=args.vocoder,
                    griffinlim_iters=args.griffinlim_iters,
                    cfg=_make_cfg(args), speaker_id=args.speaker_id,
-                   device=args.device,
-                   waveglow_checkpoint=args.waveglow_checkpoint)
+                   device=args.device, vocoder_checkpoint=checkpoint)
 
 
 if __name__ == "__main__":

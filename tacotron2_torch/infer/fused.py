@@ -7,8 +7,9 @@ with no host synchronisation inside it: encoder + decode kernel + postnet
 waits once, when it fetches the result.  The vocoder is one argument, a
 callable of the seam ``infer/vocode.py`` (``GriffinLim``, the HiFi-GAN
 generator of ``models/hifigan.py`` in place of the JAX package's params
-pytree, or WaveGlow of ``models/waveglow.py``); every function here
-vocodes through :func:`_vocode`, inside the ``vocoder`` span.
+pytree, WaveGlow of ``models/waveglow.py`` or BigVGAN of
+``models/bigvgan.py``); every function here vocodes through
+:func:`_vocode`, inside the ``vocoder`` span.
 
 Frames beyond the gate stop are masked to the log floor before vocoding,
 so the vocoder sees silence there; the caller trims the returned waveform
@@ -182,7 +183,9 @@ def pick_bucket(n_frames: int, max_steps: int,
 
 # The cut route's margin past the batch's last stop: the postnet reaches
 # 10 frames either side (five 5-tap layers) and HiFi-GAN 16, so every
-# delivered sample sees the inputs it sees in the whole buffer.
+# delivered sample sees the inputs it sees in the whole buffer.  WaveGlow
+# and BigVGAN (38 frames) reach further: where a bucket ends within their
+# radius of the last stop, that row's last samples see the buffer's end.
 TRIM_MARGIN = 32
 
 
@@ -301,18 +304,23 @@ def synthesize_wav(model: Tacotron2, texts: Sequence[str],
                    max_steps: Optional[int] = None, gl_iters: int = 60,
                    speaker_id=None, hifigan_params=None,
                    device: Device = "cuda",
-                   waveglow: Optional[WaveGlow] = None) -> List[np.ndarray]:
+                   waveglow: Optional[WaveGlow] = None,
+                   vocoder: Optional[Vocoder] = None) -> List[np.ndarray]:
     """Host convenience: texts -> list of trimmed float32 waveforms via
     :func:`synthesize_wav_fused` on the cut route (:func:`trim_to_bucket`):
     the postnet and the vocoder run over the bucket that ends just past
-    the batch's last stop.  The vocoder is ``hifigan_params`` (a
-    ``models/hifigan.py::HiFiGAN``) or ``waveglow`` (a
-    ``models/waveglow.py::WaveGlow``) where given, Griffin-Lim at
-    ``gl_iters`` otherwise.  Griffin-Lim draws its initial phase for the
-    cut bucket, so where the route cuts its audio differs from the whole
+    the batch's last stop.  The vocoder is ``vocoder``, any callable of
+    the seam ``infer/vocode.py`` (``GriffinLim``, ``HiFiGAN``,
+    ``WaveGlow``, ``BigVGAN``), where given; ``hifigan_params`` and
+    ``waveglow`` are aliases for it; Griffin-Lim at ``gl_iters`` where
+    none is given.  Griffin-Lim draws its initial phase for the cut
+    bucket, so where the route cuts its audio differs from the whole
     buffer's (and the JAX package's)."""
     cfg = cfg or Config()
-    vocoder = hifigan_params or waveglow or GriffinLim(cfg.audio, gl_iters)
+    given = [v for v in (vocoder, hifigan_params, waveglow) if v is not None]
+    if len(given) > 1:
+        raise ValueError("give one of vocoder=, hifigan_params=, waveglow=")
+    vocoder = given[0] if given else GriffinLim(cfg.audio, gl_iters)
     with span("synthesize_wav", root=True):
         with span("frontend"):
             seqs = [text_to_sequence(t) or [0] for t in texts]

@@ -133,24 +133,23 @@ def synthesize(text: str, checkpoint_path: str, output_dir: str,
                vocoder: str = "griffinlim", cfg: Optional[Config] = None,
                griffinlim_iters: int = 60, speaker_id: Optional[int] = None,
                device: Device = "cuda",
-               waveglow_checkpoint: Optional[str] = None) -> str:
+               vocoder_checkpoint: Optional[str] = None) -> str:
     """Full single-utterance pipeline; returns the written WAV path.
-    ``vocoder`` "hifigan" or "waveglow" (read from
-    ``waveglow_checkpoint``, ``$WAVEGLOW_CHECKPOINT`` or
-    ``./waveglow_checkpoint.pt``) falls back to Griffin-Lim with a message
-    where the vocoder cannot be loaded."""
+    ``vocoder`` "hifigan", "waveglow" or "bigvgan" (read from
+    ``vocoder_checkpoint``, else the vocoder's environment variable or file,
+    ``infer/vocode.py::load_vocoder``) falls back to Griffin-Lim with a
+    message where the vocoder cannot be loaded."""
     cfg = cfg or Config()
     print("Loading Tacotron 2 model...")
     model = load_model(checkpoint_path, cfg, device)
     print("Tacotron 2 model loaded.")
 
     # "hifigan" tries HiFi-GAN and falls back to Griffin-Lim with a
-    # message; "waveglow" likewise; any other name is Griffin-Lim (as in
-    # the JAX package)
+    # message; "waveglow" and "bigvgan" likewise; any other name is
+    # Griffin-Lim (as in the JAX package)
     from .vocode import VOCODERS, try_load_vocoder
     key = vocoder.lower()
-    voc = try_load_vocoder(key, waveglow_checkpoint if key == "waveglow"
-                           else None, device)
+    voc = try_load_vocoder(key, vocoder_checkpoint, device)
     name = VOCODERS[key] if voc is not None else "Griffin-Lim"
 
     # Length-proportional path: the mel bucket is picked from the text

@@ -1,13 +1,15 @@
 """The vocoder seam, and the shared vocoding helper of the modular path.
 
 A vocoder is any callable ``mel (B, n_mels, S) log-mel on the device ->
-waveform (B, S * hop) on the device``.  The port has three:
-:class:`GriffinLim` here, ``models/hifigan.py::HiFiGAN`` and
-``models/waveglow.py::WaveGlow`` (each module's ``forward`` is its
-inference).  :func:`load_vocoder` reads a neural one from NVIDIA's
-checkpoint; :func:`try_load_vocoder` returns None instead, with the JAX
-package's message (or its like for WaveGlow), so that callers fall back to
-Griffin-Lim.  Every synthesis path takes one such callable.
+waveform (B, S * hop) on the device``.  The port has four:
+:class:`GriffinLim` here, ``models/hifigan.py::HiFiGAN``,
+``models/waveglow.py::WaveGlow`` and ``models/bigvgan.py::BigVGAN`` (each
+module's ``forward`` is its inference).  :func:`load_vocoder` reads a
+neural one from NVIDIA's checkpoint; :func:`try_load_vocoder` returns None
+instead, with the JAX package's message (or its like for WaveGlow and
+BigVGAN), so that callers fall back to Griffin-Lim.  Every synthesis path
+takes one such callable (``infer/fused.py::synthesize_wav`` as its
+``vocoder=``).
 
 Counterpart of ``tacotron2_tpu/infer/vocode.py``: gate-trimmed mels have
 arbitrary lengths; :func:`vocode_mels` pads the time axis to 128-frame
@@ -60,15 +62,16 @@ class GriffinLim:
 
 
 # the neural vocoders by name, as the fallback message spells them
-VOCODERS = {"hifigan": "HiFi-GAN", "waveglow": "WaveGlow"}
+VOCODERS = {"hifigan": "HiFi-GAN", "waveglow": "WaveGlow",
+            "bigvgan": "BigVGAN"}
 
 
 def load_vocoder(name: str, checkpoint_path: Optional[str] = None,
                  device: Device = "cuda", *, bf16: bool = False,
                  chunk_frames: Optional[int] = None) -> Vocoder:
-    """The neural vocoder ``name`` ("hifigan" or "waveglow") read from
-    NVIDIA's checkpoint (``models/<name>.py::load_<name>_params``: the
-    argument, the environment variable, the file in the working
+    """The neural vocoder ``name`` ("hifigan", "waveglow" or "bigvgan")
+    read from NVIDIA's checkpoint (``models/<name>.py::load_<name>_params``:
+    the argument, the environment variable, the file in the working
     directory) onto ``device``.
 
     ``bf16`` casts its weights (half the activation memory); the audio
